@@ -5,20 +5,42 @@
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; build the CUDA kernels
-     (``src/repro_torch/csrc``) with nvcc for sm_90a;
-  2. every kernel against its plain PyTorch version on the card, bit for
-     bit: ``hash_probe`` with the TPU kernel's contract (widths 1/2/4/8,
-     hits, misses, chained keys, clamped starts) and with the dataplane's
-     contract (cache hits, offsets that clamp, undelivered lanes);
+     (``src/repro_torch/csrc``) with nvcc for sm_90a, one nvcc per source,
+     all at once;
+  2. every kernel against its plain PyTorch version on the card:
+     ``hash_probe`` bit for bit with the TPU kernel's contract (widths
+     1/2/4/8, hits, misses, chained keys, clamped starts) and with the
+     dataplane's contract (cache hits, offsets that clamp, undelivered
+     lanes); ``flash_attention`` (causal and not, window, softcap, GQA,
+     ragged lengths, D 16-128, bf16 and float32; at the serving shape with
+     diffuse and sharp scores, element by element, and a dropped kv block as
+     a negative control) and ``ssd_scan`` (several Q/H/h_tile, an initial
+     state) within stated tolerances, then both timed at the serving shapes
+     beside their plain versions and, for attention,
+     ``scaled_dot_product_attention``;
   3. the bench gate's tx_loop workload on the card and on the CPU: identical
      arenas and the gate keys of ``benchmarks/BENCH_BASELINE.json``; a small
      TATP mix with retry rounds, card against CPU;
-  4. the main path: TATP through ``txloop.tx_loop`` at 32 simulated nodes
-     and 2**15 subscribers per node (1,048,576 subscribers), with the
-     kernels' launch counts read around that one run.  Before it, each
-     kernel is timed against its plain version at the shapes this run gives
-     it; after it, one more protocol round runs under torch.profiler to show
-     the device's busy share.
+  4. zamba2-1.2b at full width cut to 7 layers, prefill and 4 decode steps
+     on the card and on the CPU (the kernels' plain versions) in float32
+     weights: logits and greedy tokens must agree, within a tolerance set
+     against the model's measured sensitivity; on the card, prefill 224 and
+     32 decode steps against the forward over the same tokens; the bf16 run
+     against the CPU's for information; then in bf16 one module at a time
+     (a Mamba2 layer's prefill with its states, a decode step, the shared
+     block), card against CPU within a few bf16 ulps;
+  5. the TATP main path: ``txloop.tx_loop`` at 32 simulated nodes and 2**15
+     subscribers per node (1,048,576 subscribers), with ``hash_probe``'s
+     launch count read around that one run.  Before it, the kernel is timed
+     against its plain version at the shape this run gives it; after it,
+     one more protocol round runs under torch.profiler to show the
+     device's busy share;
+  6. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+     weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
+     prompts, then 32 greedy tokens, with the launch counts of
+     ``flash_attention`` and ``ssd_scan`` read around that one run; finite
+     logits, ids in the vocabulary, the cache's length and dtypes; then one
+     decode step and one prefill under torch.profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
@@ -34,6 +56,17 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate (data sheet)
+BF16_FLOP_PER_S = 989e12          # dense bf16 tensor-core peak (data sheet)
+F32_FLOP_PER_S = 67e12            # float32 peak outside the tensor cores
+# the serving main path: zamba2-1.2b at full size, 8 requests x 2048-token
+# prompts, then 32 greedy tokens
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = "zamba2-1.2b", 8, 2048, 32
+# card against CPU: zamba2-1.2b at full width cut to 7 layers (one shared
+# block application and one tail layer), B 1, 256-token prompt, 4 decode steps
+PARITY_LAYERS, PARITY_PROMPT, PARITY_DECODE = 7, 256, 4
+# on the card, 7 layers, float32: prefill 224 + 32 teacher-forced decode
+# steps against the forward over those 256 tokens (one SSD chunk)
+CHECK_PROMPT, CHECK_DECODE = 224, 32
 # the main path: fig6's TATP at the paper's 32 nodes, 2**15 subscribers each
 TATP_NODES, TATP_SUBSCRIBERS_PER_NODE, TATP_LANES, TATP_MAX_ROUNDS = \
     32, 2**15, 512, 4
@@ -352,7 +385,472 @@ def tatp_main_path(dev, kernel_rows):
     return stats
 
 
-def profile_round(fn):
+# ---------------------------------------------------------------------------
+# the serving path's kernels: flash_attention and ssd_scan
+# ---------------------------------------------------------------------------
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype): the TPU kernel's
+# contract (tests/test_kernels.py's cases and more) and the serving shape
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, True, None, None, "bfloat16"),
+    (2, 256, 256, 4, 2, 64, True, None, None, "bfloat16"),      # GQA 2
+    (1, 128, 128, 4, 1, 128, True, None, None, "bfloat16"),     # GQA 4
+    (1, 256, 256, 2, 2, 64, True, 64, None, "bfloat16"),        # window
+    (1, 128, 128, 2, 2, 64, True, None, 50.0, "bfloat16"),      # softcap
+    (1, 96, 160, 2, 2, 64, False, None, None, "bfloat16"),      # cross, ragged
+    (2, 200, 200, 4, 2, 128, True, 100, 30.0, "bfloat16"),      # all, ragged
+    (1, 192, 192, 2, 2, 32, True, None, None, "float32"),
+    (2, 100, 100, 4, 4, 16, False, 40, None, "float32"),
+]
+# |kernel - plain| <= FLASH_ULPS ulps of (|plain| + the rms of its row),
+# element by element.  The limit scales with each value, so it holds the late
+# rows of the causal triangle (outputs ~0.5 / sqrt(row) with diffuse scores)
+# as tightly as the first.  bf16: the output's own rounding (one ulp) and a
+# rounded p that falls the other way; float32: the order of sums over up to
+# S keys.
+FLASH_ULP = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -23}
+FLASH_ULPS = {"bfloat16": 2, "float32": 128}
+# (B, nc, Q, H, P, N, h_tile, with an initial state)
+SSD_CASES = [
+    (1, 2, 32, 4, 16, 16, 4, False),
+    (2, 4, 64, 8, 32, 32, 4, False),
+    (1, 3, 16, 2, 64, 128, 2, False),
+    (2, 2, 24, 8, 16, 16, 2, False),        # the serving test's chunk of 24
+    (1, 2, 100, 4, 64, 64, 1, True),        # ragged tiles, initial state
+    (2, 2, 256, 8, 128, 128, 8, False),
+]
+SSD_RTOL = 1e-4     # float32: |kernel - plain| <= SSD_RTOL * max(1, max|plain|)
+
+
+def flash_inputs(B, Sq, Sk, Hq, Hkv, D, dtype, dev, seed, qk_scale=0.5):
+    """q, k of qk_scale x randn (scores of std qk_scale^2: 0.25 is a diffuse
+    softmax, 2.25 a sharp one), v of 0.5 x randn."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda n, S, a: (torch.randn((n, S, D), generator=g, device=dev,
+                                      dtype=torch.float32) * a).to(dt)
+    return (mk(B * Hq, Sq, qk_scale), mk(B * Hkv, Sk, qk_scale),
+            mk(B * Hkv, Sk, 0.5))
+
+
+def flash_excess(got, want, dtype):
+    """Per element, |got - want| over its limit (> 1 fails), and the limits."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = FLASH_ULPS[dtype] * FLASH_ULP[dtype] * (w.abs() + rms)
+    return (got.float() - w).abs() / limit, limit
+
+
+def flash_bound(BH, Sq, Sk, D, causal, elem_bytes):
+    """Least time (ms) for one call and what bounds it: the two products
+    over the pairs the mask keeps, at the bf16 tensor-core peak, against
+    q, k, v read once and out written once."""
+    import numpy as np
+    qpos = np.arange(Sq)[:, None]
+    kpos = np.arange(Sk)[None, :]
+    pairs = int((qpos >= kpos).sum()) if causal else Sq * Sk
+    flops = 4 * BH * D * pairs
+    byts = elem_bytes * D * (2 * BH * Sq + 2 * BH * Sk)
+    t_ops, t_mem = flops / BF16_FLOP_PER_S, byts / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
+
+
+def flash_checks(dev, rows):
+    """flash_attention against its plain version at every case, then timed
+    at the serving shape beside its plain version and PyTorch's
+    scaled_dot_product_attention."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    err = 0.0
+    for i, (B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt) in \
+            enumerate(FLASH_CASES):
+        q, k, v = flash_inputs(B, Sq, Sk, Hq, Hkv, D, dt, dev, i)
+        kw = dict(causal=causal, window=window, softcap=cap, group=Hq // Hkv)
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = max(err, _flash_compare(
+            f"flash_attention case {i}: B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
+            f"Hkv={Hkv} D={D} causal={causal} window={window} softcap={cap} "
+            f"{dt}", got, want, dt))
+
+    # the serving shape: the shared block's prefill attention, with diffuse
+    # and with sharp scores
+    from repro_torch.configs.registry import get
+    cfg = get(SERVE_ARCH)
+    B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
+    for scale in (1.5, 0.5):
+        q, k, v = flash_inputs(B, S, S, H, H, D, "bfloat16", dev, 99,
+                               qk_scale=scale)
+        got = fa.flash_attention_bhsd(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        err = max(err, _flash_compare(
+            f"flash_attention at the serving shape (BH={B * H}, S={S}, "
+            f"D={D}, causal, bf16, scores of std {scale ** 2})", got, want,
+            "bfloat16"))
+    # the limit rejects a fault confined to one kv block far from the
+    # diagonal: the plain version with v's rows 0..63 zeroed, held against
+    # the kernel in the rows S/2.. (diffuse scores, where outputs are least)
+    v0 = v.clone()
+    v0[:, :64] = 0
+    bad = fa.flash_attention_plain(q, k, v0, causal=True)
+    over, _ = flash_excess(got[:, S // 2:], bad[:, S // 2:], "bfloat16")
+    caught = float((over.amax(-1) > 1).float().mean())
+    print(f"flash_attention negative control (kv rows 0..63 dropped from v): "
+          f"the limit rejects {caught:.4f} of the rows S/2.. (max |diff| "
+          f"{float((got - bad)[:, S // 2:].float().abs().max()):.3e})",
+          flush=True)
+    check(caught > 0.99, "the flash_attention limit does not reject a "
+          "dropped kv block")
+    del got, want, bad, v0, over
+    q4, k4, v4 = (t.reshape(B, H, S, D) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_ms = time_cuda(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20)
+    p_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
+    l_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True), 20)
+    bound_ms, bound_by = flash_bound(B * H, S, S, D, True, 2)
+    ks, ps, ls = (_mean(t) for t in (k_ms, p_ms, l_ms))
+    print(f"flash_attention at the serving shape (BH={B * H}, S={S}, D={D}, "
+          f"causal, bf16): kernel {ks:.4f} ms, plain {ps:.4f} ms, "
+          f"scaled_dot_product_attention {ls:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by})", flush=True)
+    rows["flash_attention"].update(max_abs_err=err, ms=ks, plain_ms=ps,
+                                   library_ms=ls, bound_ms=bound_ms,
+                                   bound_by=bound_by)
+
+
+def _flash_compare(tag, got, want, dtype):
+    """Check got against want element by element (flash_excess); print the
+    largest error, the share of the limit it used and the typical |want|
+    beside the typical limit.  Returns the largest error."""
+    over, limit = flash_excess(got, want, dtype)
+    e = float((got.float() - want.float()).abs().max())
+    print(f"{tag}: max |kernel - plain| {e:.3e}, {float(over.max()):.3f} of "
+          f"its limit; median |plain| {float(want.float().abs().median()):.3e}"
+          f", median limit {float(limit.median()):.3e} ({FLASH_ULPS[dtype]} "
+          f"ulps of |plain| + row rms)", flush=True)
+    check(float(over.max()) <= 1, f"{tag}: kernel != plain")
+    return e
+
+
+def ssd_inputs(B, nc, Q, H, P, N, dev, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    return (r(B, nc, Q, H, P) * 0.1,
+            -torch.rand((B, nc, Q, H), generator=g, device=dev) * 0.5,
+            r(B, nc, Q, N) * 0.3, r(B, nc, Q, N) * 0.3)
+
+
+def ssd_bound(B, nc, Q, H, P, N):
+    """Least time (ms) for one call and what bounds it: per chunk the causal
+    half of C B^T, the causal half of the intra-chunk product per head, the
+    carry-in and state products per head, at the float32 peak; against the
+    inputs read once and y and the state written once."""
+    tri = Q * (Q + 1) // 2
+    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    byts = 4 * (2 * B * nc * Q * H * P + B * nc * Q * H + 2 * B * nc * Q * N
+                + B * H * N * P)
+    t_ops, t_mem = flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
+
+
+def ssd_checks(dev, rows):
+    """ssd_scan against its plain version at every case, then timed at the
+    serving shape beside its plain version (no single PyTorch call computes
+    it)."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    err = 0.0
+    cases = list(SSD_CASES)
+    cfg_shape = _serve_ssd_shape()
+    for i, (B, nc, Q, H, P, N, h_tile, with_init) in enumerate(
+            cases + [cfg_shape + (1, False)]):
+        xdt, dA, Bc, Cc = ssd_inputs(B, nc, Q, H, P, N, dev, i)
+        init = (torch.randn((B, H, N, P), device=dev) * 0.1 if with_init
+                else None)
+        y, st = ss.ssd_scan(xdt, dA, Bc, Cc, h_tile=h_tile, init_state=init)
+        yp, sp = ss.ssd_scan_plain(xdt, dA, Bc, Cc, init_state=init)
+        e = max(float((y - yp).abs().max()), float((st - sp).abs().max()))
+        scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+        serving = i == len(cases)
+        print(f"ssd_scan {'serving shape' if serving else f'case {i}'}: "
+              f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} h_tile={h_tile} "
+              f"init={with_init}: max |kernel - plain| {e:.3e} (limit "
+              f"{SSD_RTOL * scale:.3e})", flush=True)
+        check(e <= SSD_RTOL * scale, f"ssd_scan != plain at case {i}")
+        err = max(err, e)
+    k_ms = time_cuda(lambda: ss.ssd_scan(xdt, dA, Bc, Cc, h_tile=1), 10)
+    p_ms = time_cuda(lambda: ss.ssd_scan_plain(xdt, dA, Bc, Cc), 5)
+    bound_ms, bound_by = ssd_bound(*cfg_shape)
+    ks, ps = _mean(k_ms), _mean(p_ms)
+    print(f"ssd_scan at the serving shape {cfg_shape}: kernel {ks:.4f} ms, "
+          f"plain {ps:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
+    rows["ssd_scan"].update(max_abs_err=err, ms=ks, plain_ms=ps,
+                            bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _serve_ssd_shape():
+    """(B, nc, Q, H, P, N) of ssd_scan in the serving main path's prefill."""
+    from repro_torch.configs.registry import get
+    cfg = get(SERVE_ARCH)
+    Q = min(cfg.ssm_chunk, SERVE_PROMPT)
+    return (SERVE_BATCH, SERVE_PROMPT // Q, Q, cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_state)
+
+
+def _mean(ms):
+    return sum(ms) / len(ms)
+
+
+# ---------------------------------------------------------------------------
+# the serving path: card against CPU at full width, then the main path
+# ---------------------------------------------------------------------------
+def teacher_forced(cfg, params, tokens, prompt, decode):
+    """Prefill logits, then the logits of ``decode`` steps fed the next
+    tokens of ``tokens`` (not the argmax, so two runs see the same
+    inputs), and the final cache."""
+    from repro_torch.serving.decode import (grow_cache, make_decode_step,
+                                            make_prefill)
+    logits, cache = make_prefill(cfg, prompt)(params,
+                                              {"tokens": tokens[:, :prompt]})
+    out = [logits]
+    cache = grow_cache(cache, decode)
+    step = make_decode_step(cfg)
+    for t in range(prompt, prompt + decode):
+        logits, cache = step(params, cache, tokens[:, t])
+        out.append(logits)
+    return out, cache
+
+
+# float32 logits of the 7-layer full-width model agree within this share of
+# their range.  The reference's init scales stacked weights by
+# 1/sqrt(layer count) (ParamSpec's fan_in is shape[0]), so the model is
+# ill-conditioned: a 1e-7 relative change of the embeddings, the size of a
+# float32 rounding, moves the logits by a few 1e-3 of their range, and so
+# does another order of float32 sums (another CPU thread count, or the
+# card).  The script measures that sensitivity in every run and prints it
+# beside the comparison; the tolerance sits a few times above it.  In bf16
+# the rounding is 2^-8, and card and CPU runs are compared for information.
+F32_REL = 1e-2
+
+
+def _compare(tag, got, ref, V, rel):
+    """Per step: max |got - ref| against rel x the logit range, and greedy
+    tokens equal unless the reference's top-2 margin is within 4x the
+    deviation.  rel None: print only."""
+    import torch
+    for step, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.float().cpu()[:, :V], r.float().cpu()[:, :V]
+        check(bool(torch.isfinite(g).all()), f"{tag}: non-finite logits")
+        d = float((g - r).abs().max())
+        rng = float(r.abs().max())
+        top2 = r.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        flip = g.argmax(-1) != r.argmax(-1)
+        print(f"{tag}, step {step}: max |diff| {d:.4e} = {d / rng:.3e} of "
+              f"the logit range {rng:.4f}; greedy equal "
+              f"{not bool(flip.any())}, top-2 margin {float(margin.min()):.4e}",
+              flush=True)
+        if rel is not None:
+            check(d <= rel * rng, f"{tag}: logits differ at step {step}")
+            check(not bool((flip & (margin > 4 * d)).any()),
+                  f"{tag}: greedy token differs at step {step}")
+
+
+def card_vs_cpu(dev):
+    """zamba2-1.2b at full width, cut to PARITY_LAYERS layers, from the same
+    seeded weights and tokens: prefill and decode on the card against the
+    CPU (which takes the kernels' plain versions), and on the card against
+    the model's own forward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import api, zamba
+    from repro_torch.parallel.sharding import init_params
+    cfg = dataclasses.replace(get(SERVE_ARCH), n_layers=PARITY_LAYERS)
+    V = cfg.vocab_size
+    params = init_params(api.param_specs(cfg),
+                         torch.Generator().manual_seed(1), "cpu")
+    tokens = serve.prompt_batch(cfg, 1, PARITY_PROMPT, PARITY_DECODE, "cpu")
+    run = lambda p, toks: teacher_forced(cfg, p, toks, PARITY_PROMPT,
+                                         PARITY_DECODE)[0]
+
+    p32 = _map_tree(params, lambda t: t.float())
+    t0 = time.perf_counter()
+    ref = run(p32, tokens)
+    t_cpu = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(2)
+    e = p32["embed"]
+    shaken = dict(p32, embed=e * (1 + 1e-7 * torch.randn(e.shape, generator=g)))
+    moved = max(float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
+                for a, b in zip(run(shaken, tokens), ref))
+    print(f"sensitivity: a 1e-7 relative change of the embeddings moves the "
+          f"float32 logits (CPU) by {moved:.3e} of their range; CPU run "
+          f"{t_cpu:.1f} s", flush=True)
+    p_dev = _map_tree(p32, lambda t: t.to(dev))
+    _compare("card vs cpu, float32", run(p_dev, tokens.to(dev)), ref, V,
+             F32_REL)
+
+    # on the card: prefill CHECK_PROMPT + CHECK_DECODE teacher-forced decode
+    # steps against the forward over those tokens (one SSD chunk)
+    seq = serve.prompt_batch(cfg, 1, CHECK_PROMPT, CHECK_DECODE, dev)
+    steps, _ = teacher_forced(cfg, p_dev, seq, CHECK_PROMPT, CHECK_DECODE)
+    fwd = zamba.forward(cfg, p_dev, seq)[:, CHECK_PROMPT - 1:]
+    _compare(f"card, float32, serving vs forward ({CHECK_PROMPT} + "
+             f"{CHECK_DECODE})", steps[:-1], [fwd[:, i] for i in
+                                               range(CHECK_DECODE)], V,
+             F32_REL)
+    del p_dev, p32, shaken
+
+    pb = _map_tree(params, lambda t: t.to(dev))
+    _compare("card vs cpu, bf16 (information)", run(pb, tokens.to(dev)),
+             run(params, tokens), V, None)
+    bf16_blocks(dev, cfg, params, pb)
+
+
+# bf16 single modules at full width, card against CPU, agree within this many
+# bf16 ulps (2^-8) of the largest |value| of each output.  One module is too
+# short for the roundings that differ (cuBLAS's order of sums against the
+# CPU's, an intermediate that rounds the other way) to compound as they do
+# through the 7 layers above; the script prints the ulps each output used.
+BF16_ULPS = 4
+BF16_PROMPT = 512           # two SSD chunks of 256, eight kv blocks of 64
+
+
+def bf16_blocks(dev, cfg, params, pb):
+    """The bf16 path one module at a time, card against CPU on the same
+    weights and inputs: a Mamba2 layer's prefill (ssd_scan and the casts
+    around it) returning its conv and SSM states, one decode step from those
+    states, and the shared block (flash_attention's bf16 instantiation)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zamba
+    S, K = BF16_PROMPT, cfg.conv_width
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn((1, S, cfg.d_model), generator=g).to(torch.bfloat16)
+    zero = tuple(torch.zeros((1, K - 1, c), dtype=torch.bfloat16)
+                 for c in (cfg.d_inner, cfg.ssm_state, cfg.ssm_state))
+    cos, sin = L.rope_tables(torch.arange(S), cfg.head_dim, cfg.rope_theta)
+    names = ("prefill h", "prefill conv_x", "prefill conv_B",
+             "prefill conv_C", "prefill ssm", "decode h", "decode conv_x",
+             "decode ssm", "shared block h")
+    outs, states = [], None
+    for p, d in ((params, "cpu"), (pb, dev)):
+        to = lambda t: t.to(d)
+        lp = zamba.layer(p["layers"], 0)
+        hp, (cs, st) = M.mamba_block(cfg, lp, to(h),
+                                     conv_state=tuple(map(to, zero)))
+        if states is None:                    # both decode from the CPU's
+            states = (cs, st)
+        hd, (cs1, st1) = M.mamba_block(
+            cfg, lp, to(h[:, :1]), conv_state=tuple(map(to, states[0])),
+            ssm_state=to(states[1]), decode=True)
+        hs = zamba.shared_block(cfg, p["shared"], to(h), to(cos), to(sin))
+        outs.append([t.cpu() for t in (hp, *cs, st, hd, cs1[0], st1, hs)])
+    for name, want, got in zip(names, *outs):
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"bf16 {name}: card {got.dtype} {tuple(got.shape)}, cpu "
+              f"{want.dtype} {tuple(want.shape)}")
+        scale = float(want.float().abs().max())
+        ulps = float((got.float() - want.float()).abs().max()) / (
+            2.0 ** -8 * scale)
+        print(f"bf16 {name} ({want.dtype}, max |value| {scale:.4e}): card vs "
+              f"cpu max |diff| = {ulps:.3f} bf16 ulps of it (limit "
+              f"{BF16_ULPS})", flush=True)
+        check(ulps <= BF16_ULPS, f"bf16 {name}: card and CPU differ")
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def serving_main_path(dev, rows):
+    """zamba2-1.2b at full size through repro_torch.launch.serve: prefill
+    SERVE_BATCH x SERVE_PROMPT tokens, then SERVE_DECODE greedy tokens, with
+    the kernels' launch counts read around that one run; one more decode
+    step and one more prefill under torch.profiler."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.serving.decode import (cache_specs, make_decode_step,
+                                            make_prefill)
+
+    cfg, params = serve.build(SERVE_ARCH, seed=0, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
+          f"(config {cfg.n_params()} without the padded vocab rows), weights "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f} GB",
+          flush=True)
+    tokens = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE,
+                                dev)
+    # warm-up (cuBLAS handles, allocator) at a small size, outside the count
+    w = SERVE_PROMPT // 8
+    serve.serve(cfg, params, tokens[:1, :w], w, 2)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = ss.launches = 0
+    ids, st = serve.serve(cfg, params, tokens, SERVE_PROMPT, SERVE_DECODE)
+    launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+    stats = {
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode": SERVE_DECODE,
+        "prefill_ms": st["prefill_ms"],
+        "prefill_tok_per_s": SERVE_BATCH * SERVE_PROMPT / st["prefill_ms"] * 1e3,
+        "decode_ms": st["decode_ms"], "decode_tokens": st["decode_tokens"],
+        "decode_tok_per_s": st["decode_tok_per_s"],
+        "decode_ms_per_step": st["decode_ms"] / (SERVE_DECODE - 1),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_prefill": launches,
+    }
+    print("serve: " + json.dumps(stats), flush=True)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    napps = cfg.n_layers // cfg.shared_attn_every
+    check(launches == {"flash_attention": napps, "ssd_scan": cfg.n_layers},
+          f"launches per prefill {launches}, expected {napps} flash_attention "
+          f"and {cfg.n_layers} ssd_scan")
+
+    # --- what came out is right ---------------------------------------------
+    cache, last = st["cache"], st["last_logits"]
+    check(tuple(ids.shape) == (SERVE_BATCH, SERVE_DECODE), "generated ids shape")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          "a generated id is outside the real vocabulary")
+    check(bool(torch.isfinite(last[:, :cfg.vocab_size]).all()),
+          "non-finite logits")
+    check(bool((cache["len"] == SERVE_PROMPT + SERVE_DECODE - 1).all()),
+          "cache length")
+    for n in ("ssm", "shared_k", "shared_v", "conv_x"):
+        check(bool(torch.isfinite(cache[n].float()).all()), f"non-finite {n}")
+    for n, (shape, dt) in cache_specs(cfg, SERVE_BATCH, SERVE_PROMPT
+                                      + SERVE_DECODE).items():
+        check(cache[n].dtype == dt and tuple(cache[n].shape) == shape,
+              f"cache {n}: {cache[n].dtype} {tuple(cache[n].shape)}, expected "
+              f"{dt} {shape}")
+    # --- one more decode step under the profiler ------------------------------
+    step = make_decode_step(cfg)
+    tok = ids[:, -1]
+    profile_round(lambda: step(params, cache, tok), label="decode step")
+    del cache, st
+    # --- and one more prefill, to show where its time goes ---------------------
+    prefill = make_prefill(cfg, SERVE_PROMPT)
+    profile_round(lambda: prefill(params, {"tokens": tokens[:, :SERVE_PROMPT]}),
+                  label="prefill")
+    return stats
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def profile_round(fn, label="tatp"):
     """Run ``fn`` once under torch.profiler and print its wall time, the
     summed device time of its kernels (the device's busy share; one stream,
     so kernels do not overlap) and the kernels that took the most of it."""
@@ -370,14 +868,48 @@ def profile_round(fn):
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_us(e) for e in kernels) / 1e6
-    top = sorted(kernels, key=dev_us, reverse=True)[:5]
-    print("tatp profile: " + json.dumps({
-        "round_wall_s": wall, "device_busy_s": busy,
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    print(f"{label} profile: " + json.dumps({
+        "wall_s": wall, "device_busy_s": busy,
         "device_busy_share": busy / wall if busy else "not measured",
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:60], "count": e.count,
                          "device_s": dev_us(e) / 1e6} for e in top]}),
         flush=True)
+
+
+KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
+    "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
+                   "src/repro/kernels/hash_probe.py:53", "bytes"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:93",
+                        "operations"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:77", "operations"),
+}
+
+
+def build_kernels():
+    """Build every kernel library at once (one nvcc each, in parallel) and
+    print the build times and the compiler's register and spill lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+
+    def one(name):
+        t0 = time.perf_counter()
+        build.build(name)
+        return time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        secs = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    print(f"build: {json.dumps(secs)} ({time.perf_counter() - t0:.1f} s in "
+          f"all)", flush=True)
+    for name in KERNELS:
+        build.load(name)
+        log = build.BUILD_DIR / f"{name}.log"
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
 def main():
@@ -390,7 +922,8 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, hash_probe as hp
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 means float32
+    torch.backends.cudnn.allow_tf32 = False
 
     dev = "cuda"
     phase("device")
@@ -402,30 +935,30 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    t0 = time.perf_counter()
-    build.load("hash_probe")
-    print(f"build: hash_probe {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in (build.BUILD_DIR / "hash_probe.log").read_text().splitlines() \
-            if (build.BUILD_DIR / "hash_probe.log").exists() else []:
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    build_kernels()
+    rows = {name: dict(name=name, route="cuda", source=src, replaces=rep,
+                       launches=0, max_abs_err=None, ms=None, plain_ms=None,
+                       bound_ms=None, bound_by=by, library_ms=None)
+            for name, (src, rep, by) in KERNELS.items()}
 
     phase("kernels against their plain versions")
-    err = kernel_checks(dev)
-    rows = {"hash_probe": dict(
-        name="hash_probe", route="cuda",
-        source="src/repro_torch/csrc/hash_probe.cu",
-        replaces="src/repro/kernels/hash_probe.py:53", launches=0,
-        max_abs_err=err, ms=None, plain_ms=None, bound_ms=None,
-        bound_by="bytes", library_ms=None)}
+    rows["hash_probe"]["max_abs_err"] = kernel_checks(dev)
+    flash_checks(dev, rows)
+    ssd_checks(dev, rows)
 
     phase("gate workload and small TATP: card against CPU")
     baseline = json.loads((ROOT / "benchmarks" / "BENCH_BASELINE.json")
                           .read_text())
     parity_checks(dev, baseline)
 
+    phase("zamba2-1.2b at full width, 7 layers: card against CPU")
+    card_vs_cpu(dev)
+
     phase("TATP main path")
     tatp_main_path(dev, rows)
+
+    phase("serving main path: zamba2-1.2b")
+    serving_main_path(dev, rows)
 
     print(card)                     # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))

@@ -1,11 +1,17 @@
-"""Carry dataplane words between the JAX package and the port.
+"""Carry data between the JAX package and the port.
 
-The reference keeps words (arenas, keys, records, replies) as ``uint32``;
-the port keeps the same words as ``int32`` bit images.  These helpers move
-them across as numpy arrays — ``state_from_numpy`` takes the reference's
-state (``{"arena": (N, words) uint32}``, e.g. ``jax.device_get(state)``) and
-returns the port's tensors on ``device``; ``state_to_numpy`` is the inverse.
-Nothing changes but the type label, so a round trip is bit-exact.
+Dataplane words: the reference keeps words (arenas, keys, records, replies)
+as ``uint32``; the port keeps the same words as ``int32`` bit images.
+``state_from_numpy`` takes the reference's state (``{"arena": (N, words)
+uint32}``, e.g. ``jax.device_get(state)``) and returns the port's tensors on
+``device``; ``state_to_numpy`` is the inverse.
+
+Model parameters: ``params_from_numpy`` takes the reference's parameter tree
+as numpy arrays (nested dicts) and returns the port's tree on ``device``;
+``params_to_numpy`` is the inverse.  JAX's bf16 arrays come out of
+``np.asarray`` as ``ml_dtypes.bfloat16``, which torch cannot read, so they
+cross as 16-bit integer images.  Nothing changes but the type label, so
+round trips are bit-exact.
 """
 from __future__ import annotations
 
@@ -34,3 +40,34 @@ def state_from_numpy(state, device="cuda"):
 
 def state_to_numpy(state):
     return {k: to_numpy(v) for k, v in state.items()}
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One array (bf16 included) as a tensor of the same type and bits."""
+    a = np.array(a, order="C")        # a writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def tensor_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 comes back as ``ml_dtypes.bfloat16``."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
+def params_from_numpy(tree, device="cuda"):
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def params_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)

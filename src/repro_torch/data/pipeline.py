@@ -1,0 +1,49 @@
+"""Deterministic synthetic token stream (counterpart of
+``repro/data/pipeline.py``, token-only families): batches are a pure function
+of (seed, step), made with numpy exactly as the JAX package makes them."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    ngram: int = 8          # period of the learnable repetition
+
+
+def _mix(x: np.ndarray) -> np.ndarray:
+    x = (x ^ (x >> 16)) * np.uint64(0x85EBCA6B)
+    x = (x ^ (x >> 13)) * np.uint64(0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def synthetic_tokens(dc: DataConfig, step: int, batch: int, seq: int,
+                     vocab: int) -> np.ndarray:
+    b = np.arange(batch, dtype=np.uint64)[:, None]
+    s = np.arange(seq, dtype=np.uint64)[None, :]
+    base = _mix(np.uint64(dc.seed) * np.uint64(1_000_003)
+                + np.uint64(step) * np.uint64(65_537) + b * np.uint64(131)
+                + (s // np.uint64(dc.ngram)))
+    tok = (base + s % np.uint64(dc.ngram)) % np.uint64(max(vocab - 2, 1))
+    return tok.astype(np.int32) + 1          # avoid 0 (pad id)
+
+
+def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, dc: DataConfig,
+                    step: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """{"tokens", "labels"}: (B, S) int64 on ``device``.  Only token-only
+    families (the port serves no audio or VLM model)."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{cfg.family}: not ported yet (ROADMAP.md)")
+    toks = synthetic_tokens(dc, step, shape.global_batch, shape.seq_len + 1,
+                            cfg.vocab_size)
+    dev = resolve_device(device)
+    t = torch.from_numpy(toks.astype(np.int64)).to(dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}

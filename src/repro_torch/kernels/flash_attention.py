@@ -1,0 +1,138 @@
+"""Forward flash attention: ``csrc/flash_attention.cu``, a hand-written CUDA
+port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+(``flash_attention_bhsd``).
+
+Heads-major layout: q (BHq, Sq, D), k/v (BHkv, Sk, D) with BHq = BHkv *
+group; q head ``b`` reads kv head ``b // group``.  Online softmax with
+float32 ``m``/``l``/``acc``; causal and sliding-window blocks outside the
+mask are skipped; optional tanh softcap; scale ``D ** -0.5``; ``p`` is
+rounded to the input type before the PV product, as the TPU kernel does.
+
+Dispatch: a CPU tensor takes :func:`flash_attention_plain`, a CUDA tensor
+launches the kernel or raises.  ``launches`` counts kernel launches.
+
+Bound: operations.  At the serving shape (BH 256, S 2048, D 64, causal) the
+two products are ~137 GFLOP against ~268 MB of q/k/v/out, far above the
+card's ~295 FLOP per byte, so the tensor-core rate bounds it.  This first
+kernel computes on the CUDA cores in float32 (64x64 tiles, one CTA per
+(head, q block)); tensor cores are later work.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG = -1e30
+HEAD_DIMS = (16, 32, 64, 128)          # the CUDA kernel's instantiations
+BLOCK = 64          # the CUDA kernel's q and kv tile (kBQ, kBK in the .cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0                            # kernel launches since the last reset
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
+                          q_block=BLOCK, kv_block=BLOCK, group=1):
+    """Plain PyTorch version: the TPU kernel's algorithm, kv block by kv
+    block over all q blocks at once, with its block skipping.  Its default
+    tiles are the CUDA kernel's, so both sum in the same order; the TPU
+    kernel's tiles can be given to compare with it."""
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    qb, kb = min(q_block, Sq), min(kv_block, Sk)
+    n_q, n_kv = -(-Sq // qb), -(-Sk // kb)
+    pad = lambda t, n: torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[1]))
+    qf = pad(q, n_q * qb).float().reshape(BH, n_q, qb, D)
+    kx = pad(k, n_kv * kb).repeat_interleave(group, 0)
+    vx = pad(v, n_kv * kb).repeat_interleave(group, 0)
+    dev = q.device
+    acc = torch.zeros((BH, n_q, qb, D), dtype=torch.float32, device=dev)
+    m = torch.full((BH, n_q, qb), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((BH, n_q, qb), dtype=torch.float32, device=dev)
+    q_lo = torch.arange(n_q, device=dev) * qb
+    qpos = q_lo[:, None] + torch.arange(qb, device=dev)          # (n_q, qb)
+    for j in range(n_kv):
+        k_lo = j * kb
+        needed = torch.ones(n_q, dtype=torch.bool, device=dev)
+        if causal:
+            needed &= k_lo <= q_lo + qb - 1
+        if window is not None:
+            needed &= k_lo + kb - 1 >= q_lo - (window - 1)
+        ks = kx[:, k_lo:k_lo + kb].float()
+        vs = vx[:, k_lo:k_lo + kb]
+        s = torch.einsum("bnqd,bkd->bnqk", qf, ks) * D ** -0.5
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        kpos = k_lo + torch.arange(kb, device=dev)
+        mask = (kpos < Sk)[None, None, :].expand(n_q, qb, kb)
+        if causal:
+            mask = mask & (qpos[:, :, None] >= kpos)
+        if window is not None:
+            mask = mask & (kpos > qpos[:, :, None] - window)
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = corr * l + p.sum(-1)
+        pv = torch.einsum("bnqk,bkd->bnqd", p.to(v.dtype).float(), vs.float())
+        a_new = corr[..., None] * acc + pv
+        keep = needed[None, :, None]
+        acc = torch.where(keep[..., None], a_new, acc)
+        m = torch.where(keep, m_new, m)
+        l = torch.where(keep, l_new, l)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(BH, n_q * qb, D)[:, :Sq].to(q.dtype)
+
+
+def _launch(q, k, v, *, causal, window, softcap, group):
+    global launches
+    from repro_torch.kernels import build
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q/k/v must all be float32 or "
+                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if k.shape != v.shape or k.shape != (BH // group, Sk, D) or BH % group:
+        raise ValueError(f"flash_attention: k/v must be (BHq/group, Sk, D) = "
+                         f"({BH}/{group}, Sk, {D}), got {tuple(k.shape)} "
+                         f"and {tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k and v must be on one device")
+    out = torch.empty_like(q)
+    if BH == 0 or Sq == 0:
+        return out
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                 Sq, Sk, D, group, int(causal),
+                 -1 if window is None else window, int(softcap is not None),
+                 0.0 if softcap is None else float(softcap), _DTYPES[q.dtype],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def flash_attention_bhsd(q, k, v, *, causal=True, window=None, softcap=None,
+                         group=1):
+    """q (BHq, Sq, D); k/v (BHkv, Sk, D) with BHq == BHkv * group -> (BHq,
+    Sq, D) in q's dtype, tiled ``BLOCK`` x ``BLOCK`` on either device."""
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention: no keys (Sk == 0)")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, group=group)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                   causal=causal, window=window, softcap=softcap, group=group)

@@ -1,0 +1,81 @@
+"""Zamba2-style hybrid (arXiv:2411.15242): counterpart of
+``repro/models/zamba.py``.  A Mamba2 backbone, and ONE shared transformer
+block (attention + MLP, a single weight copy) applied after every
+``shared_attn_every``-th Mamba layer; the layers past the last whole group
+(``tail_layers``) run after it.  As in the JAX package the shared block acts
+on the residual stream directly (no concatenated embedding, no LoRA deltas).
+
+The functions take the parameter tree as nested dicts of tensors, the JAX
+package's tree, so ``convert.params_from_numpy`` carries its weights over
+unchanged.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import transformer as T
+from repro_torch.models.embedding import embed_lookup
+from repro_torch.parallel.sharding import ParamSpec as PS
+
+
+def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, d_ff=cfg.shared_d_ff, n_experts=0,
+                               local_global_pattern=0, qkv_bias=False,
+                               post_norms=False)
+
+
+def n_scan_layers(cfg: ModelConfig) -> int:
+    """Mamba layers in whole groups of ``shared_attn_every``."""
+    return (cfg.n_layers // cfg.shared_attn_every) * cfg.shared_attn_every
+
+
+def param_specs(cfg: ModelConfig):
+    n_scan = n_scan_layers(cfg)
+    tree = {
+        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
+        "final_norm": PS((cfg.d_model,), "ones"),
+        "layers": M.mamba_layer_specs(cfg, n_layers=n_scan),
+        "shared": T.layer_param_specs(_shared_cfg(cfg), stacked=False),
+    }
+    if cfg.n_layers > n_scan:
+        tree["tail_layers"] = M.mamba_layer_specs(cfg,
+                                                  n_layers=cfg.n_layers - n_scan)
+    return tree
+
+
+def layer(stack, i: int):
+    """Layer ``i`` of a stacked parameter dict (views, no copies)."""
+    return {k: v[i] for k, v in stack.items()}
+
+
+def shared_block(cfg: ModelConfig, p, h, cos, sin):
+    return T.decoder_layer(_shared_cfg(cfg), p, h, cos, sin, local=False)
+
+
+def logits_of(cfg: ModelConfig, params, h):
+    """Final norm and the tied LM head in float32, padded tail masked."""
+    h = L.rms_norm(h, params["final_norm"])
+    logits = h.float() @ params["embed"].float().T
+    return L.mask_pad_logits(logits, cfg.vocab_size)
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> logits (B, S, V_padded) float32."""
+    S = tokens.shape[1]
+    k = cfg.shared_attn_every
+    h = embed_lookup(params["embed"], tokens)
+    pos = torch.arange(S, device=tokens.device)
+    cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    for i in range(n_scan_layers(cfg)):
+        h, _ = M.mamba_block(cfg, layer(params["layers"], i), h)
+        if i % k == k - 1:
+            h = shared_block(cfg, params["shared"], h, cos, sin)
+    for i in range(cfg.n_layers - n_scan_layers(cfg)):
+        h, _ = M.mamba_block(cfg, layer(params["tail_layers"], i), h)
+    return logits_of(cfg, params, h)
+

@@ -1,10 +1,12 @@
-"""PyTorch port, the hash_probe kernel.  On the CPU its wrappers run the plain
-PyTorch version, which is held here against the JAX package: the TPU
-kernel's contract (``ops.hash_probe``) against ``ref.hash_probe_ref`` and the
-Pallas kernel in interpret mode, and the dataplane's contract
-(``probe_lines``) against a one-sided read followed by ``lookup_end``.  The
-tests marked ``cuda`` hold the CUDA kernel against the plain version on the
-card and skip where there is none."""
+"""PyTorch port, the kernels.  On the CPU their wrappers run the plain
+PyTorch versions, which are held here against the JAX package: for
+hash_probe, the TPU kernel's contract (``ops.hash_probe``) against
+``ref.hash_probe_ref`` and the Pallas kernel in interpret mode, and the
+dataplane's contract (``probe_lines``) against a one-sided read followed by
+``lookup_end``; flash_attention and ssd_scan against their Pallas kernels in
+interpret mode and their oracles in ``ref``.  The tests marked ``cuda`` hold
+each CUDA kernel against its plain version on the card and skip where there
+is none."""
 import numpy as np
 import pytest
 import torch
@@ -161,3 +163,197 @@ def test_cuda_kernel_matches_plain(cuda, width):
     tpu = hp.hash_probe(t[0][0], t[2] // 32, t[3], t[4], width=width)
     assert torch.equal(tpu, hp.hash_probe_plain(t[0][0], t[2] // 32, t[3],
                                                 t[4], width=width))
+
+
+# --- flash_attention ---------------------------------------------------------
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype); blocks of 16 so
+# that several blocks, skipped blocks and padded tails occur
+FLASH_CASES = [
+    (1, 48, 48, 2, 2, 64, True, None, None, "bfloat16"),
+    (2, 40, 40, 4, 2, 128, True, None, None, "float32"),      # GQA 2, D 128
+    (1, 40, 40, 4, 1, 64, True, 20, None, "float32"),         # GQA 4, window
+    (1, 32, 32, 2, 2, 64, True, None, 30.0, "float32"),       # softcap
+    (1, 24, 40, 2, 2, 64, False, None, None, "bfloat16"),     # ragged, cross
+]
+# bf16 outputs: a few ulps of values ~0.5; float32: summation order only
+FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def _flash_case(case, seed=0):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt = case
+    rng = np.random.RandomState(seed)
+    mk = lambda n, S: (rng.randn(n, S, D) * 0.5).astype(np.float32)
+    arrs = (mk(B * Hq, Sq), mk(B * Hkv, Sk), mk(B * Hkv, Sk))
+    jx = tuple(jnp.asarray(a, getattr(jnp, dt)) for a in arrs)
+    tt = tuple(torch.from_numpy(a).to(getattr(torch, dt)) for a in arrs)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    return jx, tt, kw, Hq // Hkv, dt
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas_and_ref(case):
+    from repro.kernels import flash_attention as jfa
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as pref
+    (jq, jk, jv), (q, k, v), kw, group, dt = _flash_case(case)
+    got = fa.flash_attention_plain(q, k, v, q_block=16, kv_block=16,
+                                   group=group, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    pallas = jfa.flash_attention_bhsd(jq, jk, jv, q_block=16, kv_block=16,
+                                      group=group, interpret=True, **kw)
+    want = jref.attention_ref_bhsd(jq, jk, jv, **kw)
+    g = got.float().numpy()
+    atol = FLASH_ATOL[dt]
+    np.testing.assert_allclose(g, np.asarray(pallas, np.float32), atol=atol,
+                               rtol=1e-2)
+    np.testing.assert_allclose(g, np.asarray(want, np.float32), atol=atol,
+                               rtol=1e-2)
+    # the wrapper, on the CPU, is the plain version at the CUDA kernel's tiles
+    wrapped = fa.flash_attention_bhsd(q, k, v, group=group, **kw)
+    assert torch.equal(wrapped, fa.flash_attention_plain(
+        q, k, v, q_block=fa.BLOCK, kv_block=fa.BLOCK, group=group, **kw))
+    np.testing.assert_allclose(wrapped.float().numpy(),
+                               np.asarray(pallas, np.float32), atol=atol,
+                               rtol=1e-2)
+    # the port's own oracle agrees with the JAX package's
+    np.testing.assert_allclose(pref.attention_ref_bhsd(q, k, v, **kw).float()
+                               .numpy(), np.asarray(want, np.float32),
+                               atol=atol, rtol=1e-2)
+
+
+def test_flash_attention_model_layout_matches_block_attention():
+    """ops.flash_attention in the (B, S, H, D) layout against the JAX
+    package's pair-scheduled block_attention."""
+    from repro.models import layers as jL
+    rng = np.random.RandomState(5)
+    q = rng.randn(2, 40, 4, 16).astype(np.float32) * 0.5
+    k = rng.randn(2, 40, 2, 16).astype(np.float32) * 0.5
+    v = rng.randn(2, 40, 2, 16).astype(np.float32) * 0.5
+    want = jL.block_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True, q_block=16, kv_block=16)
+    got = pops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6,
+                               rtol=1e-5)
+
+
+# --- ssd_scan ----------------------------------------------------------------
+# (B, nc, Q, H, P, N, h_tile): several chunks, h_tile dividing H, the serving
+# test's chunks of 24 and 32
+SSD_CASES = [
+    (1, 3, 24, 4, 16, 16, 2),
+    (2, 2, 32, 8, 16, 32, 4),
+]
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)   # float32, summation order only
+
+
+def _ssd_case(case, seed=2):
+    B, nc, Q, H, P, N, h_tile = case
+    rng = np.random.RandomState(seed)
+    arrs = ((rng.randn(B, nc, Q, H, P) * 0.1).astype(np.float32),
+            (-rng.rand(B, nc, Q, H) * 0.5).astype(np.float32),
+            (rng.randn(B, nc, Q, N) * 0.3).astype(np.float32),
+            (rng.randn(B, nc, Q, N) * 0.3).astype(np.float32))
+    return arrs, h_tile
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_plain_matches_pallas_and_ref(case):
+    from repro.kernels import ssd_scan as jss
+    from repro_torch.kernels import ref as pref
+    arrs, h_tile = _ssd_case(case)
+    y, st = pops.ssd_scan(*map(torch.from_numpy, arrs), h_tile=h_tile)
+    jy, jst = jss.ssd_scan(*map(jnp.asarray, arrs), h_tile=h_tile,
+                           interpret=True)
+    ry, rst = jref.ssd_scan_ref(*map(jnp.asarray, arrs))
+    for want_y, want_st in ((jy, jst), (ry, rst)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **SSD_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st), **SSD_TOL)
+    py, pst = pref.ssd_scan_ref(*map(torch.from_numpy, arrs))
+    np.testing.assert_allclose(py.numpy(), np.asarray(ry), **SSD_TOL)
+    np.testing.assert_allclose(pst.numpy(), np.asarray(rst), **SSD_TOL)
+
+
+def test_ssd_chunked_matches_reference_with_initial_state():
+    """mamba2.ssd_chunked (fold-in + ssd_scan + bf16 cast) against the JAX
+    package's, from a non-zero initial state."""
+    from repro.models import mamba2 as jM
+    from repro_torch.convert import tensor_from_numpy
+    from repro_torch.models import mamba2 as M
+    B, S, H, P, N = 2, 64, 4, 16, 16
+    rng = np.random.RandomState(3)
+    xh = jnp.asarray(rng.randn(B, S, H, P) * 0.2, jnp.bfloat16)
+    dt = jnp.asarray(rng.rand(B, S, H) * 0.5 + 0.1, jnp.float32)
+    A = jnp.asarray(-rng.rand(H) - 0.1, jnp.float32)
+    Bm = jnp.asarray(rng.randn(B, S, N) * 0.3, jnp.bfloat16)
+    Cm = jnp.asarray(rng.randn(B, S, N) * 0.3, jnp.bfloat16)
+    s0 = jnp.asarray(rng.randn(B, H, N, P) * 0.1, jnp.float32)
+    jy, jst = jM.ssd_chunked(xh, dt, A, Bm, Cm, 32, init_state=s0)
+    t = lambda a: tensor_from_numpy(np.asarray(a), CPU)
+    y, st = M.ssd_chunked(t(xh), t(dt), t(A), t(Bm), t(Cm), 32,
+                          init_state=t(s0))
+    assert y.dtype == torch.bfloat16
+    # y is rounded to bf16 in both: one ulp of values below 2
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32),
+                               atol=8e-3, rtol=0)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), **SSD_TOL)
+
+
+def test_plain_versions_count_no_launch():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    before = (fa.launches, ss.launches)
+    _, (q, k, v), kw, group, _ = _flash_case(FLASH_CASES[0])
+    fa.flash_attention_bhsd(q, k, v, group=group, **kw)
+    arrs, h_tile = _ssd_case(SSD_CASES[0])
+    ss.ssd_scan(*map(torch.from_numpy, arrs), h_tile=h_tile)
+    assert (fa.launches, ss.launches) == before
+
+
+def test_wrappers_reject_bad_arguments():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    arrs, _ = _ssd_case(SSD_CASES[0])
+    with pytest.raises(ValueError, match="h_tile"):
+        ss.ssd_scan(*map(torch.from_numpy, arrs), h_tile=3)
+    _, (q, k, v), kw, group, _ = _flash_case(FLASH_CASES[0])
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bhsd(q, k, v, causal=True, window=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_bhsd(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+    _, tt, kw, group, dt = _flash_case(case, seed=7)
+    q, k, v = (t.to(cuda) for t in tt)
+    before = fa.launches
+    got = fa.flash_attention_bhsd(q, k, v, group=group, **kw)
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, group=group, **kw).float()
+    torch.cuda.synchronize()
+    # same tiles as the plain version: element by element within a few ulps
+    # of |want| plus its row's rms (bf16: the output's rounding and a p that
+    # rounds the other way; float32: the order of sums)
+    ulps = {"bfloat16": 2 * 2.0 ** -8, "float32": 128 * 2.0 ** -23}[dt]
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool(((got.float() - want).abs() <= ulps * (want.abs() + rms)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_cuda_ssd_scan_matches_plain(cuda, case):
+    from repro_torch.kernels import ssd_scan as ss
+    arrs, h_tile = _ssd_case(case, seed=8)
+    x = [torch.from_numpy(a).to(cuda) for a in arrs]
+    s0 = torch.randn(x[0].shape[0], x[0].shape[3], x[2].shape[-1],
+                     x[0].shape[-1], device=cuda) * 0.1
+    before = ss.launches
+    y, st = ss.ssd_scan(*x, h_tile=h_tile, init_state=s0)
+    assert ss.launches == before + 1
+    yp, stp = ss.ssd_scan_plain(*x, init_state=s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, **SSD_TOL)
+    torch.testing.assert_close(st, stp, **SSD_TOL)
