@@ -6,18 +6,21 @@
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit; build the CUDA kernels
      (``src/repro_torch/csrc``) with nvcc for sm_90a, one nvcc per source,
-     all at once;
+     all at once, and print ptxas's registers and spills for every kernel
+     beside the dynamic shared memory of each;
   2. every kernel against its plain PyTorch version on the card:
      ``hash_probe`` bit for bit with the TPU kernel's contract (widths
      1/2/4/8, hits, misses, chained keys, clamped starts) and with the
      dataplane's contract (cache hits, offsets that clamp, undelivered
-     lanes); ``flash_attention`` (causal and not, window, softcap, GQA,
-     ragged lengths, D 16-128, bf16 and float32; at the serving shape with
-     diffuse and sharp scores, element by element, and a dropped kv block as
-     a negative control) and ``ssd_scan`` (several Q/H/h_tile, an initial
-     state) within stated tolerances, then both timed at the serving shapes
-     beside their plain versions and, for attention,
-     ``scaled_dot_product_attention``;
+     lanes); ``flash_attention`` (causal and not, window, softcap, GQA 2
+     and 4, ragged lengths around the bf16 kernel's 128 x 128 tiles, D
+     16-128, bf16 on the tensor-core kernel and float32 on the CUDA-core
+     one; at the serving shape with diffuse and sharp scores, element by
+     element, and a dropped kv block as a negative control) and
+     ``ssd_scan`` (several Q/H/h_tile, Q not a multiple of its 64-row tile,
+     one chunk, initial states) within stated tolerances, then both timed
+     at the serving shapes beside their plain versions, their bounds and
+     achieved TFLOP/s and, for attention, ``scaled_dot_product_attention``;
   3. the bench gate's tx_loop workload on the card and on the CPU: identical
      arenas and the gate keys of ``benchmarks/BENCH_BASELINE.json``; a small
      TATP mix with retry rounds, card against CPU;
@@ -58,6 +61,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory rate (data sheet)
 BF16_FLOP_PER_S = 989e12          # dense bf16 tensor-core peak (data sheet)
 F32_FLOP_PER_S = 67e12            # float32 peak outside the tensor cores
+TF32_FLOP_PER_S = 495e12          # dense TF32 tensor-core peak (data sheet)
 # the serving main path: zamba2-1.2b at full size, 8 requests x 2048-token
 # prompts, then 32 greedy tokens
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = "zamba2-1.2b", 8, 2048, 32
@@ -400,6 +404,19 @@ FLASH_CASES = [
     (2, 200, 200, 4, 2, 128, True, 100, 30.0, "bfloat16"),      # all, ragged
     (1, 192, 192, 2, 2, 32, True, None, None, "float32"),
     (2, 100, 100, 4, 4, 16, False, 40, None, "float32"),
+    # the bf16 kernel's 128 x 128 tiles at their edges: Sq and Sk not
+    # multiples of 128, Sk below one kv tile, a window narrower than a tile,
+    # GQA 2 and 4 at D 64 and 128, and D 16 and 32 in bf16
+    (1, 300, 300, 4, 2, 64, True, None, None, "bfloat16"),      # GQA 2
+    (1, 333, 333, 8, 2, 128, True, None, None, "bfloat16"),     # GQA 4
+    (2, 260, 260, 4, 1, 64, False, None, None, "bfloat16"),     # GQA 4
+    (1, 130, 257, 4, 2, 128, False, None, None, "bfloat16"),    # GQA 2
+    (1, 200, 90, 2, 2, 64, False, None, None, "bfloat16"),      # Sk < tile
+    (2, 77, 77, 2, 2, 128, True, None, 20.0, "bfloat16"),       # Sq, Sk < tile
+    (1, 384, 384, 2, 2, 64, True, 37, None, "bfloat16"),        # window < tile
+    (1, 320, 320, 2, 1, 128, False, 50, None, "bfloat16"),      # window, GQA 2
+    (1, 256, 256, 2, 2, 16, True, None, None, "bfloat16"),
+    (1, 200, 200, 4, 2, 32, True, 60, None, "bfloat16"),
 ]
 # |kernel - plain| <= FLASH_ULPS ulps of (|plain| + the rms of its row),
 # element by element.  The limit scales with each value, so it holds the late
@@ -417,6 +434,11 @@ SSD_CASES = [
     (2, 2, 24, 8, 16, 16, 2, False),        # the serving test's chunk of 24
     (1, 2, 100, 4, 64, 64, 1, True),        # ragged tiles, initial state
     (2, 2, 256, 8, 128, 128, 8, False),
+    # Q not a multiple of the 64-row tile, one chunk, initial states
+    (2, 1, 100, 8, 64, 64, 2, True),
+    (1, 1, 24, 4, 32, 16, 4, True),
+    (2, 3, 200, 6, 64, 64, 2, True),        # head tile 2 of 6
+    (1, 2, 256, 64, 64, 64, 1, True),       # the serving widths
 ]
 SSD_RTOL = 1e-4     # float32: |kernel - plain| <= SSD_RTOL * max(1, max|plain|)
 
@@ -441,15 +463,25 @@ def flash_excess(got, want, dtype):
     return (got.float() - w).abs() / limit, limit
 
 
-def flash_bound(BH, Sq, Sk, D, causal, elem_bytes):
-    """Least time (ms) for one call and what bounds it: the two products
-    over the pairs the mask keeps, at the bf16 tensor-core peak, against
-    q, k, v read once and out written once."""
+# which hand-written kernel the C entry point runs for each dtype
+FLASH_KERNEL = {"bfloat16": "bf16 tensor-core kernel, wgmma + TMA, 128 x 128",
+                "float32": "float32 CUDA-core kernel, 64 x 64"}
+
+
+def flash_flops(BH, Sq, Sk, D, causal):
+    """The two products over the (q, k) pairs the mask keeps."""
     import numpy as np
     qpos = np.arange(Sq)[:, None]
     kpos = np.arange(Sk)[None, :]
     pairs = int((qpos >= kpos).sum()) if causal else Sq * Sk
-    flops = 4 * BH * D * pairs
+    return 4 * BH * D * pairs
+
+
+def flash_bound(BH, Sq, Sk, D, causal, elem_bytes):
+    """Least time (ms) for one call and what bounds it: the two products
+    over the pairs the mask keeps, at the bf16 tensor-core peak, against
+    q, k, v read once and out written once."""
+    flops = flash_flops(BH, Sq, Sk, D, causal)
     byts = elem_bytes * D * (2 * BH * Sq + 2 * BH * Sk)
     t_ops, t_mem = flops / BF16_FLOP_PER_S, byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
@@ -469,9 +501,9 @@ def flash_checks(dev, rows):
         got = fa.flash_attention_bhsd(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         err = max(err, _flash_compare(
-            f"flash_attention case {i}: B={B} Sq={Sq} Sk={Sk} Hq={Hq} "
-            f"Hkv={Hkv} D={D} causal={causal} window={window} softcap={cap} "
-            f"{dt}", got, want, dt))
+            f"flash_attention case {i} ({FLASH_KERNEL[dt]}): B={B} Sq={Sq} "
+            f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
+            f"window={window} softcap={cap} {dt}", got, want, dt))
 
     # the serving shape: the shared block's prefill attention, with diffuse
     # and with sharp scores
@@ -509,10 +541,14 @@ def flash_checks(dev, rows):
     l_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True), 20)
     bound_ms, bound_by = flash_bound(B * H, S, S, D, True, 2)
     ks, ps, ls = (_mean(t) for t in (k_ms, p_ms, l_ms))
+    tflop = flash_flops(B * H, S, S, D, True) / 1e12
     print(f"flash_attention at the serving shape (BH={B * H}, S={S}, D={D}, "
-          f"causal, bf16): kernel {ks:.4f} ms, plain {ps:.4f} ms, "
-          f"scaled_dot_product_attention {ls:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by})", flush=True)
+          f"causal, bf16, {FLASH_KERNEL['bfloat16']}): kernel {ks:.4f} ms "
+          f"({tflop / ks * 1e3:.1f} TFLOP/s), plain {ps:.4f} ms, "
+          f"scaled_dot_product_attention {ls:.4f} ms "
+          f"({tflop / ls * 1e3:.1f} TFLOP/s), bound {bound_ms:.5f} ms "
+          f"({bound_by}, {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); kernel "
+          f"/ SDPA {ks / ls:.3f}", flush=True)
     rows["flash_attention"].update(max_abs_err=err, ms=ks, plain_ms=ps,
                                    library_ms=ls, bound_ms=bound_ms,
                                    bound_by=bound_by)
@@ -541,16 +577,23 @@ def ssd_inputs(B, nc, Q, H, P, N, dev, seed):
             r(B, nc, Q, N) * 0.3, r(B, nc, Q, N) * 0.3)
 
 
-def ssd_bound(B, nc, Q, H, P, N):
-    """Least time (ms) for one call and what bounds it: per chunk the causal
-    half of C B^T, the causal half of the intra-chunk product per head, the
-    carry-in and state products per head, at the float32 peak; against the
-    inputs read once and y and the state written once."""
+def ssd_flops(B, nc, Q, H, P, N):
+    """Per chunk the causal half of C B^T, the causal half of the
+    intra-chunk product per head, the carry-in and state products per
+    head."""
     tri = Q * (Q + 1) // 2
-    flops = 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+    return 2 * B * nc * (tri * N + H * (tri * P + 2 * Q * N * P))
+
+
+def ssd_bound(B, nc, Q, H, P, N, flop_per_s=F32_FLOP_PER_S, passes=1):
+    """Least time (ms) for one call and what bounds it: ssd_flops x passes
+    at flop_per_s (the float32 peak by default; 3xTF32 is 3 passes at the
+    TF32 peak), against the inputs read once and y and the state written
+    once."""
+    flops = passes * ssd_flops(B, nc, Q, H, P, N)
     byts = 4 * (2 * B * nc * Q * H * P + B * nc * Q * H + 2 * B * nc * Q * N
                 + B * H * N * P)
-    t_ops, t_mem = flops / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S
+    t_ops, t_mem = flops / flop_per_s, byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
 
 
@@ -582,10 +625,17 @@ def ssd_checks(dev, rows):
     k_ms = time_cuda(lambda: ss.ssd_scan(xdt, dA, Bc, Cc, h_tile=1), 10)
     p_ms = time_cuda(lambda: ss.ssd_scan_plain(xdt, dA, Bc, Cc), 5)
     bound_ms, bound_by = ssd_bound(*cfg_shape)
+    tc_ms, tc_by = ssd_bound(*cfg_shape, flop_per_s=TF32_FLOP_PER_S, passes=3)
     ks, ps = _mean(k_ms), _mean(p_ms)
-    print(f"ssd_scan at the serving shape {cfg_shape}: kernel {ks:.4f} ms, "
-          f"plain {ps:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
+    tflop = ssd_flops(*cfg_shape) / 1e12
+    print(f"ssd_scan at the serving shape {cfg_shape} (3 CUDA kernels: "
+          f"chunk states and C B^T, state passing, outputs; 3xTF32 "
+          f"mma.sync): kernel "
+          f"{ks:.4f} ms ({tflop / ks * 1e3:.2f} TFLOP/s of the causal work), "
+          f"plain {ps:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, float32 "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); 3xTF32 tensor-core bound "
+          f"{tc_ms:.5f} ms ({tc_by}, 3 x {tflop * 1e3:.1f} GFLOP at "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)", flush=True)
     rows["ssd_scan"].update(max_abs_err=err, ms=ks, plain_ms=ps,
                             bound_ms=bound_ms, bound_by=bound_by)
 
@@ -889,6 +939,17 @@ KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
 }
 
 
+def _kernel_name(line):
+    """'flash_tc_kernel<64>' from ptxas's line naming a mangled entry."""
+    import re
+    mangled = line.split("'")[1] if "'" in line else line
+    base = re.search(r"\d+((?:flash|ssd|hash)_[a-z_]+)", mangled)
+    args = (["float"] if "IfLi" in mangled else []) + re.findall(r"Li(\d+)E",
+                                                                  mangled)
+    return (base.group(1) if base else mangled) + (f"<{','.join(args)}>"
+                                                   if args else "")
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc each, in parallel) and
     print the build times and the compiler's register and spill lines."""
@@ -907,9 +968,29 @@ def build_kernels():
     for name in KERNELS:
         build.load(name)
         log = build.BUILD_DIR / f"{name}.log"
+        entry = spills = ""
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line:      # one line per kernel
+                entry = _kernel_name(line)
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"ptxas {name}: {entry}: "
+                      f"{line.split(':', 1)[-1].strip()}; {spills}", flush=True)
+            elif "arning" in line or "Performance" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    # dynamic shared memory, which ptxas does not report (ssd_scan.cu's
+    # run(), flash_attention.cu's tc::Cfg and run())
+    from repro_torch.kernels import ssd_scan as ss
+    tc = {D: 1024 + 128 * D * 2 + (2 if D == 128 else 3) * 2 * 128 * D * 2
+          + 128 for D in (16, 32, 64, 128)}
+    f32 = {D: 4 * (64 * (D + 1) * 2 + 64 * D + 64 * 80)
+           for D in (16, 32, 64, 128)}
+    B, nc, Q, H, P, N = _serve_ssd_shape()
+    print(f"dynamic shared memory per CTA: flash_attention bf16 by D "
+          f"{json.dumps(tc)}, float32 by D {json.dumps(f32)}; ssd_scan at "
+          f"the serving shape {ss.smem_bytes(Q, N, P)} B (the larger of "
+          f"its two product kernels)", flush=True)
 
 
 def main():

@@ -11,11 +11,28 @@ rounded to the input type before the PV product, as the TPU kernel does.
 Dispatch: a CPU tensor takes :func:`flash_attention_plain`, a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches.
 
-Bound: operations.  At the serving shape (BH 256, S 2048, D 64, causal) the
-two products are ~137 GFLOP against ~268 MB of q/k/v/out, far above the
-card's ~295 FLOP per byte, so the tensor-core rate bounds it.  This first
-kernel computes on the CUDA cores in float32 (64x64 tiles, one CTA per
-(head, q block)); tensor cores are later work.
+Bound: operations.  At the serving shape (BH 256, S 2048, D 64, causal,
+bf16) the two products are ~137 GFLOP against ~268 MB of q/k/v/out, far
+above the card's ~295 bf16 FLOP per byte, so the tensor-core rate bounds it.
+The C entry point dispatches on dtype to one of two hand-written kernels:
+
+* bfloat16 (the serving path): FlashAttention-3's shape on the tensor
+  cores.  A CTA per (head, 128-row q block), the heavier causal blocks
+  first and one head's blocks together (K/V from L2); a producer warpgroup
+  keeps TMA loads of 128-row K/V tiles in flight through a swizzled ring of
+  mbarrier-guarded stages; two consumer warpgroups of 64 q rows each run
+  ``S = Q Kᵀ`` as a ``wgmma`` from shared memory, the online softmax in
+  registers (exp2 with the scale folded in, float32 ``m``/``l``), and
+  ``O += P V`` as a ``wgmma`` with the bf16 ``p`` in registers and V read
+  transposed from shared memory; S of one block is issued with the PV
+  product of the one before, and at D <= 64 the two warpgroups take turns
+  to issue.  Mask and softcap run only on blocks that need them.  Tiles
+  128 x 128 (``TC_BLOCK``).
+* float32 (the float32 model checks only): the CUDA-core kernel, float32
+  products in 64 x 64 tiles (``BLOCK``).
+
+The plain version tiles as the kernel of the input's dtype does, so both
+round ``p`` at the same running maxima.
 """
 from __future__ import annotations
 
@@ -25,18 +42,27 @@ import torch
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)          # the CUDA kernel's instantiations
-BLOCK = 64          # the CUDA kernel's q and kv tile (kBQ, kBK in the .cu)
+BLOCK = 64          # the float32 kernel's q and kv tile (kBQ, kBK in the .cu)
+TC_BLOCK = 128      # the bf16 tensor-core kernel's tiles (tc::kBM, tc::kBN)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0                            # kernel launches since the last reset
 
 
+def tile(dtype) -> int:
+    """The q and kv tile of the CUDA kernel for ``dtype``."""
+    return TC_BLOCK if dtype == torch.bfloat16 else BLOCK
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
-                          q_block=BLOCK, kv_block=BLOCK, group=1):
+                          q_block=None, kv_block=None, group=1):
     """Plain PyTorch version: the TPU kernel's algorithm, kv block by kv
     block over all q blocks at once, with its block skipping.  Its default
-    tiles are the CUDA kernel's, so both sum in the same order; the TPU
-    kernel's tiles can be given to compare with it."""
+    tiles are the CUDA kernel's for q's dtype (:func:`tile`), so both round
+    ``p`` at the same running maxima; the TPU kernel's tiles can be given
+    to compare with it."""
+    q_block = tile(q.dtype) if q_block is None else q_block
+    kv_block = tile(q.dtype) if kv_block is None else kv_block
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     qb, kb = min(q_block, Sq), min(kv_block, Sk)
@@ -103,6 +129,8 @@ def _launch(q, k, v, *, causal, window, softcap, group):
     out = torch.empty_like(q)
     if BH == 0 or Sq == 0:
         return out
+    # TMA (the bf16 kernel) reads from 16-byte aligned bases
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     fn = build.load("flash_attention").flash_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
@@ -124,7 +152,7 @@ def _launch(q, k, v, *, causal, window, softcap, group):
 def flash_attention_bhsd(q, k, v, *, causal=True, window=None, softcap=None,
                          group=1):
     """q (BHq, Sq, D); k/v (BHkv, Sk, D) with BHq == BHkv * group -> (BHq,
-    Sq, D) in q's dtype, tiled ``BLOCK`` x ``BLOCK`` on either device."""
+    Sq, D) in q's dtype, tiled ``tile(q.dtype)`` square on either device."""
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys (Sk == 0)")
     if window is not None and window < 1:

@@ -75,7 +75,8 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     dA = (dt * A).reshape(B, nc, Q, H)
     Bc = Bm.float().reshape(B, nc, Q, N)
     Cc = Cm.float().reshape(B, nc, Q, N)
-    # one head per CTA on the card: B * H CTAs (512 at the serving shape)
+    # h_tile is the TPU contract's; on the card the kernels take one head
+    # per CTA and compute C·Bᵀ once for all heads
     y, state = ops.ssd_scan(xdt, dA, Bc, Cc, h_tile=1, init_state=init_state)
     return y.reshape(B, S, H, P).to(xh.dtype), state
 

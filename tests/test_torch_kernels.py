@@ -175,6 +175,16 @@ FLASH_CASES = [
     (1, 32, 32, 2, 2, 64, True, None, 30.0, "float32"),       # softcap
     (1, 24, 40, 2, 2, 64, False, None, None, "bfloat16"),     # ragged, cross
 ]
+# the bf16 kernel's 128 x 128 tiles at their edges: Sq and Sk not multiples
+# of 128, Sk below one tile, a window narrower than a tile, GQA 2 and 4,
+# D 16 to 128
+FLASH_TILE_CASES = [
+    (1, 200, 200, 4, 2, 64, True, None, None, "bfloat16"),      # GQA 2
+    (1, 130, 257, 2, 2, 32, False, None, None, "bfloat16"),     # ragged, cross
+    (1, 300, 300, 2, 1, 64, True, 37, None, "bfloat16"),        # window, GQA 2
+    (1, 90, 90, 2, 2, 128, True, None, 20.0, "bfloat16"),       # Sk < tile
+    (1, 160, 160, 4, 1, 16, True, None, None, "bfloat16"),      # GQA 4
+]
 # bf16 outputs: a few ulps of values ~0.5; float32: summation order only
 FLASH_ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -210,8 +220,9 @@ def test_flash_attention_plain_matches_pallas_and_ref(case):
                                rtol=1e-2)
     # the wrapper, on the CPU, is the plain version at the CUDA kernel's tiles
     wrapped = fa.flash_attention_bhsd(q, k, v, group=group, **kw)
+    tile = fa.tile(q.dtype)
     assert torch.equal(wrapped, fa.flash_attention_plain(
-        q, k, v, q_block=fa.BLOCK, kv_block=fa.BLOCK, group=group, **kw))
+        q, k, v, q_block=tile, kv_block=tile, group=group, **kw))
     np.testing.assert_allclose(wrapped.float().numpy(),
                                np.asarray(pallas, np.float32), atol=atol,
                                rtol=1e-2)
@@ -219,6 +230,34 @@ def test_flash_attention_plain_matches_pallas_and_ref(case):
     np.testing.assert_allclose(pref.attention_ref_bhsd(q, k, v, **kw).float()
                                .numpy(), np.asarray(want, np.float32),
                                atol=atol, rtol=1e-2)
+
+
+def test_flash_attention_tiles_follow_the_dtype():
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.tile(torch.bfloat16) == fa.TC_BLOCK == 128
+    assert fa.tile(torch.float32) == fa.BLOCK == 64
+
+
+@pytest.mark.parametrize("case", FLASH_TILE_CASES)
+def test_flash_attention_plain_at_kernel_tiles_matches_pallas_and_ref(case):
+    """The plain version at the bf16 kernel's 128 x 128 tiles (the CPU
+    wrapper's default for bf16) against the Pallas kernel at the same tiles
+    in interpret mode and attention_ref."""
+    from repro.kernels import flash_attention as jfa
+    from repro_torch.kernels import flash_attention as fa
+    (jq, jk, jv), (q, k, v), kw, group, dt = _flash_case(case, seed=3)
+    got = fa.flash_attention_bhsd(q, k, v, group=group, **kw)
+    assert torch.equal(got, fa.flash_attention_plain(
+        q, k, v, q_block=fa.TC_BLOCK, kv_block=fa.TC_BLOCK, group=group,
+        **kw))
+    pallas = jfa.flash_attention_bhsd(jq, jk, jv, q_block=fa.TC_BLOCK,
+                                      kv_block=fa.TC_BLOCK, group=group,
+                                      interpret=True, **kw)
+    want = jref.attention_ref_bhsd(jq, jk, jv, **kw)
+    g = got.float().numpy()
+    for ref in (pallas, want):
+        np.testing.assert_allclose(g, np.asarray(ref, np.float32),
+                                   atol=FLASH_ATOL[dt], rtol=1e-2)
 
 
 def test_flash_attention_model_layout_matches_block_attention():
@@ -243,6 +282,13 @@ def test_flash_attention_model_layout_matches_block_attention():
 SSD_CASES = [
     (1, 3, 24, 4, 16, 16, 2),
     (2, 2, 32, 8, 16, 32, 4),
+]
+# Q not a multiple of the kernels' 64-row tile, one chunk, head counts that
+# are not powers of two
+SSD_EDGE_CASES = [
+    (2, 1, 100, 8, 64, 64, 2),
+    (1, 1, 24, 4, 32, 16, 4),
+    (2, 3, 72, 6, 16, 32, 2),
 ]
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)   # float32, summation order only
 
@@ -272,6 +318,54 @@ def test_ssd_scan_plain_matches_pallas_and_ref(case):
     py, pst = pref.ssd_scan_ref(*map(torch.from_numpy, arrs))
     np.testing.assert_allclose(py.numpy(), np.asarray(ry), **SSD_TOL)
     np.testing.assert_allclose(pst.numpy(), np.asarray(rst), **SSD_TOL)
+
+
+def _ssd_model_case(case, seed):
+    """Model-layout inputs (xh f32, dt, A, Bm, Cm, an initial state) and the
+    same values folded and cut into chunks as ssd_scan takes them."""
+    B, nc, Q, H, P, N, _ = case
+    S = nc * Q
+    rng = np.random.RandomState(seed)
+    xh = (rng.randn(B, S, H, P) * 0.2).astype(np.float32)
+    dt = (rng.rand(B, S, H) * 0.5 + 0.1).astype(np.float32)
+    A = (-rng.rand(H) - 0.1).astype(np.float32)
+    Bm = (rng.randn(B, S, N) * 0.3).astype(np.float32)
+    Cm = (rng.randn(B, S, N) * 0.3).astype(np.float32)
+    s0 = (rng.randn(B, H, N, P) * 0.1).astype(np.float32)
+    chunks = ((xh * dt[..., None]).reshape(B, nc, Q, H, P),
+              (dt * A).reshape(B, nc, Q, H), Bm.reshape(B, nc, Q, N),
+              Cm.reshape(B, nc, Q, N))
+    return (xh, dt, A, Bm, Cm, s0), chunks
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES + SSD_EDGE_CASES)
+def test_ssd_scan_phased_matches_plain_and_reference(case, with_init):
+    """ssd_scan_phased (the CUDA kernels' algorithm: chunk-local states,
+    state passing over chunks, outputs with the carry-in) against the
+    chunk-by-chunk plain version and the JAX package: the Pallas kernel in
+    interpret mode without an initial state, mamba2.ssd_chunked (the
+    package's path that takes one) with it."""
+    from repro.kernels import ssd_scan as jss
+    from repro.models import mamba2 as jM
+    from repro_torch.kernels import ssd_scan as ss
+    (xh, dt, A, Bm, Cm, s0), chunks = _ssd_model_case(case, seed=4)
+    B, nc, Q, H, P, N, h_tile = case
+    x = [torch.from_numpy(a) for a in chunks]
+    init = torch.from_numpy(s0) if with_init else None
+    y, st = ss.ssd_scan_phased(*x, init_state=init)
+    yp, sp = ss.ssd_scan_plain(*x, init_state=init)
+    torch.testing.assert_close(y, yp, **SSD_TOL)
+    torch.testing.assert_close(st, sp, **SSD_TOL)
+    if with_init:
+        jy, jst = jM.ssd_chunked(*map(jnp.asarray, (xh, dt, A, Bm, Cm)), Q,
+                                 init_state=jnp.asarray(s0))
+        jy = np.asarray(jy).reshape(B, nc, Q, H, P)
+    else:
+        jy, jst = jss.ssd_scan(*map(jnp.asarray, chunks), h_tile=h_tile,
+                               interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), **SSD_TOL)
 
 
 def test_ssd_chunked_matches_reference_with_initial_state():
@@ -324,7 +418,7 @@ def test_wrappers_reject_bad_arguments():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_TILE_CASES)
 def test_cuda_flash_attention_matches_plain(cuda, case):
     from repro_torch.kernels import flash_attention as fa
     _, tt, kw, group, dt = _flash_case(case, seed=7)
@@ -343,7 +437,7 @@ def test_cuda_flash_attention_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("case", SSD_CASES + SSD_EDGE_CASES)
 def test_cuda_ssd_scan_matches_plain(cuda, case):
     from repro_torch.kernels import ssd_scan as ss
     arrs, h_tile = _ssd_case(case, seed=8)
