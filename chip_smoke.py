@@ -11,11 +11,14 @@ Phases (any failure exits non-zero):
   2. every kernel against its plain PyTorch version on the card:
      ``hash_probe`` bit for bit with the TPU kernel's contract (widths
      1/2/4/8, hits, misses, chained keys, clamped starts) and with the
-     dataplane's contract (cache hits, offsets that clamp, undelivered
-     lanes); ``flash_attention`` (causal and not, window, softcap, GQA 2
-     and 4, ragged lengths around the bf16 kernel's 128 x 128 tiles, D
-     16-128, bf16 on the tensor-core kernel and float32 on the CUDA-core
-     one; at the serving shape with diffuse and sharp scores, element by
+     dataplane's contract, with the kernel's count of its fast lanes
+     (widths 1/2/4/8; n_words 0..3 mod 4 and arena bases off 16 B; lines that end
+     at the arena's last word, cross it, wrap in 32 bits; dest -1 and N;
+     cache hits; undelivered lanes and a CTA of them; M = 1, one CTA and a
+     lane, 8192 and 2**18); ``flash_attention`` (causal and not, window,
+     softcap, GQA 2 and 4, ragged lengths around the bf16 kernel's 128 x
+     128 tiles, D 16-128, bf16 on the tensor-core kernel and float32 on
+     the CUDA-core one; at the serving shape with diffuse and sharp scores, element by
      element, and a dropped kv block as a negative control) and
      ``ssd_scan`` (several Q/H/h_tile, Q not a multiple of its 64-row tile,
      one chunk, initial states) within stated tolerances, then both timed
@@ -35,7 +38,9 @@ Phases (any failure exits non-zero):
   5. the TATP main path: ``txloop.tx_loop`` at 32 simulated nodes and 2**15
      subscribers per node (1,048,576 subscribers), with ``hash_probe``'s
      launch count read around that one run.  Before it, the kernel is timed
-     against its plain version at the shape this run gives it; after it,
+     against its plain version and its byte bound at the shape this run
+     gives it and at a bandwidth shape (2**18 live lanes at widths 1 and 4
+     over the same arenas), beside the timing floor; after it,
      one more protocol round runs under torch.profiler to show the
      device's busy share;
   6. the serving main path: zamba2-1.2b at full size (38 layers, seeded
@@ -74,6 +79,8 @@ CHECK_PROMPT, CHECK_DECODE = 224, 32
 # the main path: fig6's TATP at the paper's 32 nodes, 2**15 subscribers each
 TATP_NODES, TATP_SUBSCRIBERS_PER_NODE, TATP_LANES, TATP_MAX_ROUNDS = \
     32, 2**15, 512, 4
+# hash_probe's bandwidth shape (over the TATP arenas) and its largest check
+PROBE_LANES = 2**18
 
 
 def fail(msg):
@@ -170,50 +177,206 @@ def kernel_checks(dev):
               f"their bucket, {n - 8 - found[0]} chained", flush=True)
 
     # --- the dataplane's contract on random arenas --------------------------
+    # every edge the kernel's paths split on: n_words = 0..3 mod 4 and arena
+    # bases 0, 4 and 8 B off 16 B (lines at every alignment), M = 1, one CTA
+    # and a lane, 8192 and 2**18 lanes, a CTA of dead lanes only
     g = torch.Generator().manual_seed(11)
-    N, words, M = 4, 4096 + 7, 8192
-    for width in (1, 2, 4):
-        arenas = torch.randint(-2**31, 2**31, (N, words), generator=g,
-                               dtype=torch.int64).to(torch.int32)
-        dest = torch.randint(-1, N + 1, (M,), generator=g).to(torch.int32)
-        off = torch.randint(0, words, (M,), generator=g)
-        kind = torch.randint(0, 4, (M,), generator=g)
-        off = torch.where(kind == 1, words - torch.randint(0, 48, (M,),
-                                                           generator=g), off)
-        off = torch.where(kind == 2, torch.randint(2**31, 2**32, (M,),
-                                                   generator=g), off)
-        off = torch.where(kind == 3, (off // 32) * 32, off)
-        # plant matches: a lane's key equals a stable, unlocked slot's key
-        s = torch.randint(0, width, (M,), generator=g)
-        plant = (torch.rand((M,), generator=g) < 0.5) & (kind == 3) & \
-            (dest >= 0) & (dest < N) & (off + (s + 1) * 32 <= words)
-        key_lo = torch.randint(-2**31, 2**31, (M,), generator=g,
-                               dtype=torch.int64).to(torch.int32)
-        key_hi = torch.randint(-2**31, 2**31, (M,), generator=g,
-                               dtype=torch.int64).to(torch.int32)
-        base = off + s * 32
-        r = dest.clamp(0, N - 1).to(torch.int64)
-        for w_, k in ((2, 0), (3, 0)):     # version even, lock free
-            arenas[r[plant], base[plant] + w_] = k
-        key_lo = torch.where(plant, arenas[r, (base).clamp(0, words - 1)],
-                             key_lo)
-        key_hi = torch.where(plant, arenas[r, (base + 1).clamp(0, words - 1)],
-                             key_hi)
-        live = torch.rand((M,), generator=g) < 0.8
-        hit = torch.rand((M,), generator=g) < 0.3
-        args = [x.to(dev) for x in (arenas, dest, sl.i32(off), key_lo,
-                                    key_hi, live, hit)]
-        got = hp.probe_lines(*args, width=width)
-        want = hp.probe_lines_plain(*args, width=width)
-        for a, b, name in zip(got, want, ("found", "version", "value",
-                                          "local_idx")):
-            check(torch.equal(a, b),
-                  f"probe_lines {name} != plain (width {width})")
-            pairs.append((a, b))
-        print(f"path contract width={width}: {M} lanes, "
-              f"{int(got[0].sum())} found", flush=True)
+    N = 4
+    for width in (1, 2, 4, 8):
+        L = hp.lanes_per_cta(width)
+        for r in (1, 2, 3, 4):
+            words = 4096 + r
+            skew = r % 3                     # the base's words past 16 B
+            store = torch.randint(-2**31, 2**31, (N * words + skew,),
+                                  generator=g, dtype=torch.int64)
+            arenas = store.to(torch.int32).to(dev)[skew:].view(N, words)
+            sizes = (1, L + 1, 8192, PROBE_LANES)
+            found = []
+            for M in sizes:
+                args = probe_lanes(arenas, M, width, g)
+                want = hp.probe_lines_plain(*args, width=width)
+                # the wrapper, then the kernel counting its fast lanes
+                n_fast = torch.zeros(1, dtype=torch.int32, device=dev)
+                again = hp._launch(*args, width=width, zero_miss=False,
+                                   n_fast=n_fast)
+                for got in (hp.probe_lines(*args, width=width), again):
+                    for a, b, name in zip(got, want, ("found", "version",
+                                                      "value", "local_idx")):
+                        check(torch.equal(a, b), f"probe_lines {name} != plain"
+                              f" (width {width}, n_words {words}, M {M})")
+                        pairs.append((a, b))
+                found.append(int(got[0].sum()))
+                must, may = fast_bounds(args, width)
+                check(must <= int(n_fast) <= may, f"width {width}, n_words "
+                      f"{words}, M {M}: {int(n_fast)} fast lanes, expected "
+                      f"{must}..{may}")
+                # the TPU contract on a row view (its base lies 4 * words
+                # bytes into the arenas), buckets from the same offsets
+                bucket = (sl.u32(args[2]) // (32 * width)).to(torch.int32)
+                bucket[: M // 3] = sl.i32(args[2][: M // 3])   # clamped starts
+                got = hp.hash_probe(arenas[1], bucket, args[3], args[4],
+                                    width=width)
+                want = hp.hash_probe_plain(arenas[1], bucket, args[3], args[4],
+                                           width=width)
+                check(torch.equal(got, want), f"hash_probe != plain (TPU "
+                      f"contract, width {width}, n_words {words}, M {M})")
+                pairs.append((got, want))
+            print(f"path contract width={width} n_words={words}: M {sizes}, "
+                  f"found {found}, fast lanes at M={sizes[-1]} (kernel's "
+                  f"count) {int(n_fast)} of {may} in bounds", flush=True)
     torch.cuda.synchronize()
     return max_abs_diff(pairs)
+
+
+def probe_lanes(arenas, M, width, g):
+    """M lanes of the dataplane's contract over ``arenas`` (N, words): random
+    offsets and ones that end exactly at the arena's last word, cross it,
+    wrap through 0 in 32 bits or cross the int32 maximum; ``dest`` -1..N;
+    matches planted in half the slot-aligned lanes; 80 % live, 30 % cache
+    hits, and lanes L..2L-1 (a whole CTA) dead where M > 2L."""
+    import torch
+    from repro_torch.core import slots as sl
+    from repro_torch.kernels import hash_probe as hp
+
+    N, words = arenas.shape
+    line = width * 32
+    dev = arenas.device
+    r = lambda lo, hi: torch.randint(lo, hi, (M,), generator=g)
+    dest = r(-1, N + 1)
+    off = r(0, words)
+    kind = r(0, 8)
+    for k, o in ((1, words - r(0, 48)),               # near the end
+                 (2, r(2**31, 2**32)),                # negative as int32
+                 (3, (off // 32) * 32),               # slot-aligned
+                 (4, torch.full((M,), words - line)), # ends at the last word
+                 (5, words - line + r(1, line)),      # crosses the end
+                 (6, 2**32 - r(1, line + 1)),         # wraps through 0
+                 (7, 2**31 - r(1, line + 1))):        # crosses the int32 max
+        off = torch.where(kind == k, o, off)
+    s = r(0, width)
+    base = off + s * 32
+    plant = (torch.rand((M,), generator=g) < 0.5) & (kind == 3) & \
+        (dest >= 0) & (dest < N) & (base + 32 <= words)
+    key_lo = r(-2**31, 2**31).to(torch.int32)
+    key_hi = r(-2**31, 2**31).to(torch.int32)
+    live = torch.rand((M,), generator=g) < 0.8
+    hit = torch.rand((M,), generator=g) < 0.3
+    L = hp.lanes_per_cta(width)
+    if M > 2 * L:
+        live[L:2 * L] = False
+    dest, base, plant = dest.to(dev), base.to(dev), plant.to(dev)
+    rows = dest.clamp(0, N - 1).to(torch.int64)
+    b = base.clamp(0, words - 2)
+    for w_ in (2, 3):                        # version even, lock free
+        arenas[rows[plant], b[plant] + w_] = 0
+    key_lo = torch.where(plant, arenas[rows, b], key_lo.to(dev))
+    key_hi = torch.where(plant, arenas[rows, b + 1], key_hi.to(dev))
+    return [arenas, dest.to(torch.int32), sl.i32(off).to(dev), key_lo, key_hi,
+            live.to(dev), hit.to(dev)]
+
+
+def fast_bounds(args, width):
+    """(must, may): the dataplane-contract lanes of ``args`` whose line lies
+    at least 16 B inside its arena row (the kernel must copy them whole),
+    and those whose line is in bounds with no wrap (it may)."""
+    from repro_torch.core import slots as sl
+    arenas, dest, off, live = args[0], args[1], args[2], args[5]
+    N, words = arenas.shape
+    o, line = sl.u32(off), 32 * width
+    may = live & (dest >= 0) & (dest < N) & (o < 2**31) & (o + line <= words)
+    must = may & (o >= 4) & (o + line <= words - 4)
+    return int(must.sum()), int(may.sum())
+
+
+def probe_bound_bytes(n_live, M, width):
+    """Bytes hash_probe must move: each live lane's ``width`` x 128 B line
+    read once, 18 B of lane inputs read and 117 B of outputs written per
+    lane."""
+    return n_live * width * 128 + M * (4 * 4 + 2) + M * (1 + 4 + 4 + 4 * 27)
+
+
+def bandwidth_lanes(arenas, M, width, n_buckets, seed):
+    """The bandwidth shape: M live lanes over ``arenas`` (populated), ``dest``
+    uniform over the nodes, ``off`` = 32 x a bucket uniform in [0, n_buckets
+    - width], half the lanes carrying the key stored at their first slot and
+    the rest random keys, cache hits on 30 %."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dev = arenas.device
+    N = arenas.shape[0]
+    dest = torch.randint(0, N, (M,), generator=g).to(dev)
+    off = (32 * torch.randint(0, n_buckets - width + 1, (M,),
+                              generator=g)).to(dev)
+    stored = (torch.rand((M,), generator=g) < 0.5).to(dev)
+    key_lo = torch.randint(-2**31, 2**31, (M,), generator=g).to(dev)
+    key_hi = torch.randint(-2**31, 2**31, (M,), generator=g).to(dev)
+    row = dest.to(torch.int64)
+    key_lo = torch.where(stored, arenas[row, off], key_lo.to(torch.int32))
+    key_hi = torch.where(stored, arenas[row, off + 1], key_hi.to(torch.int32))
+    live = torch.ones((M,), dtype=torch.bool, device=dev)
+    hit = (torch.rand((M,), generator=g) < 0.3).to(dev)
+    return [arenas, dest.to(torch.int32), off.to(torch.int32), key_lo,
+            key_hi, live, hit]
+
+
+def probe_shapes(dev, arenas, tatp_args, row, n_buckets):
+    """Time hash_probe beside its plain version and its byte bound: at the
+    TATP probe shape (``tatp_args``, the kernels line's row), then at the
+    bandwidth shape (2**18 live lanes, widths 1 and 4) over the same
+    arenas; and the timing floor (a one-element add_).  L2 is flushed before
+    each timed call by writing 64 MB (the convention of every time in
+    PERF.md), which leaves it full of dirty lines that the call then writes
+    back; each kernel time is repeated with a flush that only reads 64 MB,
+    and the kernel's count of the lanes it copied whole is read once."""
+    import torch
+    from repro_torch.core import telemetry as T
+    from repro_torch.kernels import hash_probe as hp
+
+    scratch = torch.empty(64 * 2**20 // 4, dtype=torch.int32, device=dev)
+    dirty = lambda: scratch.fill_(1)          # evict L2 (50 MB) between calls
+    clean = lambda: scratch.max()             # evict it, leaving clean lines
+    def ms(fn, n, flush):                     # "mean / p50" of n calls
+        t = T.summarize(time_cuda(fn, n, flush))
+        return f"{t['mean']:.5f} / {t['p50']:.5f}"
+    one = torch.zeros(1, device=dev)
+    print(f"timing floor (one-element add_), mean / p50: "
+          f"{ms(lambda: one.add_(1), 100, dirty)} ms (64 MB written before "
+          f"each), {ms(lambda: one.add_(1), 100, clean)} ms (64 MB read "
+          f"before each)", flush=True)
+    shapes = [("TATP probe shape", tatp_args, 1)]
+    for width in (1, 4):
+        shapes.append((f"bandwidth shape width={width}", bandwidth_lanes(
+            arenas, PROBE_LANES, width, n_buckets, seed=20 + width), width))
+    for name, args, width in shapes:
+        got = hp.probe_lines(*args, width=width)
+        want = hp.probe_lines_plain(*args, width=width)
+        err = max_abs_diff(zip(got, want))
+        check(err == 0, f"hash_probe != plain at the {name}")
+        n_fast = torch.zeros(1, dtype=torch.int32, device=dev)
+        hp._launch(*args, width=width, zero_miss=False, n_fast=n_fast)
+        kernel = lambda: hp.probe_lines(*args, width=width)
+        k = T.summarize(time_cuda(kernel, 100, dirty))
+        plain = lambda: hp.probe_lines_plain(*args, width=width)
+        p_ms = T.summarize(time_cuda(plain, 10, dirty))["mean"]
+        k_clean = ms(kernel, 100, clean)
+        M, live = args[1].shape[0], args[5]
+        n_live, fast = int(live.sum()), int(n_fast)
+        if args is not tatp_args:              # every lane in bounds
+            check(fast == M, f"{fast} of {M} lanes took the fast path at "
+                  f"the {name}")
+        byts = probe_bound_bytes(n_live, M, width)
+        bound_ms = byts / HBM_BYTES_PER_S * 1e3
+        print(f"hash_probe at the {name}: M={M} lanes ({n_live} live, "
+              f"{int(got[0].sum())} found), kernel {k['mean']:.5f} ms (p50 "
+              f"{k['p50']:.5f}, p99 {k['p99']:.5f}; read flush {k_clean}), "
+              f"plain {p_ms:.4f} ms, bound {bound_ms:.6f} ms ({byts} B), "
+              f"{bound_ms / k['mean']:.3f} of the bound, fast-path share of "
+              f"live lanes (kernel's count) {fast / max(n_live, 1):.4f}",
+              flush=True)
+        if args is tatp_args:
+            row.update(ms=k["mean"], plain_ms=p_ms, bound_ms=bound_ms,
+                       max_abs_err=max(row["max_abs_err"] or 0, err))
+    del scratch
 
 
 def parity_checks(dev, baseline):
@@ -264,14 +427,13 @@ def parity_checks(dev, baseline):
           f"{int(outs[0][1].round_retries.sum())}, card == CPU", flush=True)
 
 
-def tatp_main_path(dev, kernel_rows):
-    """Populate TATP_NODES x TATP_SUBSCRIBERS_PER_NODE subscribers, time the
-    kernel at the probe shape, then run the TATP batch through tx_loop
-    once."""
+def tatp_main_path(dev, rows):
+    """Populate TATP_NODES x TATP_SUBSCRIBERS_PER_NODE subscribers, time
+    hash_probe at the probe shape and the bandwidth shape over those arenas
+    (:func:`probe_shapes`), then run the TATP batch through tx_loop once."""
     import numpy as np
     import torch
     from repro_torch.core import slots as sl
-    from repro_torch.core import telemetry as T
     from repro_torch.core import txloop as txl
     from repro_torch.core.datastructs import hashtable as ht
     from repro_torch.core.transport import SimTransport
@@ -305,28 +467,9 @@ def tatp_main_path(dev, kernel_rows):
     live = ren.reshape(n_nodes, -1)
     args = [x.reshape(-1).contiguous() for x in (node, off, rk_lo, rk_hi,
                                                  live, hit)]
-    args = [state["arena"]] + args
-    M = args[1].shape[0]
-    got = hp.probe_lines(*args, width=1)
-    want = hp.probe_lines_plain(*args, width=1)
-    err = max_abs_diff(zip(got, want))
-    check(err == 0, "hash_probe != plain at the TATP probe shape")
-    scratch = torch.empty(64 * 2**20 // 4, dtype=torch.int32, device=dev)
-    flush = lambda: scratch.fill_(1)          # evict L2 (50 MB) between calls
-    k_ms = time_cuda(lambda: hp.probe_lines(*args, width=1), 100, flush)
-    p_ms = time_cuda(lambda: hp.probe_lines_plain(*args, width=1), 20, flush)
-    n_live = int(live.sum())
-    byts = n_live * sl.SLOT_BYTES + M * (4 * 4 + 2) + M * (1 + 4 + 4 + 4 * 27)
-    bound_ms = byts / HBM_BYTES_PER_S * 1e3
-    ks, ps = T.summarize(k_ms), T.summarize(p_ms)
-    print(f"hash_probe at the TATP probe shape: M={M} lanes ({n_live} live), "
-          f"kernel {ks['mean']:.4f} ms (p50 {ks['p50']:.4f}, p99 "
-          f"{ks['p99']:.4f}), plain {ps['mean']:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({byts} B)", flush=True)
-    row = kernel_rows["hash_probe"]
-    row.update(ms=ks["mean"], plain_ms=ps["mean"], bound_ms=bound_ms,
-               max_abs_err=max(row["max_abs_err"], err))
-    del scratch
+    row = rows["hash_probe"]
+    probe_shapes(dev, state["arena"], [state["arena"]] + args, row,
+                 cfg.n_buckets)
 
     # --- the main path: one tx_loop run, launch counts read around it -----
     torch.cuda.reset_peak_memory_stats()
@@ -980,8 +1123,10 @@ def build_kernels():
             elif "arning" in line or "Performance" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     # dynamic shared memory, which ptxas does not report (ssd_scan.cu's
-    # run(), flash_attention.cu's tc::Cfg and run())
+    # run(), flash_attention.cu's tc::Cfg and run(), hash_probe.cu's launch())
+    from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import ssd_scan as ss
+    probe = {w: 4 * hp.lanes_per_cta(w) * (32 * w + 4) for w in range(1, 9)}
     tc = {D: 1024 + 128 * D * 2 + (2 if D == 128 else 3) * 2 * 128 * D * 2
           + 128 for D in (16, 32, 64, 128)}
     f32 = {D: 4 * (64 * (D + 1) * 2 + 64 * D + 64 * 80)
@@ -990,7 +1135,16 @@ def build_kernels():
     print(f"dynamic shared memory per CTA: flash_attention bf16 by D "
           f"{json.dumps(tc)}, float32 by D {json.dumps(f32)}; ssd_scan at "
           f"the serving shape {ss.smem_bytes(Q, N, P)} B (the larger of "
-          f"its two product kernels)", flush=True)
+          f"its two product kernels); hash_probe's tile by width "
+          f"{json.dumps(probe)}", flush=True)
+
+
+def kernel_rows():
+    """One entry of the kernels line per kernel, its numbers still unset."""
+    return {name: dict(name=name, route="cuda", source=src, replaces=rep,
+                       launches=0, max_abs_err=None, ms=None, plain_ms=None,
+                       bound_ms=None, bound_by=by, library_ms=None)
+            for name, (src, rep, by) in KERNELS.items()}
 
 
 def main():
@@ -1017,10 +1171,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     build_kernels()
-    rows = {name: dict(name=name, route="cuda", source=src, replaces=rep,
-                       launches=0, max_abs_err=None, ms=None, plain_ms=None,
-                       bound_ms=None, bound_by=by, library_ms=None)
-            for name, (src, rep, by) in KERNELS.items()}
+    rows = kernel_rows()
 
     phase("kernels against their plain versions")
     rows["hash_probe"]["max_abs_err"] = kernel_checks(dev)

@@ -46,6 +46,12 @@ class HashTableConfig:
     max_chain: int = 8             # bounded chain walk in the handler
     cache_slots: int = 0           # client-side address cache (0 = off)
 
+    def __post_init__(self):
+        # a bucket is one hash_probe line: the kernel takes 1..MAX_WIDTH slots
+        if not 1 <= self.bucket_width <= hp.MAX_WIDTH:
+            raise ValueError(f"bucket_width must be in 1..{hp.MAX_WIDTH}, "
+                             f"got {self.bucket_width}")
+
     @property
     def n_bucket_slots(self) -> int:
         return self.n_buckets * self.bucket_width

@@ -19,10 +19,14 @@ Dispatch: a CPU tensor takes the plain PyTorch version (:func:`probe_lines_plain
 a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
 launches (the plain version does not count).
 
-Bound: bytes — each lane moves ``width * 128`` B of slot lines plus ~140 B of
-lane inputs and outputs; at the TATP probe shape that is a few microseconds
-of the H100's memory rate (PERF.md has the measured times).  The design (one
-warp per lane, one coalesced 128 B line per slot) is in the CUDA source.
+Bound: bytes — each live lane reads ``width * 128`` B of slot lines and
+every lane moves 135 B of inputs and outputs.  The design (the CUDA source
+has it in full): a CTA takes :func:`lanes_per_cta` consecutive lanes, one
+thread per lane for the lane inputs, and puts every line of the CTA in
+flight at once into a shared-memory tile, lines that need no clamp by their
+16 B-aligned span in 16 B loads spread over the CTA and the rest word by
+word; it matches from the tile and stores the CTA's value words as one
+contiguous span.  PERF.md has the measured times.
 """
 from __future__ import annotations
 
@@ -33,8 +37,21 @@ import torch
 from repro_torch.core import slots as sl
 
 REPLY_WORDS = 2 + sl.VALUE_WORDS      # TPU contract: [found, version, value...]
+MAX_WIDTH = 8                         # widest line (slots) the kernel takes
 
 launches = 0                          # kernel launches since the last reset
+
+
+def lanes_per_cta(width: int) -> int:
+    """Lanes one CTA of the kernel probes for a ``width``-slot line: 128 at
+    width 1, halving as the line doubles (16 at widths 5-8), so a CTA's tile
+    of lines stays near 16 KB and several CTAs share an SM.  The one table
+    of it: each launch passes it to the kernel.  Raises ValueError for a
+    width the kernel does not take (1..MAX_WIDTH)."""
+    if not 1 <= width <= MAX_WIDTH:
+        raise ValueError(f"hash_probe: width must be in 1..{MAX_WIDTH}, "
+                         f"got {width}")
+    return 128 >> (width - 1).bit_length()
 
 
 def _word_index(start: torch.Tensor, width: int, n_words: int) -> torch.Tensor:
@@ -74,14 +91,14 @@ def _check(name, x, dtype, shape, device):
 
 
 def _launch(arenas, dest, off, key_lo, key_hi, live, cache_hit, *,
-            width: int, zero_miss: bool):
-    """Launch the CUDA kernel on the current stream; raises on any error."""
+            width: int, zero_miss: bool, n_fast: torch.Tensor | None = None):
+    """Launch the CUDA kernel on the current stream; raises on any error.
+    ``n_fast``, an int32 (1,) tensor on the same card, gets the number of
+    lanes whose line the kernel copied whole (its fast path) added to it."""
     global launches
     from repro_torch.kernels import build
     dev = arenas.device
     M = dest.shape[0]
-    if width < 1:
-        raise ValueError(f"hash_probe: width must be >= 1, got {width}")
     _check("arenas", arenas, torch.int32, arenas.shape, dev)
     if arenas.dim() != 2:
         raise ValueError("hash_probe: arenas must be (n_nodes, n_words)")
@@ -91,6 +108,8 @@ def _launch(arenas, dest, off, key_lo, key_hi, live, cache_hit, *,
                         ("live", live, torch.bool),
                         ("cache_hit", cache_hit, torch.bool)):
         _check(name, x, dt, (M,), dev)
+    if n_fast is not None:
+        _check("n_fast", n_fast, torch.int32, (1,), dev)
     found = torch.empty((M,), dtype=torch.bool, device=dev)
     version = torch.empty((M,), dtype=torch.int32, device=dev)
     value = torch.empty((M, sl.VALUE_WORDS), dtype=torch.int32, device=dev)
@@ -100,16 +119,17 @@ def _launch(arenas, dest, off, key_lo, key_hi, live, cache_hit, *,
     fn = build.load("hash_probe").hash_probe_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 6)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(arenas.data_ptr(), arenas.shape[0], arenas.shape[1],
                  dest.data_ptr(), off.data_ptr(), key_lo.data_ptr(),
                  key_hi.data_ptr(), live.data_ptr(), cache_hit.data_ptr(),
-                 width, int(zero_miss), M, found.data_ptr(), version.data_ptr(),
-                 value.data_ptr(), local.data_ptr(), stream)
+                 width, lanes_per_cta(width), int(zero_miss), M,
+                 found.data_ptr(), version.data_ptr(), value.data_ptr(),
+                 local.data_ptr(),
+                 None if n_fast is None else n_fast.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hash_probe kernel launch failed: CUDA error {err}")
     launches += 1
@@ -124,9 +144,11 @@ def probe_lines(arenas, dest, off, key_lo, key_hi, live, cache_hit, *,
 
     arenas (N, words) int32; dest, off, key_lo, key_hi (M,) int32 (off and
     keys are word bit images); live, cache_hit (M,) bool.
+    width: 1..MAX_WIDTH slots (ValueError otherwise, on every device).
     Returns found (M,) bool, version (M,) int32, value (M, 27) int32 and
     local_idx (M,) int32 (index of the matching slot in the window)."""
     args = (arenas, dest, off, key_lo, key_hi, live, cache_hit)
+    lanes_per_cta(width)                 # the kernel's widths, on every device
     if arenas.device.type == "cpu":
         return probe_lines_plain(*args, width=width, zero_miss=zero_miss)
     if arenas.device.type != "cuda":

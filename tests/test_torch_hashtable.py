@@ -190,6 +190,16 @@ def test_capacity_overflow_and_zero():
             values=vals_for(klo.reshape(2, 4)), capacity=0)
 
 
+@pytest.mark.parametrize("width", [0, 9, 16])
+def test_config_rejects_bucket_widths_the_probe_does_not_take(width):
+    """A bucket is one hash_probe line, and the kernel takes 1..8 slots: the
+    port's table refuses other widths when it is configured."""
+    with pytest.raises(ValueError, match="bucket_width"):
+        pht.HashTableConfig(n_nodes=2, n_buckets=8, bucket_width=width)
+    assert pht.HashTableConfig(n_nodes=2, n_buckets=8,
+                               bucket_width=8).n_bucket_slots == 64
+
+
 # --- the one-node chain scenarios of tests/test_hashtable_repair.py --------
 def one_node(n_overflow=8, bucket_width=1, max_chain=12):
     return Twin(n_nodes=1, n_buckets=1, bucket_width=bucket_width,

@@ -139,6 +139,61 @@ def test_plain_version_counts_no_launch():
     assert hp.launches == before
 
 
+def test_lanes_per_cta_by_width():
+    """The kernel's tile: 128 lanes at width 1, halving as the line doubles,
+    so a CTA's lines stay near 16 KB and 32,768 lanes at width 1 are 256
+    CTAs."""
+    lanes = [hp.lanes_per_cta(w) for w in range(1, hp.MAX_WIDTH + 1)]
+    assert lanes == [128, 64, 32, 32, 16, 16, 16, 16]
+    for w, L in zip(range(1, hp.MAX_WIDTH + 1), lanes):
+        assert 10_000 <= L * (w * 128 + 16) <= 20_000
+
+
+@pytest.mark.parametrize("width", [0, -1, 9, 16])
+def test_probe_lines_rejects_unsupported_width(width):
+    arenas, dest, off, klo, khi, live, hit = _path_case(1, 5, M=8)
+    with pytest.raises(ValueError, match="width"):
+        hp.probe_lines(words(arenas, CPU), torch.from_numpy(dest),
+                       words(off, CPU), words(klo, CPU), words(khi, CPU),
+                       torch.from_numpy(live), torch.from_numpy(hit),
+                       width=width)
+
+
+def _edge_case(width, seed, M, N, n_words):
+    """Lanes over random arenas with every edge the kernel's paths split on:
+    offsets that end exactly at the arena's last word, cross it, wrap
+    through 0 in 32 bits or cross the int32 maximum; dest -1 and N; matches
+    planted in slot-aligned lanes; a whole CTA of dead lanes."""
+    rng = np.random.RandomState(seed)
+    line = 32 * width
+    arenas = rng.randint(0, 2**32, size=(N, n_words), dtype=np.uint64).astype(
+        np.uint32)
+    dest = rng.randint(-1, N + 1, size=M).astype(np.int32)
+    off = rng.randint(0, n_words, size=M).astype(np.int64)
+    kind = rng.randint(0, 6, size=M)
+    edges = {1: n_words - line, 2: n_words - line + rng.randint(1, line, M),
+             3: 2**32 - rng.randint(1, line + 1, M),
+             4: 2**31 - rng.randint(1, line + 1, M), 5: (off // 32) * 32}
+    for k, o in edges.items():
+        off = np.where(kind == k, o, off)
+    s = rng.randint(0, width, size=M)
+    base = off + 32 * s
+    plant = (kind == 5) & (dest >= 0) & (dest < N) & (base + 32 <= n_words) \
+        & (rng.rand(M) < 0.6)
+    arenas[dest[plant], base[plant] + 2] &= ~np.uint32(1)      # even version
+    arenas[dest[plant], base[plant] + 3] = 0                    # unlocked
+    klo = rng.randint(0, 2**32, size=M, dtype=np.uint64).astype(np.uint32)
+    khi = rng.randint(0, 2**32, size=M, dtype=np.uint64).astype(np.uint32)
+    klo[plant] = arenas[dest[plant], base[plant]]
+    khi[plant] = arenas[dest[plant], base[plant] + 1]
+    live = rng.rand(M) < 0.85
+    L = hp.lanes_per_cta(width)
+    if M > 2 * L:
+        live[L:2 * L] = False
+    return arenas, dest, off.astype(np.uint32), klo, khi, live, \
+        rng.rand(M) < 0.3
+
+
 # --- on the card -------------------------------------------------------------
 @pytest.fixture
 def cuda():
@@ -148,21 +203,43 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_words", [4096 + 5, 4096 + 6, 4096 + 7, 4096 + 8])
 @pytest.mark.parametrize("width", [1, 2, 4, 8])
-def test_cuda_kernel_matches_plain(cuda, width):
-    args = _path_case(width, 40 + width, M=4096, N=4, n_words=4096 + 5)
-    t = [words(args[0], cuda), torch.from_numpy(args[1]).to(cuda),
-         words(args[2], cuda), words(args[3], cuda), words(args[4], cuda),
-         torch.from_numpy(args[5]).to(cuda), torch.from_numpy(args[6]).to(cuda)]
-    before = hp.launches
-    got = hp.probe_lines(*t, width=width)
-    assert hp.launches == before + 1
-    want = hp.probe_lines_plain(*t, width=width)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    tpu = hp.hash_probe(t[0][0], t[2] // 32, t[3], t[4], width=width)
-    assert torch.equal(tpu, hp.hash_probe_plain(t[0][0], t[2] // 32, t[3],
-                                                t[4], width=width))
+def test_cuda_kernel_matches_plain(cuda, width, n_words):
+    """Both contracts bit for bit at n_words 0..3 mod 4, arena bases 0, 4
+    and 8 B past 16 B, and M = 1, one CTA and a lane, 4096 and 2**18; the
+    kernel's own count of lanes it copied whole covers every lane whose
+    line lies 16 B inside its row and none that needs a clamp."""
+    N = 4
+    line = 32 * width
+    for M in (1, hp.lanes_per_cta(width) + 1, 4096, 2**18):
+        args = _edge_case(width, 40 + width, M, N, n_words)
+        skew = n_words % 3
+        store = torch.empty(N * n_words + skew, dtype=torch.int32, device=cuda)
+        arenas = store[skew:].view(N, n_words)
+        arenas.copy_(words(args[0], cuda))
+        t = [arenas, torch.from_numpy(args[1]).to(cuda), words(args[2], cuda),
+             words(args[3], cuda), words(args[4], cuda),
+             torch.from_numpy(args[5]).to(cuda),
+             torch.from_numpy(args[6]).to(cuda)]
+        before = hp.launches
+        got = hp.probe_lines(*t, width=width)
+        assert hp.launches == before + 1
+        want = hp.probe_lines_plain(*t, width=width)
+        n_fast = torch.zeros(1, dtype=torch.int32, device=cuda)
+        again = hp._launch(*t, width=width, zero_miss=False, n_fast=n_fast)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(a, w)
+        off = args[2].astype(np.int64)
+        may = args[5] & (args[1] >= 0) & (args[1] < N) & (off < 2**31) \
+            & (off + line <= n_words)
+        must = may & (off >= 4) & (off + line <= n_words - 4)
+        assert must.sum() <= int(n_fast) <= may.sum()
+        bucket = (t[2] // 32).to(torch.int32)
+        tpu = hp.hash_probe(t[0][1], bucket, t[3], t[4], width=width)
+        assert torch.equal(tpu, hp.hash_probe_plain(t[0][1], bucket, t[3],
+                                                    t[4], width=width))
+    torch.cuda.synchronize()
 
 
 # --- flash_attention ---------------------------------------------------------
