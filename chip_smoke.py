@@ -24,9 +24,12 @@ Phases (any failure exits non-zero):
      one chunk, initial states) within stated tolerances, then both timed
      at the serving shapes beside their plain versions, their bounds and
      achieved TFLOP/s and, for attention, ``scaled_dot_product_attention``;
-  3. the bench gate's tx_loop workload on the card and on the CPU: identical
-     arenas and the gate keys of ``benchmarks/BENCH_BASELINE.json``; a small
-     TATP mix with retry rounds, card against CPU;
+  3. the bench gate's tx_loop workload, unreplicated and at f=1, and its
+     ordered workload (4 nodes x 48 keys, scans and upserts through
+     ``scan_loop``), on the card and on the CPU: identical arenas and the
+     gate keys of ``benchmarks/BENCH_BASELINE.json`` (top level,
+     ``replication``, ``ordered``); a small TATP mix with retry rounds, card
+     against CPU;
   4. zamba2-1.2b at full width cut to 7 layers, prefill and 4 decode steps
      on the card and on the CPU (the kernels' plain versions) in float32
      weights: logits and greedy tokens must agree, within a tolerance set
@@ -43,7 +46,22 @@ Phases (any failure exits non-zero):
      over the same arenas), beside the timing floor; after it,
      one more protocol round runs under torch.profiler to show the
      device's busy share;
-  6. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+  6. replicated TATP: the same batch through ``tx_loop`` at
+     ``ReplicaConfig(32, 1)`` from a clone of the populated arenas, with
+     ``hash_probe``'s launches read around that run, beside the unreplicated
+     run's figures; every committed write read back from its primary and,
+     through ``replication.failover_lookup`` with every even and then every
+     odd node dead, from its backup, the two slot images equal but for
+     next_ptr; one protocol round under torch.profiler;
+  7. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
+     keys (1,048,576; both B-link trees of every node on the card), a
+     pure-scan batch against a numpy sorted-array reference, then
+     ``scan_loop`` over the scan-heavy mix at f=0 and f=1 from clones of the
+     one tree: equal round trips and commits, equal primary trees, no
+     truncated lane, every committed upsert read back from the primary tree
+     and from the backup tree once its primary is dead, every partition's
+     fence chain sorted and linked; one round under torch.profiler;
+  8. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
@@ -56,6 +74,7 @@ with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import subprocess
@@ -81,6 +100,26 @@ TATP_NODES, TATP_SUBSCRIBERS_PER_NODE, TATP_LANES, TATP_MAX_ROUNDS = \
     32, 2**15, 512, 4
 # hash_probe's bandwidth shape (over the TATP arenas) and its largest check
 PROBE_LANES = 2**18
+# replicated TATP: one backup copy per record on the node ring
+REP_F = 1
+# the ordered path: range_scan.build_tree at the paper's 32 nodes, 2**15 keys
+# each, the scan-heavy mix (90 % scans of 4 keys, gap-key upserts)
+ORDERED_NODES, ORDERED_KEYS_PER_NODE, ORDERED_LANES, ORDERED_MAX_ROUNDS = \
+    32, 2**15, 512, 4
+ORDERED_BATCH = 1024              # inserts per node per population round
+ORDERED_SCAN_FRAC = 0.9
+
+
+@functools.lru_cache(maxsize=None)
+def card():
+    """The card's name and power limit as nvidia-smi gives them (read once;
+    printed beside every time, rate and memory figure of the later
+    phases)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg):
@@ -388,16 +427,26 @@ def parity_checks(dev, baseline):
     from repro_torch.testing import workloads as wl
     import numpy as np
 
-    st_c, res_c, keys_c = wl.gate_tx_smoke(device=dev)
-    st_h, res_h, keys_h = wl.gate_tx_smoke(device="cpu")
+    st_c, res_c, keys_c, f1_c = wl.gate_tx_smoke(device=dev)
+    st_h, res_h, keys_h, f1_h = wl.gate_tx_smoke(device="cpu")
     check(torch.equal(st_c["arena"].cpu(), st_h["arena"]),
           "gate: CUDA arenas differ from the CPU run")
+    check(torch.equal(f1_c["arena"].cpu(), f1_h["arena"]),
+          "gate f=1: CUDA arenas differ from the CPU run")
     check(torch.equal(res_c.committed.cpu(), res_h.committed),
           "gate: commit masks differ")
+    ord_c, ost_c = wl.gate_ordered(device=dev)
+    ord_h, ost_h = wl.gate_ordered(device="cpu")
+    check(torch.equal(ost_c["arena"].cpu(), ost_h["arena"]),
+          "ordered gate: CUDA arenas differ from the CPU run")
+    keys_c["ordered"], keys_h["ordered"] = ord_c, ord_h
     print(f"gate keys (cuda): {json.dumps(keys_c)}", flush=True)
     for k, v in keys_c.items():
-        check(v == baseline[k] and keys_h[k] == baseline[k],
-              f"gate key {k}: cuda {v} cpu {keys_h[k]} baseline {baseline[k]}")
+        want = baseline[k]
+        if isinstance(v, dict):      # the replication and ordered keys
+            want = {kk: baseline[k][kk] for kk in v}
+        check(v == want and keys_h[k] == want,
+              f"gate key {k}: cuda {v} cpu {keys_h[k]} baseline {want}")
 
     # the fig6 smoke configuration (4 nodes, 160 subscribers, 16 lanes),
     # with retry rounds drawing the same generator permutations
@@ -456,6 +505,7 @@ def tatp_main_path(dev, rows):
     torch.cuda.synchronize()
     pop_s = time.perf_counter() - t0
     print(f"tatp: population {pop_s:.1f} s", flush=True)
+    populated = state["arena"].clone()         # the replicated run's start
     rk, wk, ren, wen, wv = wl.tatp_transactions(
         klo, khi, n_nodes=n_nodes, lanes=lanes, subscribers_per_node=subs,
         rng=np.random.RandomState(4), device=dev)
@@ -502,6 +552,8 @@ def tatp_main_path(dev, rows):
         "hash_probe_launches": hp.launches,
     }
     print("tatp: " + json.dumps(stats), flush=True)
+    f0 = dict(stats, round_trips=float(res.round_trips),
+              ops_per_tx=float(m.wire.ops) / n_tx)
 
     # --- what came out is right --------------------------------------------
     slots_v = state["arena"][:, :cfg.n_slots * sl.SLOT_WORDS].view(
@@ -529,7 +581,314 @@ def tatp_main_path(dev, rows):
     profile_round(lambda: txl.tx_loop(
         t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
         read_enabled=ren, write_enabled=wen, max_rounds=1, device=dev))
+    return dict(stats=f0, cfg=cfg, layout=layout, t=t,
+                populated=populated, batch=(rk, wk, ren, wen, wv))
+
+
+def _lanes_of(x, n_nodes):
+    """Flat per-key tensors (M, ...) as (n_nodes, ceil(M / n_nodes), ...)
+    client lanes, padded with zeros, and the mask of the real ones."""
+    import torch
+    M = x.shape[0]
+    B = -(-M // n_nodes)
+    pad = torch.zeros((n_nodes * B - M,) + x.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    en = torch.arange(n_nodes * B, device=x.device) < M
+    return (torch.cat([x, pad]).reshape((n_nodes, B) + x.shape[1:]),
+            en.reshape(n_nodes, B))
+
+
+def replicated_tatp(dev, tatp):
+    """The TATP batch through tx_loop at ReplicaConfig(TATP_NODES, REP_F),
+    from the arenas the TATP phase populated (population installs primaries
+    only; a commit installs its backups), with hash_probe's launches read
+    around that one run; its figures beside the unreplicated run's.  Then
+    every committed write is read back with every node alive and through
+    failover_lookup with every even, then every odd node dead (under the
+    ring at f=1 the backups of even primaries sit on odd nodes and vice
+    versa): each read finds the record with the committed value words and
+    the primary's version, and the primary's and backup's slot images are
+    equal but for next_ptr."""
+    import torch
+    from repro_torch.core import replication as repl
+    from repro_torch.core import slots as sl
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.datastructs import hashtable as ht
+    from repro_torch.kernels import hash_probe as hp
+
+    cfg, layout, t = tatp["cfg"], tatp["layout"], tatp["t"]
+    rk, wk, ren, wen, wv = tatp["batch"]
+    f0 = tatp["stats"]
+    n_nodes, lanes = TATP_NODES, TATP_LANES
+    rep = repl.ReplicaConfig(n_nodes, REP_F)
+    state = {"arena": tatp["populated"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    hp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _, res = txl.tx_loop(t, state, cfg, layout, read_keys=rk,
+                                write_keys=wk, write_values=wv,
+                                read_enabled=ren, write_enabled=wen,
+                                max_rounds=TATP_MAX_ROUNDS, rep=rep,
+                                device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hp.launches
+    check(launches > 0, "the replicated path launched no hash_probe kernel")
+
+    n_tx = n_nodes * lanes
+    committed = int(res.committed.sum())
+    rounds_attempted = int((res.round_attempts > 0).sum())
+    m = res.metrics
+    keys = ("tx_loop_s", "committed_tx_per_s", "commit_rate", "round_trips",
+            "rt_round", "read_rpc_frac", "bytes_per_tx", "ops_per_tx",
+            "retries", "max_memory_allocated_gb", "hash_probe_launches")
+    stats = {
+        "card": card(), "nodes": n_nodes, "f": REP_F, "lanes": lanes,
+        "tx_loop_s": wall, "committed_tx_per_s": committed / wall,
+        "commit_rate": committed / n_tx,
+        "round_trips": float(res.round_trips),
+        "rt_round": float(res.round_trips) / max(rounds_attempted, 1),
+        "read_rpc_frac": float(m.rpc_fallback) / max(float(m.total), 1.0),
+        "bytes_per_tx": float(m.wire.total_bytes) / n_tx,
+        "ops_per_tx": float(m.wire.ops) / n_tx,
+        "retries": int(res.round_retries.sum()),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "hash_probe_launches": launches,
+    }
+    print("replicated tatp: " + json.dumps(stats), flush=True)
+    print("replicated tatp, the f=0 run beside it: " + json.dumps(
+        {k: f0[k] for k in keys if k in f0}), flush=True)
+    check(stats["commit_rate"] > 0.5, "replicated TATP commit rate below 0.5")
+    check(float(res.round_trips) <= 4.0 * rounds_attempted,
+          "replicated schedule exceeded 4 exchanges per round")
+
+    # --- every acknowledged write reads back from both of its copies -------
+    item = (wen & res.committed[..., None]).reshape(-1)
+    wkeys = wk.reshape(-1, 2)[item]
+    wvals = wv.reshape(-1, sl.VALUE_WORDS)[item]
+    M = wkeys.shape[0]
+    check(M > 0, "no write committed")
+    qk, qen = _lanes_of(wkeys, n_nodes)
+    qv, _ = _lanes_of(wvals, n_nodes)
+    home = ht.home_of(cfg, qk[..., 0], qk[..., 1])[0]
+    alive = repl.all_alive(n_nodes, device=dev)
+    s0 = layout["slots"].base
+
+    def slot_images(out):
+        base = s0 + sl.u32(out["slot_idx"]) * sl.SLOT_WORDS
+        idx = base[..., None] + torch.arange(sl.SLOT_WORDS, device=dev)
+        rows = out["node"].to(torch.int64).clamp(0, n_nodes - 1)
+        return state["arena"][rows[..., None], idx]
+
+    hp.launches = 0
+    reads = {}
+    for name, dead in (("all alive", None), ("evens dead", 0),
+                       ("odds dead", 1)):
+        al = alive if dead is None else repl.kill_node(
+            alive, torch.arange(dead, n_nodes, 2, device=dev))
+        out = repl.failover_lookup(t, state, qk[..., 0], qk[..., 1], cfg,
+                                   layout, rep, al, enabled=qen)
+        served = home if dead is None else torch.where(
+            home % 2 == dead, (home + 1) % n_nodes, home)
+        check(bool((out["found"] | ~qen).all()),
+              f"replicated tatp ({name}): a committed write was not found")
+        check(bool(((out["value"] == qv).all(-1) | ~qen).all()),
+              f"replicated tatp ({name}): a read returned other value words")
+        check(bool(((out["node"] == served) | ~qen).all()),
+              f"replicated tatp ({name}): a read was served by the wrong copy")
+        reads[name] = out
+    prim = reads["all alive"]
+    check(bool((((prim["version"] & 1) == 0) | ~qen).all()),
+          "replicated tatp: a committed record has an odd version")
+    keep = [j for j in range(sl.SLOT_WORDS) if j != sl.NEXT_PTR]
+    pimg = slot_images(prim)[..., keep]
+    for name, dead in (("evens dead", 0), ("odds dead", 1)):
+        out = reads[name]
+        mine = qen & (home % 2 == dead)         # served by the backup here
+        check(bool(((out["version"] == prim["version"]) | ~qen).all()),
+              f"replicated tatp ({name}): a copy has another version")
+        same_img = (slot_images(out)[..., keep] == pimg).all(-1)
+        check(bool((same_img | ~mine).all()),
+              f"replicated tatp ({name}): backup slot image != primary's")
+    print(f"replicated tatp: {M} committed writes read back from primary "
+          f"and backup (slot images equal but next_ptr), hash_probe "
+          f"launches in the three fail-over reads: {hp.launches}",
+          flush=True)
+
+    # --- where the time goes: one more replicated protocol round ----------
+    profile_round(lambda: txl.tx_loop(
+        t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
+        read_enabled=ren, write_enabled=wen, max_rounds=1, rep=rep,
+        device=dev), label="replicated tatp")
     return stats
+
+
+def ordered_path(dev):
+    """range_scan.build_tree at ORDERED_NODES x ORDERED_KEYS_PER_NODE keys
+    (both trees of every node on the card), a pure-scan batch against a
+    numpy sorted-array reference, then scan_loop over the scan-heavy mix at
+    f=0 and f=1 from clones of the one tree, with the checks of the module
+    docstring."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import to_numpy
+    from repro_torch.core import placement as pl
+    from repro_torch.core import replication as repl
+    from repro_torch.core import slots as sl
+    from repro_torch.core import tx as txm
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.datastructs import btree as bt
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.testing import workloads as wl
+
+    n_nodes, lanes = ORDERED_NODES, ORDERED_LANES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, layout, t, state, allk, meta = wl.build_tree(
+        n_nodes, n_keys=ORDERED_KEYS_PER_NODE, seed=3, batch=ORDERED_BATCH,
+        device=dev)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    nleaf = state["arena"][:, layout["nleaf"].base]
+    print("ordered: " + json.dumps({
+        "card": card(), "nodes": n_nodes, "keys": int(allk.size),
+        "leaf_width": cfg.leaf_width, "n_leaves": cfg.n_leaves,
+        "max_scan_leaves": cfg.max_scan_leaves,
+        "arena_gb": state["arena"].numel() * 4 / 1e9,
+        "population_s": pop_s, "insert_batch": ORDERED_BATCH,
+        "leaves_per_node_mean": float(nleaf.float().mean()),
+        "leaves_per_node_max": int(nleaf.max())}), flush=True)
+
+    # --- a pure-scan batch against the sorted key array --------------------
+    lo, hi, _, _ = wl.scan_workload(allk, n_nodes, lanes, scan_frac=1.0,
+                                    seed=9, device=dev)
+    _, res = txm.run_scan_transactions(t, state, cfg, layout, scan_lo=lo,
+                                       scan_hi=hi, meta=meta)
+    check(bool(res.committed.all()) and not bool(res.truncated.any()),
+          "ordered: a pure scan did not commit")
+    start = np.searchsorted(allk, to_numpy(lo).astype(np.uint64))
+    want = allk[start[..., None] + np.arange(wl.SPAN)]
+    check(bool((want[..., -1] == to_numpy(hi)).all()), "ordered: scan bounds")
+    msk = res.scan_mask.reshape(n_nodes, lanes, -1)
+    got = torch.where(msk, sl.u32(res.scan_keys).reshape(msk.shape), 1 << 33)
+    got = got.sort(dim=-1).values[..., :wl.SPAN]
+    check(bool((msk.sum(-1) == wl.SPAN).all())
+          and np.array_equal(got.cpu().numpy(), want.astype(np.int64)),
+          "ordered: a pure scan returned other keys than the sorted array")
+    vm = res.scan_mask
+    check(bool((res.scan_values[vm] == wl.value_for(res.scan_keys)[vm]).all()),
+          "ordered: a scanned record carries other value words")
+    print(f"ordered: pure-scan batch of {n_nodes * lanes} lanes equals the "
+          f"sorted-array reference ({wl.SPAN} keys and their values each)",
+          flush=True)
+
+    # --- the scan-heavy mix at f=0 and f=1 from clones of one tree ----------
+    lo, hi, wk, wen = wl.scan_workload(allk, n_nodes, lanes,
+                                       scan_frac=ORDERED_SCAN_FRAC, seed=7,
+                                       device=dev)
+    wv = wl.value_for(wk)
+    n_tx = n_nodes * lanes
+    runs = {}
+    for f in (0, REP_F):
+        st = {"arena": state["arena"].clone()} if f == 0 else state
+        torch.cuda.reset_peak_memory_stats()
+        hp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, r = txl.scan_loop(
+            t, st, cfg, layout, scan_lo=lo, scan_hi=hi, meta=meta,
+            write_keys=wk, write_values=wv, write_enabled=wen,
+            max_rounds=ORDERED_MAX_ROUNDS,
+            rep=repl.ReplicaConfig(n_nodes, f), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = r.metrics
+        rounds_attempted = int((r.round_attempts > 0).sum())
+        committed = int(r.committed.sum())
+        stats = {
+            "card": card(), "f": f, "lanes": lanes,
+            "scan_frac": ORDERED_SCAN_FRAC, "scan_loop_s": wall,
+            "committed_tx_per_s": committed / wall,
+            "commit_rate": committed / n_tx,
+            "round_trips": float(r.round_trips),
+            "rt_round": float(r.round_trips) / max(rounds_attempted, 1),
+            "onesided_frac": float(m.onesided_success) / max(float(m.total),
+                                                             1.0),
+            "aborts": {k: int(getattr(r, f"round_abort_{k}").sum())
+                       for k in ("lock", "validate", "overflow", "stale")},
+            "retries": int(r.round_retries.sum()),
+            "truncated": int(r.truncated.sum()),
+            "bytes_per_tx": float(m.wire.total_bytes) / n_tx,
+            "ops_per_tx": float(m.wire.ops) / n_tx,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "hash_probe_launches": hp.launches,
+        }
+        print("ordered scan mix: " + json.dumps(stats), flush=True)
+        runs[f] = (st, r)
+    (s0, r0), (s1, r1) = runs[0], runs[REP_F]
+    check(float(r1.round_trips) == float(r0.round_trips),
+          "ordered: f=1 took other round trips than f=0")
+    check(torch.equal(r1.committed, r0.committed),
+          "ordered: f=1 committed other lanes than f=0")
+    check(not bool(r0.truncated.any() | r1.truncated.any()),
+          "ordered: a scan lane was truncated")
+    check(float(r1.committed.float().mean()) > 0.5,
+          "ordered: commit rate below 0.5")
+    bb, pb = layout["bleaves"].base, layout["pbounds"].base
+    check(torch.equal(s0["arena"][:, :bb], s1["arena"][:, :bb])
+          and torch.equal(s0["arena"][:, pb:], s1["arena"][:, pb:]),
+          "ordered: the primary trees differ between f=0 and f=1")
+
+    # --- every committed upsert reads back from primary and backup tree ----
+    item = (wen[..., 0] & r1.committed).reshape(-1)
+    ukeys = wk.reshape(-1)[item]
+    M = ukeys.shape[0]
+    check(M > 0, "ordered: no upsert committed")
+    distinct = np.unique(to_numpy(ukeys))
+    bview = s1["arena"][:, bb:bb + cfg.n_leaves * cfg.leaf_words].view(
+        n_nodes, cfg.n_leaves, cfg.leaf_slots, sl.SLOT_WORDS)
+    bcount = torch.where(
+        torch.arange(cfg.n_leaves, device=dev)[None]
+        < s1["arena"][:, layout["bnleaf"].base][:, None],
+        bview[:, :, 0, sl.VALUE0], 0).sum()
+    check(int(bcount) == distinct.size, f"ordered: {int(bcount)} records in "
+          f"the backup trees for {distinct.size} committed keys")
+    qk, qen = _lanes_of(ukeys, n_nodes)
+    home = bt.home_of(cfg, qk)
+    alive = repl.all_alive(n_nodes, device=dev)
+    for name, dead in (("all alive", None), ("evens dead", 0),
+                       ("odds dead", 1)):
+        al = alive if dead is None else repl.kill_node(
+            alive, torch.arange(dead, n_nodes, 2, device=dev))
+        table = pl.table_from_replica(repl.ReplicaConfig(n_nodes, REP_F), al)
+        out = pl.failover_lookup(t, s1, cfg, layout, table, qk,
+                                 torch.zeros_like(qk), ds=bt, enabled=qen)
+        served = home if dead is None else torch.where(
+            home % 2 == dead, (home + 1) % n_nodes, home)
+        check(bool((out["found"] | ~qen).all())
+              and bool(((out["value"] == wl.value_for(qk)).all(-1)
+                        | ~qen).all())
+              and bool(((out["node"] == served) | ~qen).all()),
+              f"ordered ({name}): a committed upsert did not read back")
+
+    # --- every partition's fence chain is sorted and linked ----------------
+    chain = np.concatenate([np.asarray(wl.fence_chain_keys(
+        cfg, layout, s1["arena"], n), np.int64) for n in range(n_nodes)])
+    check(np.array_equal(chain, np.union1d(allk.astype(np.int64),
+                                           distinct.astype(np.int64))),
+          "ordered: the fence chains do not hold exactly the committed keys")
+    print(f"ordered: {M} committed upserts ({distinct.size} keys) read back "
+          f"from the primary trees and, with every even and then every odd "
+          f"node dead, from the backup trees; {n_nodes} fence chains sorted "
+          f"and linked over {chain.size} keys", flush=True)
+
+    # --- where the time goes: one more round of the mix --------------------
+    profile_round(lambda: txl.scan_loop(
+        t, s0, cfg, layout, scan_lo=lo, scan_hi=hi, meta=meta, write_keys=wk,
+        write_values=wv, write_enabled=wen, max_rounds=1,
+        rep=repl.ReplicaConfig(n_nodes, 0), device=dev), label="ordered")
 
 
 # ---------------------------------------------------------------------------
@@ -1162,12 +1521,7 @@ def main():
 
     dev = "cuda"
     phase("device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(f"card: {card}", flush=True)
+    print(f"card: {card()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     build_kernels()
@@ -1187,12 +1541,19 @@ def main():
     card_vs_cpu(dev)
 
     phase("TATP main path")
-    tatp_main_path(dev, rows)
+    tatp = tatp_main_path(dev, rows)
+
+    phase("replicated TATP: f=1 on the node ring")
+    replicated_tatp(dev, tatp)
+    del tatp
+
+    phase("ordered path: the B-link tree with range-scan transactions")
+    ordered_path(dev)
 
     phase("serving main path: zamba2-1.2b")
     serving_main_path(dev, rows)
 
-    print(card)                     # name, power limit as nvidia-smi gives them
+    print(card())                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Placement: epoch-stamped routing, PyTorch port of the part of
-``repro/core/placement.py`` the hash table needs.
+``repro/core/placement.py`` the data structures and replication need.
 
 The table maps each of ``n_parts`` partitions (== the provisioned node-slot
 count) to an ordered copy list: column 0 is the OWNER (the only node that
@@ -9,19 +9,24 @@ unused slot; plus a liveness mask and an epoch.  Every node's arena carries a
 which the hash table's handler consults for its owner check.
 
 Ported here: the region layout (``routing_words`` / ``alive_words`` and the
-word offsets), ``PlacementTable`` / ``initial_table``, the routing queries
-``owner_dest`` / ``live_dest`` / ``copy_nodes`` and the epoch-0
-``identity_region_image``.  Refresh, install, membership, re-replication and
-migration belong to a later slice.
+word offsets), ``PlacementTable`` / ``initial_table`` /
+``table_from_replica``, the routing queries ``owner_dest`` / ``live_dest`` /
+``copy_nodes``, the epoch-0 ``identity_region_image``, and the generic read
+fail-over ``failover_lookup`` (hash table and B-tree alike).  Refresh,
+install, membership, re-replication and migration belong to a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from repro_torch.core import onesided as osd
+from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
-from repro_torch.core.transport import placement_dest
+from repro_torch.core import wireproto as W
+from repro_torch.core.transport import Transport, placement_dest
 
 # Static ceiling on copies per partition (owner + up to 3 backups).
 MAX_COPIES = 4
@@ -88,6 +93,22 @@ def initial_table(pcfg: PlacementConfig, device=None) -> PlacementTable:
         alive=torch.ones((pcfg.n_nodes,), dtype=torch.bool, device=device))
 
 
+def table_from_replica(rep, alive) -> PlacementTable:
+    """Express a ``replication.ReplicaConfig`` (ring rotation or a test's
+    placement fn) and a liveness mask as a PlacementTable, so every failover
+    decision reduces to the ONE first-live-copy scan (``live_dest``)."""
+    alive = torch.as_tensor(alive, dtype=torch.bool)
+    n = rep.n_nodes
+    p = torch.arange(n, dtype=torch.int32, device=alive.device)
+    cols = [rep.replica_of(p, i).to(torch.int32) for i in range(rep.n_copies)]
+    while len(cols) < MAX_COPIES:
+        cols.append(torch.full((n,), -1, dtype=torch.int32,
+                               device=alive.device))
+    return PlacementTable(
+        epoch=torch.zeros((), dtype=torch.int32, device=alive.device),
+        copies=torch.stack(cols, dim=1), alive=alive)
+
+
 def owner_of(table: PlacementTable, part):
     """The partition's owner — the only valid target for lock-class ops."""
     return table.copies[part.to(torch.int64), 0]
@@ -140,3 +161,65 @@ def identity_region_image(n_nodes: int, device=None) -> torch.Tensor:
     the full ring is published; the owner check only reads column 0)."""
     pcfg = PlacementConfig(n_nodes, f=min(MAX_COPIES, n_nodes) - 1)
     return region_image(pcfg, initial_table(pcfg, device=device))
+
+
+def _ds_for(cfg):
+    """The data-structure module of a config (hash table or B-tree)."""
+    from repro_torch.core.datastructs import btree as bt
+    from repro_torch.core.datastructs import hashtable as ht
+    if isinstance(cfg, ht.HashTableConfig):
+        return ht, "hash"
+    if isinstance(cfg, bt.BTreeConfig):
+        return bt, "btree"
+    raise TypeError(f"unknown data-structure config {type(cfg).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Read fail-over (generic over the data-structure interface)
+# ---------------------------------------------------------------------------
+def failover_lookup(t: Transport, state, cfg, layout, table: PlacementTable,
+                    key_lo, key_hi, *, ds=None,
+                    capacity: Optional[int] = None, enabled=None, nic=None):
+    """Point reads routed to each key's first LIVE copy: the one-sided probe
+    plus RPC fallback of the hybrid lookup, with the destination resolved
+    through the placement table — what serves both the hash table and the
+    B-tree's backup tree after a primary dies.  The probe's owner-side read
+    is ONE ``ds.probe_read`` call (for the hash table one ``hash_probe``
+    launch), routed and accounted like ``onesided.remote_read``.  Returns
+    dict(found, value, version, node, slot_idx, overflow, dead_route,
+    wire)."""
+    if ds is None:
+        ds, _ = _ds_for(cfg)
+    if enabled is None:
+        enabled = torch.ones(key_lo.shape, dtype=torch.bool,
+                             device=key_lo.device)
+    part = ds.part_of(cfg, key_lo, key_hi)
+    dest, reachable = live_dest(table, part)
+    en = enabled & reachable
+    _, off, hit = ds.lookup_start(cfg, layout, key_lo, key_hi, None)
+
+    delivered, ovf1, s1 = osd.read_round(
+        t, dest, off, length=ds.probe_words(cfg), capacity=capacity,
+        enabled=en, nic=nic)
+    pe = ds.probe_read(cfg, layout, state["arena"], dest, off, key_lo,
+                       key_hi, hit, delivered)
+    success = pe["found"] & ~ovf1 & en
+    resolved = pe["resolved"] & ~ovf1 & en
+
+    # RPC fallback at the SAME live copy (chained / stale-routed / torn lanes)
+    need = en & ~resolved
+    _, rep2, ovf2, s2 = R.rpc_call(
+        t, state, dest, ds.lookup_records(cfg, key_lo, key_hi),
+        ds.make_lookup_handler_vector(cfg, layout), capacity=capacity,
+        enabled=need, nic=nic)
+    rpc_ok = need & (rep2[..., 0] == W.ST_OK) & ~ovf2
+    return dict(
+        found=success | rpc_ok,
+        value=torch.where(rpc_ok[..., None], rep2[..., 3:], pe["value"]),
+        version=torch.where(rpc_ok, rep2[..., 2], pe["version"]),
+        node=dest,
+        slot_idx=torch.where(rpc_ok, rep2[..., 1], pe["slot_idx"]),
+        overflow=need & ovf2,
+        dead_route=enabled & ~reachable,
+        wire=s1 + s2,
+    )

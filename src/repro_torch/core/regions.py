@@ -150,6 +150,18 @@ def arena_read(arena, offsets, length: int, mode: AddressMode | None = None,
     return out
 
 
+def arena_read_rows(arenas, rows, offsets, length: int,
+                    mode: AddressMode | None = None, page_tables=None):
+    """:func:`arena_read` for lanes that each name their node: arenas (N,
+    words), rows (M,) node rows in [0, N), offsets (M,) -> (M, length).
+    page_tables: (N, P) when ``mode`` is paged."""
+    rows = rows.to(torch.int64)
+    paged = mode is not None and mode.kind == "paged"
+    addr = _word_addrs(offsets, length, mode if paged else None,
+                       page_tables[rows] if paged else None)
+    return arenas[rows[:, None], _clamp_index(addr, arenas.shape[-1])]
+
+
 def arena_write(arena, offsets, values, mode: AddressMode | None = None,
                 page_table=None, enabled=None, region: Region | None = None):
     """Scatter consecutive words at each offset (one-sided WRITE).

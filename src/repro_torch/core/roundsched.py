@@ -199,11 +199,8 @@ def fused_round(t: Transport, state, classes: Sequence[dict], *,
         c = s["cls"]
         if c["kind"] == "read" and s["cap"] > 0:
             s0, s1 = seg[i]
-            mode = c.get("mode")
-            paged = mode is not None and mode.kind == "paged"
-            replies[i] = rg.arena_read(
-                state[arena_key], inbox[:, :, s0:s1, 0], c["length"],
-                mode if paged else None, c["page_tables"] if paged else None)
+            replies[i] = _gather_live(state[arena_key], inbox[:, :, s0:s1, 0],
+                                      inbox_mask[:, :, s0:s1], c)
 
     N, n_src = inbox.shape[:2]
     back = t.exchange(torch.cat(
@@ -223,6 +220,22 @@ def fused_round(t: Transport, state, classes: Sequence[dict], *,
                            s["pos"], s["ovf"])
         results.append((_finalize_reply(s, out), s["ovf"]))
     return state, results, stats()
+
+
+def _gather_live(arenas, offsets, live, c):
+    """A read class's owner-side gather: ``c["length"]`` words at each LIVE
+    cell's offset of its owner's arena (``rg.arena_read``'s addressing);
+    dead cells reply zeros, and pick_replies never reads them.  Gathering
+    the live cells alone keeps the index tensor at the size of the real
+    reads (a cell per lane, not per lane per source per slot)."""
+    out = torch.zeros(live.shape + (c["length"],), dtype=torch.int32,
+                      device=arenas.device)
+    node, src, cell = live.nonzero(as_tuple=True)
+    if node.numel():
+        out[node, src, cell] = rg.arena_read_rows(
+            arenas, node, offsets[node, src, cell], c["length"],
+            c.get("mode"), c.get("page_tables"))
+    return out
 
 
 def _dropped_replies(s):

@@ -1,8 +1,9 @@
 """Storm transactional protocol (§5.4, Fig. 3): OCC + 2PC optimized for the
-dataplane's two primitives.  PyTorch port of the point-transaction path of
-``repro/core/tx.py`` (``run_transactions``, fused and 5-round, without
-replication or a placement table; range scans come with the B-link tree in
-a later slice).
+dataplane's two primitives.  PyTorch port of ``repro/core/tx.py``: point
+transactions over the hash table (``run_transactions``) and range-scan
+transactions over the B-link tree (``run_scan_transactions``), each on the
+fused schedule and the 5-round reference, with primary-backup replication
+(``rep=``); routing through a placement table belongs to a later slice.
 
 Per transaction lane:
   EXECUTE   read-set via one-two-sided hybrid lookups, write-set
@@ -21,11 +22,16 @@ Two schedules share every phase's records, handlers and decision logic:
         round 2  fallback lookups ∥ LOCK ∥ validate(one-sided hits)
         round 3  validate(addresses learned via RPC)      [empty on the
                  one-sided fast path — costs no round trip]
-        round 4  commit / abort
+        round 4  commit / abort (+ backup fan-out at rep.f > 0)
 
 Aborts are classified by cause — lock conflict, validation conflict,
 overflow/back-pressure, stale route — with priority overflow > stale > lock >
 validate.
+
+With a ``rep=replication.ReplicaConfig(f > 0)``, COMMIT installs the write
+set on all f+1 copies: the backup writes ride the commit fused round as
+extra traffic classes (zero additional exchange rounds).  ``rep=None`` and
+``rep.f == 0`` are bit-identical.
 """
 from __future__ import annotations
 
@@ -36,10 +42,13 @@ import torch
 
 from repro_torch.core import hybrid as hy
 from repro_torch.core import onesided as osd
+from repro_torch.core import regions as rg
+from repro_torch.core import replication as repl
 from repro_torch.core import roundsched as rs
 from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
 from repro_torch.core import wireproto as W
+from repro_torch.core.datastructs import btree as bt
 from repro_torch.core.datastructs import hashtable as ht
 from repro_torch.core.transport import Transport
 
@@ -151,24 +160,72 @@ def lock_write_set(t: Transport, state, cfg: ht.HashTableConfig, layout,
 
 
 def validate_read_set(t: Transport, state, layout, read_ctx, *,
-                      capacity: Optional[int] = None, nic=None):
-    """VALIDATE phase: one-sided re-read of every FOUND read-set slot."""
+                      capacity: Optional[int] = None, nic=None,
+                      offset_of=None):
+    """VALIDATE phase: one-sided re-read of every FOUND read-set slot.
+    ``offset_of(layout, slot_idx)`` maps a read-set slot index to its arena
+    word offset (default the hash table's ``slots`` region; the ordered
+    index validates leaf HEADER slots of its ``leaves`` region)."""
     issued = read_ctx["enabled"] & read_ctx["found"]
+    if offset_of is None:
+        offset_of = ht.slot_idx_offset
     vbuf, vovf, s_val = osd.remote_read(
         t, state["arena"], read_ctx["node"],
-        ht.slot_idx_offset(layout, read_ctx["slot"]), length=sl.SLOT_WORDS,
+        offset_of(layout, read_ctx["slot"]), length=sl.SLOT_WORDS,
         capacity=capacity, enabled=issued, nic=nic)
     vctx = _validate_from_bytes(read_ctx, vbuf, vovf)
     vctx["wire"] = s_val
     return vctx
 
 
+def _backup_dest(lock_ctx, rep, i):
+    """Destination of backup copy ``i`` of each write item: the ring
+    rotation off the LOCK destination."""
+    return rep.replica_of(lock_ctx["node"], i)
+
+
+def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
+             capacity, nic, rep, backup_fail):
+    """The commit round: the COMMIT/ABORT class, plus one backup class per
+    copy at rep.f > 0 (committing lock holders only), in ONE fused round.
+    A backup write that is dropped, or answered with a ``backup_fail``
+    status, aborts its lane (cause overflow) — never a silent
+    under-replication.  The commit class cannot overflow: its lanes are a
+    subset of those the lock round delivered, to the same destinations in
+    the same order, and the ring rotation keeps the backup classes within
+    the same per-destination counts."""
+    classes = [rs.rpc_class(lock_ctx["node"], cm_recs, serial_h,
+                            enabled=lock_ctx["lock_ok"], capacity=capacity)]
+    bk_en = None
+    if rep is not None and rep.f > 0:
+        recs = bk_recs()
+        bk_en = commit_item & lock_ctx["lock_ok"]
+        for i in range(1, rep.f + 1):
+            classes.append(rs.rpc_class(
+                _backup_dest(lock_ctx, rep, i), recs, serial_h,
+                enabled=bk_en, capacity=capacity))
+    state, results, s_cm = rs.fused_round(t, state, classes, nic=nic)
+    overflow = results[0][1] & lock_ctx["lock_ok"]
+    for brep, bovf in results[1:]:
+        bad = bovf
+        for st in backup_fail:
+            bad = bad | (brep[..., 0] == st)
+        overflow = overflow | (bad & bk_en)
+    return state, dict(overflow=overflow, wire=s_cm)
+
+
 def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
-                    write_values, capacity: Optional[int] = None, nic=None):
+                    write_values, capacity: Optional[int] = None, nic=None,
+                    rep=None):
     """COMMIT / ABORT phase: lanes that hold locks either install their
     values (version += 2, unlock) or roll back.  commit_lane: (N, B) bool.
-    The commit class cannot overflow (its lanes are a subset of the lanes
-    the lock round delivered, to the same destinations in the same order)."""
+
+    With rep.f > 0, each of the f OP_BACKUP_WRITE classes rides this SAME
+    fused round, headed for replica_of(primary, i): zero extra exchange
+    rounds.  A backup write dropped by back-pressure or answered
+    ST_NO_SPACE aborts its lane (cause overflow) for the retry loop; the
+    primary copy of such a lane is already installed, and the retry
+    reinstalls it idempotently."""
     N, B = commit_lane.shape
     Wr = lock_ctx["key_lo"].shape[1] // max(B, 1)
     commit_item = torch.repeat_interleave(commit_lane, Wr, dim=-1)
@@ -178,12 +235,11 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
     cm_recs = ht.make_record(
         op, lock_ctx["tag"], lock_ctx["key_hi"], aux=lock_ctx["lock_slot"],
         value=write_values.reshape(N, B * Wr, sl.VALUE_WORDS))
-    state, results, s_cm = rs.fused_round(
-        t, state, [rs.rpc_class(lock_ctx["node"], cm_recs, serial_h,
-                                enabled=lock_ctx["lock_ok"],
-                                capacity=capacity)], nic=nic)
-    return state, dict(overflow=results[0][1] & lock_ctx["lock_ok"],
-                       wire=s_cm)
+    return _fan_out(
+        t, state, serial_h, lock_ctx, cm_recs,
+        lambda: repl.backup_write_records(lock_ctx, write_values),
+        commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
+        backup_fail=(W.ST_NO_SPACE,))
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +248,7 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
 def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
                        write_values, rctx, lctx, vctx, read_wire,
                        onesided_success, rpc_fallback, total, capacity,
-                       nic=None):
+                       nic=None, rep=None):
     lane_locks_ok = _lanes(lctx["lock_ok"] | ~lctx["enabled"], N, B, Wr).all(-1)
     lane_valid = _lanes(vctx["valid"] | ~rctx["enabled"], N, B, Rd).all(-1)
     # a read dropped by back-pressure is NOT a miss: abort (overflow), retry
@@ -201,7 +257,7 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
     commit_lane = lane_locks_ok & lane_valid & lane_reads_ok    # (N, B)
     state, cctx = commit_or_abort(
         t, state, serial_h, lctx, commit_lane=commit_lane,
-        write_values=write_values, capacity=capacity, nic=nic)
+        write_values=write_values, capacity=capacity, nic=nic, rep=rep)
 
     has_writes = write_enabled.any(-1)
     commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)
@@ -246,7 +302,7 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
 def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
                             write_keys, write_values, write_enabled,
                             read_enabled, cache, use_onesided, capacity,
-                            nic=None):
+                            nic=None, rep=None):
     N, B, Rd = read_keys.shape[:3]
     Wr = write_keys.shape[2]
     serial_h = ht.make_rpc_handler(cfg, layout)
@@ -314,7 +370,7 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
         rctx=rctx, lctx=lctx, vctx=vctx, read_wire=probe["wire"],
         onesided_success=hy._count(probe["success"]),
         rpc_fallback=hy._count(probe["need_rpc"]),
-        total=hy._count(ren), capacity=capacity, nic=nic)
+        total=hy._count(ren), capacity=capacity, nic=nic, rep=rep)
     return state, cache, res
 
 
@@ -322,7 +378,7 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                      read_keys, write_keys, write_values, write_enabled=None,
                      read_enabled=None, cache=None, use_onesided: bool = True,
                      capacity: Optional[int] = None, fused: bool = True,
-                     nic=None):
+                     nic=None, rep=None):
     """Execute a batch of transactions, one per lane (single shot — aborted
     lanes report their cause and stop; see txloop.tx_loop for bounded retry).
 
@@ -334,6 +390,9 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                   per-phase 5-round reference (same committed state, abort
                   causes and delivered-request counts).
     nic:          optional core.nic.ConnTable (prices the transport only).
+    rep:          optional replication.ReplicaConfig — with f > 0 COMMIT
+                  installs the write set on all f+1 copies, the backup
+                  writes riding the commit round (zero extra rounds).
 
     Returns (state, cache, TxResult); ``state["arena"]`` is updated in place.
     Read/write sets are assumed disjoint per lane.
@@ -351,7 +410,7 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             t, state, cfg, layout, read_keys=read_keys, write_keys=write_keys,
             write_values=write_values, write_enabled=write_enabled,
             read_enabled=read_enabled, cache=cache, use_onesided=use_onesided,
-            capacity=capacity, nic=nic)
+            capacity=capacity, nic=nic, rep=rep)
 
     serial_h = ht.make_rpc_handler(cfg, layout)
     state, cache, rctx = execute_read_set(
@@ -368,5 +427,282 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         write_enabled=write_enabled, write_values=write_values,
         rctx=rctx, lctx=lctx, vctx=vctx, read_wire=m.wire,
         onesided_success=m.onesided_success, rpc_fallback=m.rpc_fallback,
-        total=m.total, capacity=capacity, nic=nic)
+        total=m.total, capacity=capacity, nic=nic, rep=rep)
     return state, cache, res
+
+
+# ===========================================================================
+# Transactional RANGE SCANS over the ordered index (datastructs.btree).
+#
+# A scan transaction's READ SET is a run of B-link LEAVES: the client plans
+# the (node, leaf) sequence covering [lo, hi] from its cached separator
+# directory, reads each leaf with ONE one-sided read, and OCC-validates the
+# leaf HEADER versions exactly like point transactions validate record
+# slots.  Writes lock whole leaves (OP_BT_LOCK pre-splits full leaves so
+# OP_BT_COMMIT always has room).
+#
+#   * fused=False — the 5-round reference: leaf reads, scan-RPC fallback,
+#     LOCK, validate, COMMIT — one phase per all-to-all.
+#   * fused=True (default):
+#
+#         round 1  one-sided reads of the planned leaves
+#         round 2  scan fallback ∥ LOCK ∥ validate(one-sided-resolved)
+#         round 3  validate(RPC-resolved leaves)   [empty on the fast path]
+#         round 4  COMMIT / ABORT (+ OP_BT_BACKUP fan-out at rep.f > 0)
+#
+#     so the fast-path scan costs exactly the point-lookup schedule's
+#     exchange rounds: 2 for a pure scan, 3 with writes.
+#
+# Stale separators (a leaf split since the last refresh) surface as a GAP in
+# the fence chain: the lane aborts with cause `validate` and the retry loop
+# refreshes the directory.  `truncated` lanes (range needs more than
+# cfg.max_scan_leaves leaves) are reported, never silently clipped.
+# ===========================================================================
+@dataclasses.dataclass
+class ScanTxResult:
+    committed: torch.Tensor        # (N, B) bool
+    scan_keys: torch.Tensor        # (N, B, S, leaf_width) key words
+    scan_values: torch.Tensor      # (N, B, S, leaf_width, VALUE_WORDS)
+    scan_mask: torch.Tensor        # (N, B, S, leaf_width) bool — in [lo, hi]
+    scan_complete: torch.Tensor    # (N, B) bool — fence chain covered [lo, hi]
+    truncated: torch.Tensor        # (N, B) bool — range needs > S leaves
+    locked_values: torch.Tensor    # (N, B, Wr, VALUE_WORDS)
+    aborted_lock: torch.Tensor     # (N, B) bool
+    aborted_validate: torch.Tensor
+    aborted_overflow: torch.Tensor
+    aborted_stale: torch.Tensor    # (N, B) bool
+    metrics: hy.HybridMetrics
+    round_trips: torch.Tensor      # scalar
+
+
+def _bt_lock_requests(t: Transport, cfg: bt.BTreeConfig, *, write_keys,
+                      write_enabled):
+    """Flatten the btree write set and build OP_BT_LOCK records (leaf-grain
+    locks; unique nonzero tag per (node, lane))."""
+    N, B, Wr = write_keys.shape
+    wk = write_keys.reshape(N, B * Wr)
+    en = write_enabled.reshape(N, B * Wr)
+    part = bt.part_of(cfg, wk)
+    lane = torch.arange(B * Wr, dtype=torch.int64, device=wk.device) \
+        // max(Wr, 1)
+    tag = sl.i32(t.node_ids(wk.device).to(torch.int64)[:, None] * B
+                 + lane[None, :] + 1)
+    zero = torch.zeros_like(wk)
+    recs = bt.make_record(W.OP_BT_LOCK, wk, zero, aux=tag)
+    return dict(key_lo=wk, key_hi=zero, enabled=en, node=part, tag=tag,
+                part=part), recs
+
+
+def _bt_leaf_offset_of(layout, slot_idx):
+    """Validation-offset hook: btree read-set entries are header slots in
+    the `leaves` region."""
+    return rg.slot_offset(layout["leaves"], slot_idx)
+
+
+def _bt_commit_or_abort(t: Transport, state, serial_h, lock_ctx, *,
+                        commit_lane, write_values,
+                        capacity: Optional[int] = None, nic=None, rep=None):
+    """COMMIT/ABORT for btree write sets: key in key_lo, the lock TAG in
+    key_hi, the locked leaf's header slot in aux.  With rep.f > 0 the
+    OP_BT_BACKUP classes ride this SAME fused round; a backup write that is
+    dropped, finds the backup tree full (ST_NO_SPACE) or the backup leaf
+    locked (ST_LOCK_FAIL) aborts its lane with cause overflow."""
+    N, B = commit_lane.shape
+    Wr = lock_ctx["key_lo"].shape[1] // max(B, 1)
+    commit_item = torch.repeat_interleave(commit_lane, Wr, dim=-1)
+    op = torch.where(commit_item, W.OP_BT_COMMIT, W.OP_BT_ABORT)
+    cm_recs = bt.make_record(
+        op, lock_ctx["key_lo"], lock_ctx["tag"], aux=lock_ctx["lock_slot"],
+        value=write_values.reshape(N, B * Wr, sl.VALUE_WORDS))
+    return _fan_out(
+        t, state, serial_h, lock_ctx, cm_recs,
+        lambda: repl.btree_backup_records(lock_ctx, write_values),
+        commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
+        backup_fail=(W.ST_NO_SPACE, W.ST_LOCK_FAIL))
+
+
+def _scan_chain(fence_lo, fence_hi, lo, hi, en, resolved):
+    """Client-side coverage check over the merged leaf run (all (N, B, S)).
+
+    complete  — every enabled position resolved, fences contiguous
+                (fence_lo[j] == fence_hi[j-1] + 1), the first leaf covers lo
+                and some leaf reaches hi.
+    truncated — the chain is sound but exhausts all S positions before
+                reaching hi (reported, never silently clipped)."""
+    flo, fhi = sl.u32(fence_lo), sl.u32(fence_hi)
+    all_resolved = (resolved | ~en).all(dim=-1)
+    first_ok = flo[..., 0] <= sl.u32(lo)
+    cont = flo[..., 1:] == ((fhi[..., :-1] + 1) & sl.MASK32)
+    cont_ok = (cont | ~en[..., 1:]).all(dim=-1)
+    reach = (en & (fhi >= sl.u32(hi)[..., None])).any(dim=-1)
+    has_scan = en.any(dim=-1)
+    sound = all_resolved & first_ok & cont_ok
+    complete = ~has_scan | (sound & reach)
+    truncated = has_scan & en[..., -1] & sound & ~reach
+    return complete, truncated
+
+
+def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
+                          scan_lo, scan_hi, meta, write_keys=None,
+                          write_values=None, write_enabled=None,
+                          scan_enabled=None, capacity: Optional[int] = None,
+                          fused: bool = True, nic=None, rep=None):
+    """Execute a batch of range-scan transactions over the ordered index,
+    one per lane (single shot; see txloop.scan_loop for bounded retry).
+
+    scan_lo/hi:   (N, B) INCLUSIVE key words (lo > hi scans nothing — a
+                  pure-write lane).
+    meta:         cached separator directory ({"sep", "nleaf"} from
+                  btree.refresh_meta / local_meta).
+    write_keys:   (N, B, Wr) btree key words upserted on commit (None = no
+                  writes); write_values (N, B, Wr, VALUE_WORDS).
+    A lane's write keys must land on distinct leaves, and a lane must not
+    write into leaves its own scan reads.
+
+    Returns (state, ScanTxResult); ``state["arena"]`` is updated in place.
+    fused/nic/rep/capacity as in run_transactions — fused changes ROUND
+    COUNTS only, rep=None ≡ f=0."""
+    N, B = scan_lo.shape
+    S = cfg.max_scan_leaves
+    dev = scan_lo.device
+    if write_keys is None:
+        write_keys = torch.zeros((N, B, 0), dtype=torch.int32, device=dev)
+        write_values = torch.zeros((N, B, 0, sl.VALUE_WORDS),
+                                   dtype=torch.int32, device=dev)
+    Wr = write_keys.shape[2]
+    if write_enabled is None:
+        write_enabled = torch.ones((N, B, Wr), dtype=torch.bool, device=dev)
+    if scan_enabled is None:
+        scan_enabled = torch.ones((N, B), dtype=torch.bool, device=dev)
+    serial_h = bt.make_rpc_handler(cfg, layout)
+    scan_h = bt.make_scan_handler_vector(cfg, layout)
+
+    # client-side plan from the cached inner nodes (one plan per client)
+    plan = bt.scan_plan(cfg, meta["sep"], meta["nleaf"], scan_lo, scan_hi)
+    en = plan["enabled"] & scan_enabled[..., None]              # (N, B, S)
+    en_f = en.reshape(N, B * S)
+    dest = plan["node"].reshape(N, B * S)
+    pleaf = plan["leaf"].reshape(N, B * S)
+    pfence = plan["fence"].reshape(N, B * S)
+
+    # ---- round 1: one-sided reads of the planned leaves -------------------
+    buf, ovf1, s1 = osd.remote_read(
+        t, state["arena"], dest, bt.leaf_offset(cfg, layout, pleaf),
+        length=cfg.leaf_words, capacity=capacity, enabled=en_f, nic=nic)
+    p1 = bt.parse_leaf(cfg, buf)
+    # resolved one-sided iff the image is stable and its immutable low fence
+    # matches the plan (stale separators can only MISS leaves)
+    pos_ok = (en_f & ~ovf1 & ((p1["version"] & 1) == 0) & (p1["lock"] == 0)
+              & (p1["fence_lo"] == pfence))
+    need = en_f & ~pos_ok
+    scan_recs = bt.make_record(W.OP_BT_SCAN, pfence, torch.zeros_like(pfence))
+    lk, lock_recs = _bt_lock_requests(t, cfg, write_keys=write_keys,
+                                      write_enabled=write_enabled)
+
+    fuse_v1 = fused and capacity is None and S > 0
+    if fused:
+        # ---- round 2: scan fallback ∥ LOCK ∥ validate(one-sided-resolved)
+        classes = [
+            rs.rpc_class(dest, scan_recs, scan_h, enabled=need,
+                         capacity=capacity),
+            rs.rpc_class(lk["node"], lock_recs, serial_h,
+                         enabled=lk["enabled"], capacity=capacity),
+        ]
+        if fuse_v1:
+            classes.append(rs.read_class(
+                dest, _bt_leaf_offset_of(layout, bt.header_slot(cfg, pleaf)),
+                length=sl.SLOT_WORDS, enabled=pos_ok))
+        state, results, s2 = rs.fused_round(t, state, classes, nic=nic)
+        scan_rep, scan_ovf = results[0]
+        lrep, lovf = results[1]
+        s_fallback = None
+    else:
+        # ---- reference rounds 2 and 3: fallback, then LOCK ----------------
+        state, scan_rep, scan_ovf, s_fallback = R.rpc_call(
+            t, state, dest, scan_recs, scan_h, capacity=capacity,
+            enabled=need, nic=nic)
+        state, lrep, lovf, s2 = R.rpc_call(
+            t, state, lk["node"], lock_recs, serial_h, capacity=capacity,
+            enabled=lk["enabled"], nic=nic)
+    lctx = _parse_lock_replies(lk, lrep, lovf, N, B, Wr)
+
+    # merge the authoritative fallback leaf images over the one-sided reads
+    rpc_ok = need & (scan_rep[..., 0] == W.ST_OK) & ~scan_ovf
+    mbuf = torch.where(rpc_ok[..., None], scan_rep[..., 2:], buf)
+    mslot = torch.where(rpc_ok, scan_rep[..., 1], bt.header_slot(cfg, pleaf))
+    p = bt.parse_leaf(cfg, mbuf)
+    resolved = pos_ok | rpc_ok
+    rctx = dict(key_lo=p["fence_lo"], key_hi=torch.zeros_like(p["fence_lo"]),
+                enabled=en_f, found=resolved, versions=p["version"],
+                node=dest, slot=mslot, overflow=need & scan_ovf)
+
+    # ---- validate the leaf read set (headers) -----------------------------
+    if fuse_v1:
+        v1 = results[2][0]
+        v2, _, s3 = osd.remote_read(
+            t, state["arena"], dest, _bt_leaf_offset_of(layout, mslot),
+            length=sl.SLOT_WORDS, enabled=rpc_ok, nic=nic)
+        vbuf = torch.where(pos_ok[..., None], v1, v2)
+        vctx = _validate_from_bytes(rctx, vbuf, torch.zeros_like(en_f))
+        vctx["wire"] = s3
+    else:
+        vctx = validate_read_set(t, state, layout, rctx, capacity=capacity,
+                                 nic=nic, offset_of=_bt_leaf_offset_of)
+    read_wire = s1 if s_fallback is None else s1 + s_fallback
+    lctx["wire"] = s2
+
+    # ---- decide, commit / abort, classify ---------------------------------
+    complete, truncated = _scan_chain(
+        p["fence_lo"].reshape(N, B, S), p["fence_hi"].reshape(N, B, S),
+        scan_lo, scan_hi, en, resolved.reshape(N, B, S))
+    lane_locks_ok = _lanes(lctx["lock_ok"] | ~lctx["enabled"], N, B, Wr).all(-1)
+    lane_valid = _lanes(vctx["valid"] | ~en_f, N, B, S).all(-1) & complete
+    lane_reads_ok = ~_lanes(rctx["overflow"] | vctx["overflow"], N, B,
+                            S).any(-1)
+
+    commit_lane = lane_locks_ok & lane_valid & lane_reads_ok
+    state, cctx = _bt_commit_or_abort(
+        t, state, serial_h, lctx, commit_lane=commit_lane,
+        write_values=write_values, capacity=capacity, nic=nic, rep=rep)
+
+    has_writes = write_enabled.any(-1)
+    commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)
+    committed = torch.where(has_writes, commit_lane & commit_delivered,
+                            lane_valid & lane_reads_ok)
+
+    lane_ovf = (~lane_reads_ok
+                | _lanes(lctx["no_space"], N, B, Wr).any(-1)
+                | _lanes(cctx["overflow"], N, B, Wr).any(-1))
+    lane_stale = _lanes(lctx["stale"], N, B, Wr).any(-1)
+    lane_lock_fail = _lanes(lctx["lock_fail"], N, B, Wr).any(-1)
+    aborted = ~committed
+    aborted_overflow = aborted & lane_ovf
+    aborted_stale = aborted & ~lane_ovf & lane_stale
+    aborted_lock = aborted & ~lane_ovf & ~lane_stale & lane_lock_fail
+    aborted_validate = (aborted & ~lane_ovf & ~lane_stale & ~lane_lock_fail
+                        & ~lane_valid)
+
+    # ---- scan payload: records of validated leaves inside [lo, hi] --------
+    LW = cfg.leaf_width
+    keys = p["keys"].reshape(N, B, S, LW)
+    values = p["values"].reshape(N, B, S, LW, sl.VALUE_WORDS)
+    live = p["live"].reshape(N, B, S, LW)
+    ku = sl.u32(keys)
+    in_range = (live & (ku >= sl.u32(scan_lo)[..., None, None])
+                & (ku <= sl.u32(scan_hi)[..., None, None])
+                & (resolved.reshape(N, B, S) & en)[..., None])
+
+    wire = read_wire + lctx["wire"] + vctx["wire"] + cctx["wire"]
+    rts = (read_wire.round_trips + lctx["wire"].round_trips
+           + vctx["wire"].round_trips + cctx["wire"].round_trips)
+    return state, ScanTxResult(
+        committed=committed,
+        scan_keys=keys, scan_values=values, scan_mask=in_range,
+        scan_complete=complete, truncated=truncated,
+        locked_values=lctx["locked_values"],
+        aborted_lock=aborted_lock, aborted_validate=aborted_validate,
+        aborted_overflow=aborted_overflow, aborted_stale=aborted_stale,
+        metrics=hy.HybridMetrics(onesided_success=hy._count(pos_ok),
+                                 rpc_fallback=hy._count(need),
+                                 total=hy._count(en_f), wire=wire),
+        round_trips=rts)

@@ -1,5 +1,6 @@
 """Multi-round transaction engine: bounded retry with backoff (Storm §5.4),
-PyTorch port of ``repro/core/txloop.py::tx_loop``.
+PyTorch port of ``repro/core/txloop.py``: ``tx_loop`` (point transactions)
+and ``scan_loop`` (range-scan transactions over the B-link tree).
 
 ``tx.run_transactions`` is single shot; ``tx_loop`` retries aborted
 transactions:
@@ -16,6 +17,12 @@ transactions:
 The permutations come from ``perms`` when given — the parity tests feed the
 reference's ``jax.random`` draws, which torch cannot reproduce — and
 otherwise from a ``torch.Generator``.
+
+``scan_loop`` adds one ordered-index move: every retry round REFRESHES the
+cached separator directory first (one one-sided read per node, its wire
+cost accounted), so lanes that aborted on a stale plan converge; truncated
+lanes (range needs more than ``max_scan_leaves`` leaves) are parked and
+reported.
 """
 from __future__ import annotations
 
@@ -28,11 +35,13 @@ from repro_torch.convert import words
 from repro_torch.core import hybrid as hy
 from repro_torch.core import slots as sl
 from repro_torch.core import tx as txm
+from repro_torch.core.datastructs import btree as bt
 from repro_torch.core.datastructs import hashtable as ht
-from repro_torch.core.transport import Transport
+from repro_torch.core.transport import Transport, WireStats
 from repro_torch.device import resolve_device
 
 DEFAULT_SEED = 0x5707
+SCAN_SEED = 0x5C0A
 
 
 @dataclasses.dataclass
@@ -67,11 +76,85 @@ def _as_words(x, dev):
     return words(x, dev)
 
 
+def _on_device(state, device, who):
+    """The protocol's device: ``state["arena"]``'s, which must be of the
+    type the caller asked for (a CUDA state never runs on the CPU)."""
+    dev = resolve_device(device)
+    if state["arena"].device.type != dev.type:
+        raise ValueError(f"{who}: state is on {state['arena'].device}, "
+                         f"expected {dev}")
+    return state["arena"].device
+
+
+def _round_perms(perms, max_rounds, N, B, dev, seed, who):
+    """Yield each round's lane permutation: the identity for round 0, then
+    ``perms[rnd]`` when given, else draws of a CPU generator seeded with
+    ``seed``."""
+    if perms is not None:
+        perms = torch.as_tensor(perms, dtype=torch.int64).to(dev)
+        if tuple(perms.shape) != (max_rounds, N, B):
+            raise ValueError(f"{who}: perms must be {(max_rounds, N, B)}, "
+                             f"got {tuple(perms.shape)}")
+    generator = torch.Generator().manual_seed(seed)
+    ident = torch.arange(B, device=dev).expand(N, B)
+    for rnd in range(max_rounds):
+        if rnd == 0:
+            yield ident                               # round 0 == single shot
+        elif perms is not None:
+            yield perms[rnd]
+        else:
+            yield torch.rand((N, B), generator=generator).argsort(dim=1).to(dev)
+
+
+def _round_stats(rnd, newly, active, res, s_ref=None):
+    """One round's counters (each an int32 scalar) and metrics."""
+    count = lambda x: x.to(torch.int32).sum()
+    live = lambda x: x & active
+    m = res.metrics
+    wire = m.wire if s_ref is None else m.wire + s_ref
+    rts = res.round_trips if s_ref is None else (res.round_trips
+                                                 + s_ref.round_trips)
+    return dict(
+        committed=count(newly),
+        attempts=count(active),
+        retries=count(active) if rnd > 0 else count(active) * 0,
+        abort_lock=count(live(res.aborted_lock)),
+        abort_validate=count(live(res.aborted_validate)),
+        abort_overflow=count(live(res.aborted_overflow)),
+        abort_stale=count(live(res.aborted_stale)),
+        metrics=hy.HybridMetrics(m.onesided_success, m.rpc_fallback, m.total,
+                                 wire),
+        round_trips=rts)
+
+
+def _totals(ys, extra_wire=None):
+    """Per-round columns (as the results' ``round_*`` fields) and summed
+    metrics and round trips of a loop's rounds."""
+    col = lambda k: torch.stack([y[k] for y in ys]).to(torch.int32)
+    total = lambda xs: torch.stack(xs).sum(dim=0)
+    ms = [y["metrics"] for y in ys]
+    wire = WireStats(**{
+        f.name: total([getattr(m.wire, f.name) for m in ms])
+        for f in dataclasses.fields(WireStats)})
+    rts = total([y["round_trips"] for y in ys])
+    if extra_wire is not None:
+        wire = wire + extra_wire
+        rts = rts + extra_wire.round_trips
+    metrics = hy.HybridMetrics(
+        onesided_success=total([m.onesided_success for m in ms]),
+        rpc_fallback=total([m.rpc_fallback for m in ms]),
+        total=total([m.total for m in ms]), wire=wire)
+    cols = {f"round_{k}": col(k) for k in (
+        "committed", "attempts", "retries", "abort_lock", "abort_validate",
+        "abort_overflow", "abort_stale")}
+    return cols, metrics, rts
+
+
 def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             read_keys, write_keys, write_values, read_enabled=None,
             write_enabled=None, cache=None, use_onesided: bool = True,
             capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
-            fused: bool = True, nic=None, device="cuda"):
+            fused: bool = True, nic=None, rep=None, device="cuda"):
     """Run a batch of transactions to convergence (bounded by max_rounds).
 
     Arguments mirror tx.run_transactions; additionally:
@@ -81,16 +164,16 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
       perms:      optional (max_rounds, N, B) lane permutations (row 0 is
                   ignored: round 0 is the identity); without them a CPU
                   torch.Generator seeded with DEFAULT_SEED draws them.
+      rep:        optional replication.ReplicaConfig — every committing
+                  round installs the write set on all f+1 copies (zero extra
+                  exchange rounds); a dropped backup write aborts its lane
+                  (cause overflow), which THIS loop retries.
       device:     where the protocol runs; ``state["arena"]`` must be there.
 
     Returns (state, cache, TxLoopResult); ``state["arena"]`` is updated in
     place.
     """
-    dev = resolve_device(device)
-    if state["arena"].device.type != dev.type:
-        raise ValueError(f"tx_loop: state is on {state['arena'].device}, "
-                         f"expected {dev}")
-    dev = state["arena"].device
+    dev = _on_device(state, device, "tx_loop")
     read_keys = _as_words(read_keys, dev)
     write_keys = _as_words(write_keys, dev)
     write_values = _as_words(write_values, dev)
@@ -101,13 +184,6 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         write_enabled = torch.ones(write_keys.shape[:3], dtype=torch.bool)
     read_enabled = torch.as_tensor(read_enabled, dtype=torch.bool).to(dev)
     write_enabled = torch.as_tensor(write_enabled, dtype=torch.bool).to(dev)
-    if perms is not None:
-        perms = torch.as_tensor(perms, dtype=torch.int64).to(dev)
-        if tuple(perms.shape) != (max_rounds, N, B):
-            raise ValueError(f"tx_loop: perms must be {(max_rounds, N, B)}, "
-                             f"got {tuple(perms.shape)}")
-    generator = torch.Generator().manual_seed(DEFAULT_SEED)
-    ident = torch.arange(B, device=dev).expand(N, B)
 
     done = torch.zeros((N, B), dtype=torch.bool, device=dev)
     commit_round = torch.full((N, B), -1, dtype=torch.int32, device=dev)
@@ -115,13 +191,8 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     rvals = torch.zeros(read_enabled.shape + (sl.VALUE_WORDS,),
                         dtype=torch.int32, device=dev)
     ys = []
-    for rnd in range(max_rounds):
-        if rnd == 0:
-            perm = ident                              # round 0 == single shot
-        elif perms is not None:
-            perm = perms[rnd]
-        else:
-            perm = torch.rand((N, B), generator=generator).argsort(dim=1).to(dev)
+    for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
+                                            DEFAULT_SEED, "tx_loop")):
         inv = torch.argsort(perm, dim=1)
         active = ~done
         p = lambda x: _perm_lanes(x, perm)
@@ -135,49 +206,151 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             read_enabled=p(read_enabled) & act_p[..., None],
             write_enabled=p(write_enabled) & act_p[..., None],
             cache=cache, use_onesided=use_onesided, capacity=capacity,
-            fused=fused, nic=nic)
+            fused=fused, nic=nic, rep=rep)
+        res = dataclasses.replace(res, **{
+            k: u(getattr(res, k)) for k in (
+                "committed", "read_found", "read_values", "aborted_lock",
+                "aborted_validate", "aborted_overflow", "aborted_stale")})
         # fully-masked (parked) lanes report committed=True — gate on active
-        newly = u(res.committed) & active
+        newly = res.committed & active
         done = done | newly
         commit_round = torch.where(newly, rnd, commit_round)
-        rfound = torch.where(active[..., None], u(res.read_found), rfound)
-        rvals = torch.where(active[..., None, None], u(res.read_values), rvals)
-        count = lambda x: x.to(torch.int32).sum()
-        ys.append(dict(
-            committed=count(newly),
-            attempts=count(active),
-            retries=count(active) if rnd > 0 else count(active) * 0,
-            abort_lock=count(u(res.aborted_lock) & active),
-            abort_validate=count(u(res.aborted_validate) & active),
-            abort_overflow=count(u(res.aborted_overflow) & active),
-            abort_stale=count(u(res.aborted_stale) & active),
-            metrics=res.metrics,
-            round_trips=res.round_trips,
-        ))
+        rfound = torch.where(active[..., None], res.read_found, rfound)
+        rvals = torch.where(active[..., None, None], res.read_values, rvals)
+        ys.append(_round_stats(rnd, newly, active, res))
 
-    col = lambda k: torch.stack([y[k] for y in ys]).to(torch.int32)
-    total = lambda xs: torch.stack(xs).sum(dim=0)
-    ms = [y["metrics"] for y in ys]
-    wire = type(ms[0].wire)(**{
-        f.name: total([getattr(m.wire, f.name) for m in ms])
-        for f in dataclasses.fields(ms[0].wire)})
-    metrics = hy.HybridMetrics(
-        onesided_success=total([m.onesided_success for m in ms]),
-        rpc_fallback=total([m.rpc_fallback for m in ms]),
-        total=total([m.total for m in ms]), wire=wire)
+    cols, metrics, rts = _totals(ys)
     result = TxLoopResult(
         committed=done,
         commit_round=commit_round,
         read_found=rfound,
         read_values=rvals,
-        round_committed=col("committed"),
-        round_attempts=col("attempts"),
-        round_retries=col("retries"),
-        round_abort_lock=col("abort_lock"),
-        round_abort_validate=col("abort_validate"),
-        round_abort_overflow=col("abort_overflow"),
-        round_abort_stale=col("abort_stale"),
         metrics=metrics,
-        round_trips=total([y["round_trips"] for y in ys]),
+        round_trips=rts,
+        **cols,
     )
     return state, cache, result
+
+
+# ===========================================================================
+# Bounded-retry loop for RANGE-SCAN transactions (tx.run_scan_transactions)
+# ===========================================================================
+@dataclasses.dataclass
+class ScanLoopResult:
+    committed: torch.Tensor            # (N, B) bool — committed in ANY round
+    commit_round: torch.Tensor         # (N, B) int32 — round of commit, -1 never
+    truncated: torch.Tensor            # (N, B) bool — parked: range > S leaves
+    scan_keys: torch.Tensor            # (N, B, S, LW) — from the last attempt
+    scan_values: torch.Tensor          # (N, B, S, LW, VALUE_WORDS)
+    scan_mask: torch.Tensor            # (N, B, S, LW) bool
+    # --- per-round metrics, each (max_rounds,) int32 -----------------------
+    round_committed: torch.Tensor
+    round_attempts: torch.Tensor
+    round_retries: torch.Tensor
+    round_abort_lock: torch.Tensor
+    round_abort_validate: torch.Tensor
+    round_abort_overflow: torch.Tensor
+    round_abort_stale: torch.Tensor
+    metrics: hy.HybridMetrics          # totals across rounds (+ meta refresh)
+    round_trips: torch.Tensor          # scalar
+
+
+def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
+              scan_hi, meta=None, write_keys=None, write_values=None,
+              scan_enabled=None, write_enabled=None,
+              capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
+              fused: bool = True, nic=None, rep=None, refresh: bool = True,
+              device="cuda"):
+    """Run a batch of range-scan transactions to convergence.
+
+    Arguments mirror tx.run_scan_transactions; additionally:
+      meta:       initial cached separator directory; None fetches one up
+                  front (wire cost counted).
+      refresh:    refresh the directory before every RETRY round (default),
+                  so stale-plan aborts converge; refresh=False replays the
+                  initial meta.
+      perms:      optional (max_rounds, N, B) lane permutations (row 0
+                  ignored); without them a CPU torch.Generator seeded with
+                  SCAN_SEED draws them.
+      device:     where the protocol runs; ``state["arena"]`` must be there.
+    Returns (state, meta, ScanLoopResult); ``state["arena"]`` is updated in
+    place."""
+    dev = _on_device(state, device, "scan_loop")
+    scan_lo = _as_words(scan_lo, dev)
+    scan_hi = _as_words(scan_hi, dev)
+    N, B = scan_lo.shape
+    S, LW = cfg.max_scan_leaves, cfg.leaf_width
+    if write_keys is None:
+        write_keys = torch.zeros((N, B, 0), dtype=torch.int32, device=dev)
+        write_values = torch.zeros((N, B, 0, sl.VALUE_WORDS),
+                                   dtype=torch.int32, device=dev)
+    write_keys = _as_words(write_keys, dev)
+    write_values = _as_words(write_values, dev)
+    Wr = write_keys.shape[2]
+    if scan_enabled is None:
+        scan_enabled = torch.ones((N, B), dtype=torch.bool)
+    if write_enabled is None:
+        write_enabled = torch.ones((N, B, Wr), dtype=torch.bool)
+    scan_enabled = torch.as_tensor(scan_enabled, dtype=torch.bool).to(dev)
+    write_enabled = torch.as_tensor(write_enabled, dtype=torch.bool).to(dev)
+    init_wire = WireStats.zero(dev)
+    if meta is None:
+        meta, init_wire = bt.refresh_meta(t, state, cfg, layout, nic=nic)
+
+    done = torch.zeros((N, B), dtype=torch.bool, device=dev)
+    trunc = torch.zeros((N, B), dtype=torch.bool, device=dev)
+    commit_round = torch.full((N, B), -1, dtype=torch.int32, device=dev)
+    skeys = torch.zeros((N, B, S, LW), dtype=torch.int32, device=dev)
+    svals = torch.zeros((N, B, S, LW, sl.VALUE_WORDS), dtype=torch.int32,
+                        device=dev)
+    smask = torch.zeros((N, B, S, LW), dtype=torch.bool, device=dev)
+    ys = []
+    for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
+                                            SCAN_SEED, "scan_loop")):
+        inv = torch.argsort(perm, dim=1)
+        active = ~done
+        p = lambda x: _perm_lanes(x, perm)
+        u = lambda x: _perm_lanes(x, inv)
+        act_p = p(active)
+
+        # retry rounds refresh the separator directory first; round 0 plans
+        # with the meta it was given (the reference reads it there too but
+        # neither uses nor accounts it)
+        s_ref = None
+        if refresh and rnd > 0:
+            meta, s_ref = bt.refresh_meta(t, state, cfg, layout, nic=nic)
+
+        state, res = txm.run_scan_transactions(
+            t, state, cfg, layout,
+            scan_lo=p(scan_lo), scan_hi=p(scan_hi), meta=meta,
+            write_keys=p(write_keys), write_values=p(write_values),
+            scan_enabled=p(scan_enabled) & act_p,
+            write_enabled=p(write_enabled) & act_p[..., None],
+            capacity=capacity, fused=fused, nic=nic, rep=rep)
+        res = dataclasses.replace(res, **{
+            k: u(getattr(res, k)) for k in (
+                "committed", "truncated", "scan_keys", "scan_values",
+                "scan_mask", "aborted_lock", "aborted_validate",
+                "aborted_overflow", "aborted_stale")})
+        newly = res.committed & active
+        newly_trunc = res.truncated & active
+        done = done | newly | newly_trunc           # truncation cannot retry
+        trunc = trunc | newly_trunc
+        commit_round = torch.where(newly, rnd, commit_round)
+        upd = active[..., None, None]
+        skeys = torch.where(upd, res.scan_keys, skeys)
+        smask = torch.where(upd, res.scan_mask, smask)
+        svals = torch.where(upd[..., None], res.scan_values, svals)
+        ys.append(_round_stats(rnd, newly, active, res, s_ref))
+
+    cols, metrics, rts = _totals(ys, init_wire)
+    result = ScanLoopResult(
+        committed=done & ~trunc,
+        commit_round=commit_round,
+        truncated=trunc,
+        scan_keys=skeys, scan_values=svals, scan_mask=smask,
+        metrics=metrics,
+        round_trips=rts,
+        **cols,
+    )
+    return state, meta, result

@@ -1,20 +1,37 @@
 """Workload builders of the port: counterparts of ``benchmarks/common.py``'s
-``populate`` / ``make_tx_workload`` and of the TATP transaction draw in
-``benchmarks/fig6_tatp.py``, making the SAME ``np.random.RandomState`` draws
-in the same order, so a workload built here equals the reference's word for
-word.  Every builder takes ``device=`` (default ``"cuda"``)."""
+``populate`` / ``make_tx_workload``, of the TATP transaction draw in
+``benchmarks/fig6_tatp.py``, of ``benchmarks/range_scan.py``'s
+``build_tree`` / ``scan_workload``, and of the bench gate's replicated and
+ordered workloads, making the SAME ``np.random.RandomState`` draws in the
+same order, so a workload built here equals the reference's word for word.
+Every builder takes ``device=`` (default ``"cuda"``)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.convert import words
+from repro_torch.convert import to_numpy, words
 from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
+from repro_torch.core import wireproto as W
+from repro_torch.core.datastructs import btree as bt
 from repro_torch.core.datastructs import hashtable as ht
 from repro_torch.device import resolve_device
 
 POPULATE_BATCH = 64      # inserts per node per RPC round, as the reference
+TREE_BATCH = 16          # B-tree inserts per node per RPC round, as the reference
+SPAN = 4                 # range_scan.py: scans cover this many consecutive keys
+
+
+def distinct_uint32(rng, n, lo=0, hi=2**32 - 2):
+    """n DISTINCT uint32 keys uniform over [lo, hi) by randint + dedup (the
+    reference's ``repro.testing.workloads.distinct_uint32``, same draws)."""
+    out = np.array([], dtype=np.uint64)
+    while out.size < n:
+        draw = rng.randint(lo, hi, size=2 * n).astype(np.uint64)
+        out = np.unique(np.concatenate([out, draw]))
+    rng.shuffle(out)
+    return out[:n].astype(np.uint32)
 
 
 def value_for(key_lo):
@@ -98,12 +115,18 @@ def tatp_transactions(klo, khi, *, n_nodes, lanes, subscribers_per_node,
 
 def gate_tx_smoke(device="cuda"):
     """The bench gate's fused tx_loop workload (``bench_gate._tx_smoke``: 4
-    nodes, 8 lanes, 256 buckets, 64 keys per node, seed 5, 2 rounds).
+    nodes, 8 lanes, 256 buckets, 64 keys per node, seed 5, 2 rounds), run
+    unreplicated and then, from the same populated state, at
+    ``ReplicaConfig(4, 1)``.
 
-    Returns (state, TxLoopResult, keys) with the gate's top-level keys
-    ``round_trips`` / ``rt_round`` / ``commit_rate`` / ``wire_bytes_tx``,
-    rounded as ``bench_gate.collect`` rounds them."""
+    Returns (state, TxLoopResult, keys, state_f1): the unreplicated run's
+    final state and result, the gate's top-level keys ``round_trips`` /
+    ``rt_round`` / ``commit_rate`` / ``wire_bytes_tx`` with its
+    ``replication`` keys ``round_trips_f1`` / ``wire_bytes_tx_f1`` /
+    ``commit_rate_f1``, rounded as ``bench_gate.collect`` rounds them, and
+    the f=1 run's final state."""
     from repro_torch.core import txloop as txl
+    from repro_torch.core.replication import ReplicaConfig
     from repro_torch.core.transport import SimTransport
 
     dev = resolve_device(device)
@@ -115,9 +138,14 @@ def gate_tx_smoke(device="cuda"):
     state = ht.init_cluster_state(cfg, device=dev)
     state, rk, wk, wv = make_tx_workload(t, cfg, layout, state, lanes=lanes,
                                          n_keys=64, seed=5, device=dev)
+    populated = {"arena": state["arena"].clone()}
     state, _, res = txl.tx_loop(t, state, cfg, layout, read_keys=rk,
                                 write_keys=wk, write_values=wv,
                                 max_rounds=max_rounds, device=dev)
+    state1, _, res1 = txl.tx_loop(t, populated, cfg, layout, read_keys=rk,
+                                  write_keys=wk, write_values=wv,
+                                  max_rounds=max_rounds,
+                                  rep=ReplicaConfig(n_nodes, 1), device=dev)
     rounds_attempted = int((res.round_attempts > 0).sum())
     n_tx = n_nodes * lanes
     keys = {
@@ -125,5 +153,145 @@ def gate_tx_smoke(device="cuda"):
         "rt_round": round(float(res.round_trips) / max(rounds_attempted, 1), 4),
         "commit_rate": round(float(res.committed.float().mean()), 4),
         "wire_bytes_tx": round(float(res.metrics.wire.total_bytes) / n_tx, 2),
+        "replication": {
+            "round_trips_f1": float(res1.round_trips),
+            "wire_bytes_tx_f1": round(
+                float(res1.metrics.wire.total_bytes) / n_tx, 2),
+            "commit_rate_f1": round(float(res1.committed.float().mean()), 4),
+        },
     }
-    return state, res, keys
+    return state, res, keys, state1
+
+
+# ---------------------------------------------------------------------------
+# The ordered index: benchmarks/range_scan.py's tree and scan mixes
+# ---------------------------------------------------------------------------
+def build_tree(n_nodes, *, n_keys=48, seed=3, batch=TREE_BATCH,
+               device="cuda"):
+    """``range_scan.build_tree``: a B-tree of n_nodes x n_keys distinct keys
+    (``leaf_width`` 4, ``n_leaves`` 2 x n_keys, ``max_scan_leaves`` 8),
+    inserted by OP_BT_INSERT RPCs from every node to the keys' homes,
+    ``batch`` per node per round (the reference's 16 by default; the tree's
+    layout depends on it), then a refreshed separator cache.
+
+    Returns (cfg, layout, t, state, allk, meta); ``allk`` is the sorted key
+    array (numpy uint64)."""
+    from repro_torch.core.transport import SimTransport
+
+    dev = resolve_device(device)
+    cfg = bt.BTreeConfig(n_nodes=n_nodes, n_leaves=2 * n_keys, leaf_width=4,
+                         max_scan_leaves=8)
+    layout = bt.build_layout(cfg)
+    t = SimTransport(n_nodes)
+    state = bt.init_cluster_state(cfg, device=dev)
+    rng = np.random.RandomState(seed)
+    allk = np.sort(distinct_uint32(rng, n_nodes * n_keys).astype(np.uint64))
+    h = bt.make_rpc_handler(cfg, layout)
+    flat = allk.astype(np.uint32)
+    rng.shuffle(flat)
+    per = words(flat.reshape(n_nodes, n_keys), dev)
+    for i in range(0, n_keys, batch):
+        k = per[:, i:i + batch]
+        state, rep, _, _ = R.rpc_call(
+            t, state, bt.home_of(cfg, k),
+            bt.make_record(W.OP_BT_INSERT, k, torch.zeros_like(k),
+                           value=value_for(k)), h)
+        if not bool((rep[..., 0] == W.ST_OK).all()):
+            raise RuntimeError("build_tree: an insert failed")
+    meta, _ = bt.refresh_meta(t, state, cfg, layout)
+    return cfg, layout, t, state, allk, meta
+
+
+def scan_workload(allk, n_nodes, lanes, *, scan_frac, seed, theta=0.0,
+                  device="cuda"):
+    """``range_scan.scan_workload``: ``scan_frac`` of the lanes scan SPAN
+    consecutive keys (start Zipf(theta)-skewed over the key array; 0 =
+    uniform), the rest upsert a fresh gap key.  Returns (lo (N, B), hi,
+    write_keys (N, B, 1), write_enabled (N, B, 1)) on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    M = len(allk) - SPAN - 1
+    if theta > 0:
+        rank = np.arange(1, M + 1, dtype=np.float64)
+        p = 1.0 / rank ** theta
+        p /= p.sum()
+        starts = rng.choice(M, (n_nodes, lanes), p=p)
+    else:
+        starts = rng.randint(0, M, (n_nodes, lanes))
+    lo = allk[starts]
+    hi = allk[starts + SPAN - 1]
+    is_scan = rng.rand(n_nodes, lanes) < scan_frac
+    g = rng.randint(0, len(allk) - 1, (n_nodes, lanes))
+    wk = (allk[g] + np.maximum((allk[g + 1] - allk[g]) // 2, 1)).astype(
+        np.uint64)
+    return (words(np.where(is_scan, lo, 1), dev),
+            words(np.where(is_scan, hi, 0), dev),
+            words(wk, dev)[..., None],
+            torch.from_numpy(~is_scan)[..., None].to(dev))
+
+
+def gate_ordered(device="cuda"):
+    """The bench gate's ``ordered`` keys (``range_scan.gate_numbers``):
+    ``scan_round_trips``, the exchange rounds of a fused pure scan over a
+    fresh directory (``check_schedule_claims``: 4 nodes x 48 keys, tree seed
+    5, scans seed 9), and ``commit_rate`` of the scan-heavy mix (scan_frac
+    0.9, seed 7) through scan_loop with 2 rounds.  Returns (keys, state of
+    the mix's tree after the loop)."""
+    from repro_torch.core import tx as txm
+    from repro_torch.core import txloop as txl
+
+    n_nodes, lanes = 4, 8
+    cfg, layout, t, state, allk, meta = build_tree(n_nodes, seed=5,
+                                                   device=device)
+    lo, hi, _, _ = scan_workload(allk, n_nodes, lanes, scan_frac=1.0, seed=9,
+                                 device=device)
+    _, res_f = txm.run_scan_transactions(t, state, cfg, layout, scan_lo=lo,
+                                         scan_hi=hi, meta=meta)
+    lo, hi, wk, wen = scan_workload(allk, n_nodes, lanes, scan_frac=0.9,
+                                    seed=7, device=device)
+    state, _, res = txl.scan_loop(
+        t, state, cfg, layout, scan_lo=lo, scan_hi=hi, meta=meta,
+        write_keys=wk, write_values=value_for(wk), write_enabled=wen,
+        max_rounds=2, device=device)
+    return {"scan_round_trips": float(res_f.round_trips),
+            "commit_rate": round(float(res.committed.float().mean()), 4)}, \
+        state
+
+
+def fence_chain_keys(cfg, layout, arena, node):
+    """Check node ``node``'s primary tree (``arena`` its cluster arenas) and
+    return its keys in chain order.  Checked, as ``tests/test_btree.py``'s
+    ``walk_leaves`` walks them from leaf 0: the right-links visit every
+    allocated leaf once, in fence order; the fences tile the node's
+    partition with no gap or overlap; the separator directory holds each
+    leaf's low fence; every leaf is stable (even version) and unlocked; its
+    records are sorted and inside its fences.  Raises AssertionError."""
+    nleaf = int(to_numpy(arena[node, layout["nleaf"].base]))
+    assert 1 <= nleaf <= cfg.n_leaves, f"node {node}: {nleaf} leaves"
+    lv, sb = layout["leaves"].base, layout["sep"].base
+    leaves = to_numpy(arena[node, lv:lv + nleaf * cfg.leaf_words]).astype(
+        np.int64).reshape(nleaf, cfg.leaf_slots, sl.SLOT_WORDS)
+    hdr = leaves[:, 0]
+    flo, fhi = hdr[:, sl.KEY_LO], hdr[:, sl.KEY_HI]
+    sep = to_numpy(arena[node, sb:sb + nleaf]).astype(np.int64)
+    assert (sep == flo).all(), f"node {node}: directory out of sync"
+    order = np.argsort(flo, kind="stable")
+    lo, hi = (int(to_numpy(x)) for x in bt.partition_bounds(cfg, node))
+    assert order[0] == 0 and flo[0] == lo, f"node {node}: chain start"
+    assert (flo[order[1:]] == fhi[order[:-1]] + 1).all(), \
+        f"node {node}: fence gap or overlap"
+    assert fhi[order[-1]] == hi, f"node {node}: chain must end at {hi}"
+    nxt = hdr[:, sl.NEXT_PTR]
+    assert (nxt[order[:-1]] == order[1:]).all() and \
+        nxt[order[-1]] == sl.MASK32, f"node {node}: right-links broken"
+    assert (hdr[:, sl.VERSION] % 2 == 0).all() and \
+        (hdr[:, sl.LOCK] == 0).all(), f"node {node}: unstable or locked leaf"
+    count = hdr[:, sl.VALUE0]
+    assert (count <= cfg.leaf_width).all()
+    live = np.arange(cfg.leaf_width)[None] < count[:, None]
+    keys = leaves[:, 1:, sl.KEY_LO]
+    inside = (keys >= flo[:, None]) & (keys <= fhi[:, None])
+    assert (inside | ~live).all(), f"node {node}: record outside its fences"
+    ordered = keys[order][live[order]]
+    assert (np.diff(ordered) > 0).all(), f"node {node}: records out of order"
+    return ordered.tolist()

@@ -82,10 +82,12 @@ def test_gate_workload_matches_reference_and_baseline(bench_common):
     # the same keys through the port's gate entry point, against the file
     baseline = json.loads((ROOT / "benchmarks" / "BENCH_BASELINE.json")
                           .read_text())
-    _, _, keys = pwl.gate_tx_smoke(device=CPU)
+    _, _, keys, _ = pwl.gate_tx_smoke(device=CPU)
+    rep = keys.pop("replication")
     assert keys == {k: baseline[k] for k in keys}
     assert keys == {"round_trips": 4.0, "rt_round": 4.0, "commit_rate": 1.0,
                     "wire_bytes_tx": 786.62}
+    assert rep == {k: baseline["replication"][k] for k in rep}
 
 
 def jax_perms(key, max_rounds, N, B):
