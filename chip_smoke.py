@@ -28,8 +28,11 @@ Phases (any failure exits non-zero):
      ordered workload (4 nodes x 48 keys, scans and upserts through
      ``scan_loop``), on the card and on the CPU: identical arenas and the
      gate keys of ``benchmarks/BENCH_BASELINE.json`` (top level,
-     ``replication``, ``ordered``); a small TATP mix with retry rounds, card
-     against CPU;
+     ``replication``, ``ordered``, ``membership`` from
+     ``workloads.gate_membership``); a small TATP mix with retry rounds and
+     a small B-tree membership run (``scan_loop`` through a placement
+     table, kill -> rereplicate and a migration over keys above 2**31, a
+     stale-table batch), card against CPU;
   4. zamba2-1.2b at full width cut to 7 layers, prefill and 4 decode steps
      on the card and on the CPU (the kernels' plain versions) in float32
      weights: logits and greedy tokens must agree, within a tolerance set
@@ -53,7 +56,20 @@ Phases (any failure exits non-zero):
      through ``replication.failover_lookup`` with every even and then every
      odd node dead, from its backup, the two slot images equal but for
      next_ptr; one protocol round under torch.profiler;
-  7. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
+  7. membership on the TATP arenas (``membership_path``): the replicated
+     batch again, routed through the epoch-0 placement table, must equal
+     the replicated run (arenas, commits, wire, no refresh, the same
+     ``hash_probe`` launches); kill node 1 -> ``repair_plan`` ->
+     ``rereplicate`` (timed: the recovery a user of the store waits for),
+     every record of partition 0 streamed to its new backup and every
+     committed write of partitions 0 and 1 read back through
+     ``failover_lookup`` from the new owner and, the owner dead, the new
+     backup; on a clone of the stable run's arenas ``migrate_partition``
+     (0 -> node 3, timed), then the TATP batch from the stale table: round
+     0 aborts stale_route on exactly the lanes writing partition 0, one
+     refresh of ``routing_words`` per client, commits at the new owner,
+     read back from it and from the old owner, now its backup;
+  8. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
      keys (1,048,576; both B-link trees of every node on the card), a
      pure-scan batch against a numpy sorted-array reference, then
      ``scan_loop`` over the scan-heavy mix at f=0 and f=1 from clones of the
@@ -61,7 +77,7 @@ Phases (any failure exits non-zero):
      truncated lane, every committed upsert read back from the primary tree
      and from the backup tree once its primary is dead, every partition's
      fence chain sorted and linked; one round under torch.profiler;
-  8. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+  9. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
@@ -74,6 +90,7 @@ with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import pathlib
@@ -440,6 +457,23 @@ def parity_checks(dev, baseline):
     check(torch.equal(ost_c["arena"].cpu(), ost_h["arena"]),
           "ordered gate: CUDA arenas differ from the CPU run")
     keys_c["ordered"], keys_h["ordered"] = ord_c, ord_h
+    keys_c["membership"] = wl.gate_membership(device=dev)
+    keys_h["membership"] = wl.gate_membership(device="cpu")
+    mem = [btree_membership(d) for d in (dev, "cpu")]
+    for name, x, y in zip(("rereplicated arenas", "migrated arenas",
+                           "rereplication wire", "migration wire",
+                           "stale scan_loop"), *mem):
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(_tensors(x),
+                                                          _tensors(y))),
+              f"B-tree membership: the card's {name} differ from the CPU's")
+    stale = mem[1][4].round_abort_stale.tolist()
+    check(stale[0] > 0 and sum(stale[1:]) == 0
+          and bool(mem[1][4].committed.all()),
+          f"B-tree membership: stale aborts by round {stale}")
+    print(f"B-tree membership (4 nodes, keys above 2**31): rereplication "
+          f"{float(mem[0][2].total_bytes)} B, migration "
+          f"{float(mem[0][3].total_bytes)} B, stale aborts by round {stale}, "
+          f"card == CPU", flush=True)
     print(f"gate keys (cuda): {json.dumps(keys_c)}", flush=True)
     for k, v in keys_c.items():
         want = baseline[k]
@@ -474,6 +508,52 @@ def parity_checks(dev, baseline):
     print(f"small TATP: commit rate "
           f"{float(outs[0][1].committed.float().mean())}, retries "
           f"{int(outs[0][1].round_retries.sum())}, card == CPU", flush=True)
+
+
+def btree_membership(dev):
+    """The CPU tests' B-tree membership scenario on ``dev``: 4 nodes x 32
+    leaves, 24 write-only upserts over the whole unsigned key range through
+    scan_loop at f=1 routed by the epoch-0 table; kill node 3 -> repair_plan
+    -> rereplicate (partitions 2 and 3, keys above 2**31); on a clone of the
+    populated tree, migrate partition 2 to node 1, then the same upserts
+    again from the stale table.  Returns (rereplicated arenas, migrated
+    arenas, rereplication wire, migration wire, the stale run's
+    ScanLoopResult), every figure a tensor."""
+    import numpy as np
+    import torch
+    from repro_torch.convert import words
+    from repro_torch.core import placement as pl
+    from repro_torch.core import replication as repl
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.datastructs import btree as bt
+    from repro_torch.core.transport import SimTransport
+    from repro_torch.testing import workloads as wl
+
+    n = 4
+    cfg = bt.BTreeConfig(n_nodes=n, n_leaves=32, leaf_width=4)
+    layout, t = bt.build_layout(cfg), SimTransport(n)
+    rng = np.random.RandomState(29)
+    wk = words(rng.randint(0, 2**32, (n, 6, 1), dtype=np.uint32), dev)
+    pcfg, rep = pl.PlacementConfig(n, f=1), repl.ReplicaConfig(n, 1)
+    table = pl.initial_table(pcfg, device=dev)
+    kw = dict(scan_lo=wk[..., 0], scan_hi=wk[..., 0],
+              scan_enabled=torch.zeros((n, 6), dtype=torch.bool),
+              write_keys=wk, max_rounds=10, rep=rep, ptable=table, pcfg=pcfg,
+              device=dev)
+    state, _, res = txl.scan_loop(t, bt.init_cluster_state(cfg, device=dev),
+                                  cfg, layout, write_values=wl.value_for(wk),
+                                  **kw)
+    check(bool(res.committed.all()), "B-tree membership: population")
+    mig = {"arena": state["arena"].clone()}
+    table_r, transfers = pl.repair_plan(pcfg, pl.kill_node(pcfg, table, 3))
+    pl.install_local(state, layout, pcfg, table_r, nodes=[0, 1, 2])
+    state, s_rr = pl.rereplicate(t, state, cfg, layout, pcfg, transfers)
+    _, mig, s_mig, ok = pl.migrate_partition(t, mig, cfg, layout, pcfg,
+                                             table, 2, 1)
+    check(ok, "B-tree membership: the migration aborted")
+    mig, _, stale = txl.scan_loop(t, mig, cfg, layout,
+                                  write_values=wl.value_for(wk + 1), **kw)
+    return state["arena"], mig["arena"], s_rr, s_mig, stale
 
 
 def tatp_main_path(dev, rows):
@@ -608,7 +688,9 @@ def replicated_tatp(dev, tatp):
     ring at f=1 the backups of even primaries sit on odd nodes and vice
     versa): each read finds the record with the committed value words and
     the primary's version, and the primary's and backup's slot images are
-    equal but for next_ptr."""
+    equal but for next_ptr.  Returns the run's figures, its final arenas
+    (before the profiled round) and its TxLoopResult; ``tatp["populated"]``
+    stays as populated."""
     import torch
     from repro_torch.core import replication as repl
     from repro_torch.core import slots as sl
@@ -621,7 +703,7 @@ def replicated_tatp(dev, tatp):
     f0 = tatp["stats"]
     n_nodes, lanes = TATP_NODES, TATP_LANES
     rep = repl.ReplicaConfig(n_nodes, REP_F)
-    state = {"arena": tatp["populated"]}
+    state = {"arena": tatp["populated"].clone()}
 
     torch.cuda.reset_peak_memory_stats()
     hp.launches = 0
@@ -636,6 +718,7 @@ def replicated_tatp(dev, tatp):
     wall = time.perf_counter() - t0
     launches = hp.launches
     check(launches > 0, "the replicated path launched no hash_probe kernel")
+    final = state["arena"].clone()
 
     n_tx = n_nodes * lanes
     committed = int(res.committed.sum())
@@ -722,7 +805,247 @@ def replicated_tatp(dev, tatp):
         t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
         read_enabled=ren, write_enabled=wen, max_rounds=1, rep=rep,
         device=dev), label="replicated tatp")
-    return stats
+    return dict(stats=stats, final=final, res=res)
+
+
+@contextlib.contextmanager
+def counted_refreshes():
+    """The WireStats of every placement-table refresh issued inside the
+    block (txloop refreshes through ``placement.refresh_table``)."""
+    from repro_torch.core import placement as pl
+    calls, orig = [], pl.refresh_table
+
+    def counted(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append(out[1])
+        return out
+    pl.refresh_table = counted
+    try:
+        yield calls
+    finally:
+        pl.refresh_table = orig
+
+
+def node_records(cfg, layout, arena, node, part=None):
+    """Node ``node``'s present slots (of partition ``part``, default all) as
+    (64-bit keys sorted, their slot images)."""
+    import torch
+    from repro_torch.core import slots as sl
+    from repro_torch.core.datastructs import hashtable as ht
+    s0 = layout["slots"].base
+    slots = arena[node, s0:s0 + cfg.n_slots * sl.SLOT_WORDS].view(
+        cfg.n_slots, sl.SLOT_WORDS)
+    keep = slots[:, sl.KEY_LO] != sl.EMPTY_KEY
+    if part is not None:
+        keep &= ht.part_of(cfg, slots[:, sl.KEY_LO], slots[:, sl.KEY_HI]) \
+            == part
+    rows = slots[keep]
+    key = (sl.u32(rows[:, sl.KEY_LO]) << 32) | sl.u32(rows[:, sl.KEY_HI])
+    order = torch.argsort(key)
+    return key[order], rows[order]
+
+
+def held_by(cfg, layout, arena, node, key, rows):
+    """(L,) bool: node ``node`` holds each record (key, slot image) with an
+    equal key, version and value words."""
+    import torch
+    from repro_torch.core import slots as sl
+    k2, r2 = node_records(cfg, layout, arena, node)
+    if k2.numel() == 0:
+        return torch.zeros(key.shape, dtype=torch.bool, device=key.device)
+    pos = torch.searchsorted(k2, key).clamp(max=k2.numel() - 1)
+    cols = [sl.KEY_LO, sl.KEY_HI, sl.VERSION] + list(range(sl.VALUE0,
+                                                          sl.SLOT_WORDS))
+    return (k2[pos] == key) & (r2[pos][:, cols] == rows[:, cols]).all(-1)
+
+
+def read_back(t, cfg, layout, state, table, wk, wv, served, what):
+    """Every write (keys wk (M, 2), values wv (M, V)) reads back through
+    placement.failover_lookup under ``table``, found with its value words
+    and served by node ``served`` (M,); returns hash_probe's launches."""
+    from repro_torch.core import placement as pl
+    from repro_torch.kernels import hash_probe as hp
+    qk, qen = _lanes_of(wk, cfg.n_nodes)
+    qv, _ = _lanes_of(wv, cfg.n_nodes)
+    qs, _ = _lanes_of(served, cfg.n_nodes)
+    before = hp.launches
+    out = pl.failover_lookup(t, state, cfg, layout, table, qk[..., 0],
+                             qk[..., 1], enabled=qen)
+    check(bool((out["found"] | ~qen).all()),
+          f"membership ({what}): a committed write was not found")
+    check(bool(((out["value"] == qv).all(-1) | ~qen).all()),
+          f"membership ({what}): a read returned other value words")
+    check(bool(((out["node"] == qs) | ~qen).all()),
+          f"membership ({what}): a read was served by the wrong copy")
+    return hp.launches - before
+
+
+def membership_path(dev, tatp, rep_run):
+    """Membership at the TATP main path's size: (1) the TATP batch through
+    tx_loop at f=1 routed through the epoch-0 placement table, from the
+    populated arenas, against the replicated phase's run; (2) kill node 1,
+    repair_plan, rereplicate, and read every committed write back from the
+    new owner and the new backup; (3) migrate partition 0 to node 3 on a
+    clone of (1)'s arenas and run the TATP batch from the stale table: one
+    refresh, then commits at the new owner."""
+    import torch
+    from repro_torch.core import placement as pl
+    from repro_torch.core import replication as repl
+    from repro_torch.core import slots as sl
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.datastructs import hashtable as ht
+    from repro_torch.kernels import hash_probe as hp
+
+    cfg, layout, t = tatp["cfg"], tatp["layout"], tatp["t"]
+    rk, wk, ren, wen, wv = tatp["batch"]
+    n_nodes = cfg.n_nodes
+    n_tx = wk.shape[0] * wk.shape[1]
+    rep = repl.ReplicaConfig(n_nodes, REP_F)
+    pcfg = pl.PlacementConfig(n_nodes, f=REP_F)
+    table = pl.initial_table(pcfg, device=dev)
+    kw = dict(read_keys=rk, write_keys=wk, write_values=wv, read_enabled=ren,
+              write_enabled=wen, max_rounds=TATP_MAX_ROUNDS, rep=rep,
+              device=dev)
+    out = {"card": card(), "nodes": n_nodes, "f": REP_F,
+           "slots_per_node": cfg.n_slots}
+
+    # --- (1) epoch-stable: the replicated run again, through the table ----
+    state = {"arena": tatp["populated"].clone()}
+    hp.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_refreshes() as refreshes:
+        state, _, res = txl.tx_loop(t, state, cfg, layout, ptable=table,
+                                    pcfg=pcfg, **kw)
+    torch.cuda.synchronize()
+    out["stable_tx_loop_s"] = time.perf_counter() - t0
+    out["stable_hash_probe_launches"] = hp.launches
+    r0, w0, w1 = rep_run["res"], rep_run["res"].metrics.wire, res.metrics.wire
+    check(torch.equal(state["arena"], rep_run["final"]),
+          "membership: the epoch-stable run's arenas differ from the "
+          "replicated run's")
+    check(torch.equal(res.committed, r0.committed),
+          "membership: the epoch-stable run committed other lanes")
+    check(all(float(getattr(w1, f)) == float(getattr(w0, f)) for f in (
+        "round_trips", "messages", "ops", "req_bytes", "reply_bytes"))
+          and float(res.round_trips) == float(r0.round_trips),
+          "membership: the epoch-stable run's wire differs")
+    check(not refreshes and int(res.round_abort_stale.sum()) == 0,
+          "membership: the epoch-stable run refreshed or aborted stale")
+    check(hp.launches == rep_run["stats"]["hash_probe_launches"] > 0,
+          f"membership: {hp.launches} hash_probe launches in the stable run")
+    out.update(stable_round_trips=float(res.round_trips),
+               stable_bytes_per_tx=float(w1.total_bytes) / n_tx,
+               stable_commit_rate=float(res.committed.float().mean()))
+    item = (wen & res.committed[..., None]).reshape(-1)
+    cwk, cwv = wk.reshape(-1, 2)[item], wv.reshape(-1, sl.VALUE_WORDS)[item]
+    cpart = ht.part_of(cfg, cwk[:, 0], cwk[:, 1])
+    mig = {"arena": state["arena"].clone()}        # step (3) starts here
+
+    # --- (2) kill node 1 -> repair_plan -> rereplicate ---------------------
+    dead = 1
+    table_r, transfers = pl.repair_plan(pcfg, pl.kill_node(pcfg, table, dead))
+    check(transfers == [(0, 0, 2), (1, 2, 3)],
+          f"membership: repair transfers {transfers}")
+    k0, rows0 = node_records(cfg, layout, state["arena"], 0, part=0)
+    k1, _ = node_records(cfg, layout, state["arena"], dead, part=dead)
+    k2, _ = node_records(cfg, layout, state["arena"], 2, part=dead)
+    lost = int((~torch.isin(k1, k2)).sum())
+    state["arena"][dead] = 0xDEAD
+    pl.install_local(state, layout, pcfg, table_r,
+                     nodes=[n for n in range(n_nodes) if n != dead])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, s_rr = pl.rereplicate(t, state, cfg, layout, pcfg, transfers)
+    torch.cuda.synchronize()
+    out.update(
+        rereplicate_s=time.perf_counter() - t0, transfers=transfers,
+        records_streamed=int(s_rr.ops) - len(transfers) * cfg.n_slots,
+        rereplication_bytes=float(s_rr.total_bytes),
+        lost_at_f0=lost)
+    check(bool(held_by(cfg, layout, state["arena"], 2, k0, rows0).all()),
+          "membership: a record of partition 0 did not reach node 2")
+    cps = table_r.copies.cpu().tolist()
+    launches = 0
+    for p in (0, 1):
+        m = cpart == p
+        own, bk = cps[p][0], cps[p][1]
+        launches += read_back(t, cfg, layout, state, table_r, cwk[m], cwv[m],
+                              torch.full_like(cpart[m], own), f"part {p}")
+        launches += read_back(t, cfg, layout, state,
+                              pl.kill_node(pcfg, table_r, own), cwk[m],
+                              cwv[m], torch.full_like(cpart[m], bk),
+                              f"part {p}, owner dead")
+    check(launches > 0, "membership: the fail-over reads launched no "
+          "hash_probe kernel")
+    out.update(readback_writes=int((cpart < 2).sum()),
+               readback_hash_probe_launches=launches)
+    del state
+
+    # --- (3) migrate partition 0 -> node 3, then the stale-table batch ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table_m, mig, s_mig, ok = pl.migrate_partition(t, mig, cfg, layout, pcfg,
+                                                   table, 0, 3)
+    torch.cuda.synchronize()
+    out.update(migrate_s=time.perf_counter() - t0,
+               migration_bytes=float(s_mig.total_bytes))
+    check(ok, "membership: the uncontended migration aborted")
+    k0, rows0 = node_records(cfg, layout, mig["arena"], 0, part=0)
+    k3, rows3 = node_records(cfg, layout, mig["arena"], 3, part=0)
+    check(torch.equal(k0, k3) and bool(held_by(cfg, layout, mig["arena"], 3,
+                                               k0, rows0).all()),
+          "membership: partition 0 on node 3 differs from node 0's")
+    s0 = layout["slots"].base
+    locks = mig["arena"][0, s0:s0 + cfg.n_slots * sl.SLOT_WORDS].view(
+        cfg.n_slots, sl.SLOT_WORDS)[:, sl.LOCK]
+    check(int((locks != 0).sum()) == 0, "membership: a lock left on node 0")
+    rb = layout["routing"].base
+    for n in range(n_nodes):
+        got = pl.decode_region(pcfg, mig["arena"][n, rb:rb + pl.routing_words(
+            n_nodes)])
+        check(int(got.epoch) == int(table_m.epoch)
+              and torch.equal(got.copies, table_m.copies)
+              and torch.equal(got.alive, table_m.alive),
+              f"membership: node {n}'s routing region is not the new table")
+    hits0 = wen[..., 0] & (ht.part_of(cfg, wk[..., 0, 0], wk[..., 0, 1]) == 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_refreshes() as refreshes:
+        mig, _, res = txl.tx_loop(t, mig, cfg, layout, ptable=table,
+                                  pcfg=pcfg, **kw)
+    torch.cuda.synchronize()
+    stale = res.round_abort_stale.cpu().tolist()
+    out.update(stale_tx_loop_s=time.perf_counter() - t0,
+               stale_aborts_by_round=stale,
+               stale_round_trips=float(res.round_trips),
+               stale_commit_rate=float(res.committed.float().mean()),
+               refresh_reads=[int(s.ops) for s in refreshes])
+    check(stale[0] == int(hits0.sum()) > 0 and sum(stale[1:]) == 0,
+          f"membership: stale aborts by round {stale}, "
+          f"{int(hits0.sum())} lanes write partition 0")
+    check(bool(res.committed[hits0].all())
+          and bool((res.commit_round[hits0] > 0).all()),
+          "membership: a stale-routed lane did not commit after the refresh")
+    words = pl.routing_words(n_nodes)
+    check(len(refreshes) == 1 and int(refreshes[0].ops) == n_nodes
+          and float(refreshes[0].reply_bytes) == 4.0 * (
+              n_nodes * words + float(refreshes[0].messages) / 2),
+          f"membership: refreshes {[(float(s.ops), float(s.reply_bytes)) for s in refreshes]}")
+    out["refresh_words_per_client"] = words
+    item = (wen & res.committed[..., None]).reshape(-1)
+    mwk, mwv = wk.reshape(-1, 2)[item], wv.reshape(-1, sl.VALUE_WORDS)[item]
+    m = ht.part_of(cfg, mwk[:, 0], mwk[:, 1]) == 0
+    check(bool(m.any()), "membership: no write to partition 0 committed")
+    read_back(t, cfg, layout, mig, table_m, mwk[m], mwv[m],
+              torch.full((int(m.sum()),), 3, dtype=torch.int32, device=dev),
+              "migrated partition")
+    read_back(t, cfg, layout, mig, pl.kill_node(pcfg, table_m, 3), mwk[m],
+              mwv[m], torch.zeros((int(m.sum()),), dtype=torch.int32,
+                                  device=dev), "migrated partition's backup")
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("membership: " + json.dumps(out), flush=True)
+    return out
 
 
 def ordered_path(dev):
@@ -1394,6 +1717,18 @@ def serving_main_path(dev, rows):
     return stats
 
 
+def _tensors(x):
+    """Every tensor of a tensor, a dict or a dataclass of them, in order."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    else:
+        yield x
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1544,8 +1879,12 @@ def main():
     tatp = tatp_main_path(dev, rows)
 
     phase("replicated TATP: f=1 on the node ring")
-    replicated_tatp(dev, tatp)
-    del tatp
+    rep_run = replicated_tatp(dev, tatp)
+
+    phase("membership: epoch-stamped placement, kill -> rereplicate, "
+          "migration")
+    membership_path(dev, tatp, rep_run)
+    del tatp, rep_run
 
     phase("ordered path: the B-link tree with range-scan transactions")
     ordered_path(dev)

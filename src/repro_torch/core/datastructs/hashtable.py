@@ -322,14 +322,17 @@ def _first_slot(cfg, key_lo, key_hi):
 
 
 def find(cfg: HashTableConfig, layout: rg.RegionTable, arena, rows, key_lo,
-         key_hi, first=None, track_free: bool = True):
+         key_hi, first=None, track_free: bool = True, live=None):
     """Bounded bucket + chain walk for lanes (keys (L,); rows (L,) node rows
     or None for lane n -> node n).  Returns found, slot_idx, slot, tail_idx
     (last probed chain slot) and, with ``track_free``, free_idx / has_free
     (first empty slot on the probe path, bucket OR chain) and free_next /
     free_ver (that slot's next_ptr and version, which a reuse must
     preserve).  Slot indices are int32 words.  ``first``: the keys' first
-    bucket slots when already known."""
+    bucket slots when already known.  ``live``: optional (L,) bool — lanes
+    whose result the caller uses; the others do not walk, so a lane the
+    caller ignores (a serial step's node without a record, whose arena may
+    hold anything) cannot keep the walk going."""
     L = key_lo.shape[0]
     dev = arena.device
     if first is None:
@@ -338,7 +341,7 @@ def find(cfg: HashTableConfig, layout: rg.RegionTable, arena, rows, key_lo,
     zero = torch.zeros((L,), dtype=torch.int32, device=dev)
     cur, found, fidx, tail = first, false, zero, first
     free_idx, free_next, free_ver = zero, torch.full_like(zero, sl.NULL_PTR), zero
-    has_free, alive = false, ~false
+    has_free, alive = false, (~false if live is None else live)
     for step in range(cfg.max_probe):
         head = _read_slot(layout, arena, rows, cur, sl.VALUE0)
         is_match = ((head[:, sl.KEY_LO] == key_lo)
@@ -423,7 +426,7 @@ def make_rpc_handler(cfg: HashTableConfig, layout: rg.RegionTable) -> R.Handler:
         if has(W.OP_LOOKUP, W.OP_INSERT, W.OP_UPDATE, W.OP_DELETE, W.OP_LOCK,
                W.OP_BACKUP_WRITE):
             f = find(cfg, layout, arena, None, key_lo, key_hi,
-                     first=pre["first"], track_free=inserts)
+                     first=pre["first"], track_free=inserts, live=valid)
             slot = f["slot"]
             ver = slot[:, sl.VERSION]
             locked_other = slot[:, sl.LOCK] != 0

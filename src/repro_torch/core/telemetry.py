@@ -1,14 +1,17 @@
 """Telemetry vocabulary, PyTorch port of the part of ``repro/core/telemetry.py``
-this slice needs: the phase tags of the exchange rounds and the percentile
-summary.  The flight recorder itself (trace buffer, recorder, Perfetto
-export) belongs to a later slice; until then the port's protocol runs with
-no recorder, which the reference defines as bit-identical to a recorded run.
+the port uses so far: the phase tags of the exchange rounds, the percentile
+summary and ``MetricsRegistry`` (named counters).  The flight recorder
+itself (trace buffer, recorder, Perfetto export) belongs to a later slice;
+until then the port's protocol runs with no recorder, which the reference
+defines as bit-identical to a recorded run.
 
 Phase tags name the protocol work an exchange round carries: READ / VALIDATE
 / REFRESH rounds are one-sided, FALLBACK / LOCK / COMMIT rounds run RPC
 handlers, SUMMARY rows carry a protocol round's abort vector.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -40,3 +43,33 @@ def summarize(latencies) -> dict:
                 p90=float(np.percentile(a, 90)),
                 p99=float(np.percentile(a, 99)),
                 mean=float(a.mean()))
+
+
+class MetricsRegistry:
+    """Named host-side counters the benchmarks publish (``metrics.json``):
+    plain floats, incremented from a protocol run's results.  ``observe``
+    stores a whole latency distribution under dotted percentile keys."""
+
+    def __init__(self):
+        self._vals: dict = {}
+
+    def incr(self, name: str, value=1.0):
+        self._vals[name] = float(self._vals.get(name, 0.0)) + float(value)
+
+    def set(self, name: str, value):
+        self._vals[name] = float(value)
+
+    def observe(self, name: str, latencies):
+        for k, v in summarize(latencies).items():
+            self._vals[f"{name}.{k}"] = v
+
+    def get(self, name: str, default=0.0) -> float:
+        return float(self._vals.get(name, default))
+
+    def as_dict(self) -> dict:
+        return dict(sorted(self._vals.items()))
+
+    def write(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.as_dict(), f, indent=2, sort_keys=True)
+            f.write("\n")

@@ -124,6 +124,22 @@ def placement_dest(copies, alive, part):
     return torch.where(reachable, dest, -1).to(torch.int32), reachable
 
 
+def route_by_placement(table, part, payload, n_dst: int, capacity: int,
+                       enabled=None):
+    """route_by_dest with the destination resolved THROUGH a placement table
+    (anything with ``.copies`` (n_parts, K) int32 and ``.alive`` (n_nodes,)
+    bool): each lane goes to its partition's first live copy, and lanes
+    whose partition has no live copy route to -1 and are parked.
+
+    Returns (dest, reachable, buf, mask, pos, overflow): the leading pair
+    lets callers pick replies by dest and report ``enabled & ~reachable``
+    as dead routes."""
+    dest, reachable = placement_dest(table.copies, table.alive, part)
+    buf, mask, pos, overflow = route_by_dest(dest, payload, n_dst, capacity,
+                                             enabled)
+    return dest, reachable, buf, mask, pos, overflow
+
+
 def pick_replies(replies, dest, pos, overflow):
     """replies: (..., n_dst, C, W) dest-major reply buffer (post-exchange);
     returns per-lane replies (..., B, W).  Lanes without a live cell

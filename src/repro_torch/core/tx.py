@@ -3,7 +3,8 @@ dataplane's two primitives.  PyTorch port of ``repro/core/tx.py``: point
 transactions over the hash table (``run_transactions``) and range-scan
 transactions over the B-link tree (``run_scan_transactions``), each on the
 fused schedule and the 5-round reference, with primary-backup replication
-(``rep=``); routing through a placement table belongs to a later slice.
+(``rep=``) and routing through an epoch-stamped placement table
+(``ptable=``).
 
 Per transaction lane:
   EXECUTE   read-set via one-two-sided hybrid lookups, write-set
@@ -32,6 +33,13 @@ With a ``rep=replication.ReplicaConfig(f > 0)``, COMMIT installs the write
 set on all f+1 copies: the backup writes ride the commit fused round as
 extra traffic classes (zero additional exchange rounds).  ``rep=None`` and
 ``rep.f == 0`` are bit-identical.
+
+With a ``ptable=placement.PlacementTable`` every route goes through the
+table: reads to the partition's first live copy, lock-class ops to its
+owner only, backup writes to its copy row.  A stale table surfaces as
+``aborted_stale`` (the owner answered ST_WRONG_EPOCH) for ``txloop`` to
+refresh and retry.  The identity table with every node up is bit-identical
+to ``ptable=None``.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import torch
 
 from repro_torch.core import hybrid as hy
 from repro_torch.core import onesided as osd
+from repro_torch.core import placement as pl
 from repro_torch.core import regions as rg
 from repro_torch.core import replication as repl
 from repro_torch.core import roundsched as rs
@@ -71,15 +80,24 @@ class TxResult:
 # Shared request construction / reply parsing
 # ---------------------------------------------------------------------------
 def _lock_requests(t: Transport, cfg: ht.HashTableConfig, layout, *,
-                   write_keys, write_enabled):
-    """Flatten the write set and build the OP_LOCK records (+ unique tags)."""
+                   write_keys, write_enabled, ptable=None):
+    """Flatten the write set and build the OP_LOCK records (+ unique tags).
+
+    With a ``ptable``, lock-class ops route to the partition OWNER, never a
+    backup: a dead owner parks the lane (dest -1 -> ST_DROPPED -> abort
+    overflow) until repair promotes a backup.  The lane stays ENABLED —
+    masking it would make the all-locks-held conjunction vacuously true and
+    commit an unlocked write set."""
     N, B, Wr = write_keys.shape[:3]
     wk_lo = write_keys[..., 0].reshape(N, B * Wr)
     wk_hi = write_keys[..., 1].reshape(N, B * Wr)
     en = write_enabled.reshape(N, B * Wr)
     dev = wk_lo.device
     part = ht.part_of(cfg, wk_lo, wk_hi)
-    wnode, _, _ = ht.lookup_start(cfg, layout, wk_lo, wk_hi, None)
+    if ptable is None:
+        wnode, _, _ = ht.lookup_start(cfg, layout, wk_lo, wk_hi, None)
+    else:
+        wnode = pl.owner_dest(ptable, part)
     # unique nonzero lock tag per (node, lane)
     lane = torch.arange(B * Wr, dtype=torch.int64, device=dev) // max(Wr, 1)
     tag = sl.i32(t.node_ids(dev).to(torch.int64)[:, None] * B
@@ -100,6 +118,8 @@ def _parse_lock_replies(lk, lrep, lovf, N, B, Wr):
         lock_ver=lrep[..., 2],
         locked_values=lrep[..., 3:].reshape(N, B, Wr, sl.VALUE_WORDS),
         lock_fail=(status == W.ST_LOCK_FAIL) & en,
+        # the routing table this lane used is stale: the addressed node no
+        # longer owns the key's partition (abort cause stale_route)
         stale=(status == W.ST_WRONG_EPOCH) & en,
         # overflow-class outcomes: dropped by back-pressure (retryable) or
         # table full (ST_NO_SPACE, delivered) — both abort with cause overflow
@@ -128,7 +148,7 @@ def _lanes(x, N, B, K):
 def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                      read_keys, read_enabled, cache=None,
                      use_onesided: bool = True, capacity: Optional[int] = None,
-                     nic=None):
+                     nic=None, ptable=None):
     """EXECUTE phase, read half: one-two-sided lookups of the read set.
     read_keys: (N, B, Rd, 2); read_enabled: (N, B, Rd) bool."""
     N, B, Rd = read_keys.shape[:3]
@@ -138,7 +158,7 @@ def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     state, cache, found, rvals, rvers, rnode, rslot, rovf, m = hy.hybrid_lookup(
         t, state, rk_lo, rk_hi, cfg, layout, cache=cache,
         use_onesided=use_onesided, rpc_serial=False, capacity=capacity,
-        enabled=en, nic=nic)
+        enabled=en, nic=nic, ptable=ptable)
     return state, cache, dict(
         key_lo=rk_lo, key_hi=rk_hi, enabled=en, found=found, values=rvals,
         versions=rvers, node=rnode, slot=rslot, overflow=rovf, metrics=m)
@@ -146,11 +166,11 @@ def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
 
 def lock_write_set(t: Transport, state, cfg: ht.HashTableConfig, layout,
                    serial_h, *, write_keys, write_enabled,
-                   capacity: Optional[int] = None, nic=None):
+                   capacity: Optional[int] = None, nic=None, ptable=None):
     """EXECUTE phase, write half: LOCK + read-for-update the write set."""
     N, B, Wr = write_keys.shape[:3]
     lk, lock_recs = _lock_requests(t, cfg, layout, write_keys=write_keys,
-                                   write_enabled=write_enabled)
+                                   write_enabled=write_enabled, ptable=ptable)
     state, lrep, lovf, s_lock = R.rpc_call(
         t, state, lk["node"], lock_recs, serial_h, capacity=capacity,
         enabled=lk["enabled"], nic=nic)
@@ -178,14 +198,25 @@ def validate_read_set(t: Transport, state, layout, read_ctx, *,
     return vctx
 
 
-def _backup_dest(lock_ctx, rep, i):
-    """Destination of backup copy ``i`` of each write item: the ring
-    rotation off the LOCK destination."""
-    return rep.replica_of(lock_ctx["node"], i)
+def _backup_dest(lock_ctx, rep, i, ptable=None):
+    """Destination of backup copy ``i`` of each write item.
+
+    Without a placement table: the ring rotation off the LOCK destination.
+    With one: column ``i`` of the table's row for the item's PARTITION,
+    which keeps the fan-out right after a migration or repair re-homed the
+    partition.  A dead or absent copy routes to -1: the record is parked,
+    the lane aborts (cause overflow) and retries — never a silent
+    under-replication."""
+    if ptable is None:
+        return rep.replica_of(lock_ctx["node"], i)
+    cand = pl.copy_nodes(ptable, lock_ctx["part"])[..., i]
+    ok = (cand >= 0) & ptable.alive[
+        cand.clamp(0, ptable.alive.shape[0] - 1).to(torch.int64)]
+    return torch.where(ok, cand, -1).to(torch.int32)
 
 
 def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
-             capacity, nic, rep, backup_fail):
+             capacity, nic, rep, backup_fail, ptable=None):
     """The commit round: the COMMIT/ABORT class, plus one backup class per
     copy at rep.f > 0 (committing lock holders only), in ONE fused round.
     A backup write that is dropped, or answered with a ``backup_fail``
@@ -202,7 +233,7 @@ def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
         bk_en = commit_item & lock_ctx["lock_ok"]
         for i in range(1, rep.f + 1):
             classes.append(rs.rpc_class(
-                _backup_dest(lock_ctx, rep, i), recs, serial_h,
+                _backup_dest(lock_ctx, rep, i, ptable), recs, serial_h,
                 enabled=bk_en, capacity=capacity))
     state, results, s_cm = rs.fused_round(t, state, classes, nic=nic)
     overflow = results[0][1] & lock_ctx["lock_ok"]
@@ -216,7 +247,7 @@ def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
 
 def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
                     write_values, capacity: Optional[int] = None, nic=None,
-                    rep=None):
+                    rep=None, ptable=None):
     """COMMIT / ABORT phase: lanes that hold locks either install their
     values (version += 2, unlock) or roll back.  commit_lane: (N, B) bool.
 
@@ -239,7 +270,7 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
         t, state, serial_h, lock_ctx, cm_recs,
         lambda: repl.backup_write_records(lock_ctx, write_values),
         commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
-        backup_fail=(W.ST_NO_SPACE,))
+        backup_fail=(W.ST_NO_SPACE,), ptable=ptable)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +279,7 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
 def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
                        write_values, rctx, lctx, vctx, read_wire,
                        onesided_success, rpc_fallback, total, capacity,
-                       nic=None, rep=None):
+                       nic=None, rep=None, ptable=None):
     lane_locks_ok = _lanes(lctx["lock_ok"] | ~lctx["enabled"], N, B, Wr).all(-1)
     lane_valid = _lanes(vctx["valid"] | ~rctx["enabled"], N, B, Rd).all(-1)
     # a read dropped by back-pressure is NOT a miss: abort (overflow), retry
@@ -257,7 +288,8 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
     commit_lane = lane_locks_ok & lane_valid & lane_reads_ok    # (N, B)
     state, cctx = commit_or_abort(
         t, state, serial_h, lctx, commit_lane=commit_lane,
-        write_values=write_values, capacity=capacity, nic=nic, rep=rep)
+        write_values=write_values, capacity=capacity, nic=nic, rep=rep,
+        ptable=ptable)
 
     has_writes = write_enabled.any(-1)
     commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)
@@ -302,7 +334,7 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
 def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
                             write_keys, write_values, write_enabled,
                             read_enabled, cache, use_onesided, capacity,
-                            nic=None, rep=None):
+                            nic=None, rep=None, ptable=None):
     N, B, Rd = read_keys.shape[:3]
     Wr = write_keys.shape[2]
     serial_h = ht.make_rpc_handler(cfg, layout)
@@ -313,13 +345,13 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
     # ---- round 1: one-sided read of the read set --------------------------
     probe = hy.onesided_probe(t, state, rk_lo, rk_hi, cfg, layout, cache=cache,
                               use_onesided=use_onesided, capacity=capacity,
-                              enabled=ren, nic=nic)
+                              enabled=ren, nic=nic, ptable=ptable)
 
     # ---- round 2: read-set RPC fallback ∥ LOCK ∥ validate(one-sided hits) -
     # Under an explicit capacity bound the validate phase keeps its own
     # round, so its back-pressure policy stays that of the reference round.
     lk, lock_recs = _lock_requests(t, cfg, layout, write_keys=write_keys,
-                                   write_enabled=write_enabled)
+                                   write_enabled=write_enabled, ptable=ptable)
     classes = [
         rs.rpc_class(probe["node"], ht.make_record(W.OP_LOOKUP, rk_lo, rk_hi),
                      ht.make_lookup_handler_vector(cfg, layout),
@@ -370,7 +402,8 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
         rctx=rctx, lctx=lctx, vctx=vctx, read_wire=probe["wire"],
         onesided_success=hy._count(probe["success"]),
         rpc_fallback=hy._count(probe["need_rpc"]),
-        total=hy._count(ren), capacity=capacity, nic=nic, rep=rep)
+        total=hy._count(ren), capacity=capacity, nic=nic, rep=rep,
+        ptable=ptable)
     return state, cache, res
 
 
@@ -378,7 +411,7 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                      read_keys, write_keys, write_values, write_enabled=None,
                      read_enabled=None, cache=None, use_onesided: bool = True,
                      capacity: Optional[int] = None, fused: bool = True,
-                     nic=None, rep=None):
+                     nic=None, rep=None, ptable=None):
     """Execute a batch of transactions, one per lane (single shot — aborted
     lanes report their cause and stop; see txloop.tx_loop for bounded retry).
 
@@ -393,6 +426,12 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     rep:          optional replication.ReplicaConfig — with f > 0 COMMIT
                   installs the write set on all f+1 copies, the backup
                   writes riding the commit round (zero extra rounds).
+    ptable:       optional placement.PlacementTable — ALL routing (read
+                  probes, lock-class ops, the backup fan-out) goes through
+                  the table: reads to the first LIVE copy, lock-class ops
+                  to the OWNER only; a stale table surfaces as
+                  ``aborted_stale``.  The identity table with every node up
+                  is bit-identical to ptable=None.
 
     Returns (state, cache, TxResult); ``state["arena"]`` is updated in place.
     Read/write sets are assumed disjoint per lane.
@@ -410,16 +449,18 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             t, state, cfg, layout, read_keys=read_keys, write_keys=write_keys,
             write_values=write_values, write_enabled=write_enabled,
             read_enabled=read_enabled, cache=cache, use_onesided=use_onesided,
-            capacity=capacity, nic=nic, rep=rep)
+            capacity=capacity, nic=nic, rep=rep, ptable=ptable)
 
     serial_h = ht.make_rpc_handler(cfg, layout)
     state, cache, rctx = execute_read_set(
         t, state, cfg, layout, read_keys=read_keys, read_enabled=read_enabled,
-        cache=cache, use_onesided=use_onesided, capacity=capacity, nic=nic)
+        cache=cache, use_onesided=use_onesided, capacity=capacity, nic=nic,
+        ptable=ptable)
     m = rctx["metrics"]
     state, lctx = lock_write_set(
         t, state, cfg, layout, serial_h, write_keys=write_keys,
-        write_enabled=write_enabled, capacity=capacity, nic=nic)
+        write_enabled=write_enabled, capacity=capacity, nic=nic,
+        ptable=ptable)
     vctx = validate_read_set(t, state, layout, rctx, capacity=capacity,
                              nic=nic)
     state, res = _decide_and_finish(
@@ -427,7 +468,7 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         write_enabled=write_enabled, write_values=write_values,
         rctx=rctx, lctx=lctx, vctx=vctx, read_wire=m.wire,
         onesided_success=m.onesided_success, rpc_fallback=m.rpc_fallback,
-        total=m.total, capacity=capacity, nic=nic, rep=rep)
+        total=m.total, capacity=capacity, nic=nic, rep=rep, ptable=ptable)
     return state, cache, res
 
 
@@ -476,20 +517,22 @@ class ScanTxResult:
 
 
 def _bt_lock_requests(t: Transport, cfg: bt.BTreeConfig, *, write_keys,
-                      write_enabled):
+                      write_enabled, ptable=None):
     """Flatten the btree write set and build OP_BT_LOCK records (leaf-grain
-    locks; unique nonzero tag per (node, lane))."""
+    locks; unique nonzero tag per (node, lane)).  With a ``ptable``,
+    lock-class ops route to the partition OWNER only (as _lock_requests)."""
     N, B, Wr = write_keys.shape
     wk = write_keys.reshape(N, B * Wr)
     en = write_enabled.reshape(N, B * Wr)
     part = bt.part_of(cfg, wk)
+    wnode = part if ptable is None else pl.owner_dest(ptable, part)
     lane = torch.arange(B * Wr, dtype=torch.int64, device=wk.device) \
         // max(Wr, 1)
     tag = sl.i32(t.node_ids(wk.device).to(torch.int64)[:, None] * B
                  + lane[None, :] + 1)
     zero = torch.zeros_like(wk)
     recs = bt.make_record(W.OP_BT_LOCK, wk, zero, aux=tag)
-    return dict(key_lo=wk, key_hi=zero, enabled=en, node=part, tag=tag,
+    return dict(key_lo=wk, key_hi=zero, enabled=en, node=wnode, tag=tag,
                 part=part), recs
 
 
@@ -501,7 +544,8 @@ def _bt_leaf_offset_of(layout, slot_idx):
 
 def _bt_commit_or_abort(t: Transport, state, serial_h, lock_ctx, *,
                         commit_lane, write_values,
-                        capacity: Optional[int] = None, nic=None, rep=None):
+                        capacity: Optional[int] = None, nic=None, rep=None,
+                        ptable=None):
     """COMMIT/ABORT for btree write sets: key in key_lo, the lock TAG in
     key_hi, the locked leaf's header slot in aux.  With rep.f > 0 the
     OP_BT_BACKUP classes ride this SAME fused round; a backup write that is
@@ -518,7 +562,7 @@ def _bt_commit_or_abort(t: Transport, state, serial_h, lock_ctx, *,
         t, state, serial_h, lock_ctx, cm_recs,
         lambda: repl.btree_backup_records(lock_ctx, write_values),
         commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
-        backup_fail=(W.ST_NO_SPACE, W.ST_LOCK_FAIL))
+        backup_fail=(W.ST_NO_SPACE, W.ST_LOCK_FAIL), ptable=ptable)
 
 
 def _scan_chain(fence_lo, fence_hi, lo, hi, en, resolved):
@@ -546,7 +590,8 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
                           scan_lo, scan_hi, meta, write_keys=None,
                           write_values=None, write_enabled=None,
                           scan_enabled=None, capacity: Optional[int] = None,
-                          fused: bool = True, nic=None, rep=None):
+                          fused: bool = True, nic=None, rep=None,
+                          ptable=None):
     """Execute a batch of range-scan transactions over the ordered index,
     one per lane (single shot; see txloop.scan_loop for bounded retry).
 
@@ -561,7 +606,10 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
 
     Returns (state, ScanTxResult); ``state["arena"]`` is updated in place.
     fused/nic/rep/capacity as in run_transactions — fused changes ROUND
-    COUNTS only, rep=None ≡ f=0."""
+    COUNTS only, rep=None ≡ f=0.  ptable routes the LOCK phase and the
+    commit's backup fan-out through the placement table (the scan reads stay
+    a primary-tree protocol planned from ``meta``); stale routes abort
+    ``aborted_stale`` for scan_loop to refresh."""
     N, B = scan_lo.shape
     S = cfg.max_scan_leaves
     dev = scan_lo.device
@@ -597,7 +645,8 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
     need = en_f & ~pos_ok
     scan_recs = bt.make_record(W.OP_BT_SCAN, pfence, torch.zeros_like(pfence))
     lk, lock_recs = _bt_lock_requests(t, cfg, write_keys=write_keys,
-                                      write_enabled=write_enabled)
+                                      write_enabled=write_enabled,
+                                      ptable=ptable)
 
     fuse_v1 = fused and capacity is None and S > 0
     if fused:
@@ -663,7 +712,8 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
     commit_lane = lane_locks_ok & lane_valid & lane_reads_ok
     state, cctx = _bt_commit_or_abort(
         t, state, serial_h, lctx, commit_lane=commit_lane,
-        write_values=write_values, capacity=capacity, nic=nic, rep=rep)
+        write_values=write_values, capacity=capacity, nic=nic, rep=rep,
+        ptable=ptable)
 
     has_writes = write_enabled.any(-1)
     commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)

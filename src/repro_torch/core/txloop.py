@@ -23,6 +23,13 @@ cached separator directory first (one one-sided read per node, its wire
 cost accounted), so lanes that aborted on a stale plan converge; truncated
 lanes (range needs more than ``max_scan_leaves`` leaves) are parked and
 reported.
+
+Both loops take an optional placement table (``ptable=`` with ``pcfg=``):
+every round routes through it, and a retry round entered with stale-route
+aborts first REFRESHES the table with one one-sided read of the published
+routing region.  A round entered without them issues no refresh, so an
+epoch-stable run has exactly the schedule and wire of a run without a
+table.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.convert import words
 from repro_torch.core import hybrid as hy
+from repro_torch.core import placement as pl
 from repro_torch.core import slots as sl
 from repro_torch.core import tx as txm
 from repro_torch.core.datastructs import btree as bt
@@ -106,6 +114,20 @@ def _round_perms(perms, max_rounds, N, B, dev, seed, who):
             yield torch.rand((N, B), generator=generator).argsort(dim=1).to(dev)
 
 
+def _check_placement(ptable, pcfg, who):
+    if ptable is not None and pcfg is None:
+        raise ValueError(f"{who}: ptable requires pcfg (PlacementConfig)")
+
+
+def _refresh_table(t, state, layout, pcfg, ptable, rnd, stale_in, nic):
+    """A retry round entered with stale-route aborts refreshes the cached
+    table (one one-sided read); any other round keeps it and issues
+    nothing.  Returns (table, WireStats or None)."""
+    if ptable is None or rnd == 0 or not stale_in:
+        return ptable, None
+    return pl.refresh_table(t, state, layout, pcfg, ptable, nic=nic)
+
+
 def _round_stats(rnd, newly, active, res, s_ref=None):
     """One round's counters (each an int32 scalar) and metrics."""
     count = lambda x: x.to(torch.int32).sum()
@@ -154,7 +176,8 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             read_keys, write_keys, write_values, read_enabled=None,
             write_enabled=None, cache=None, use_onesided: bool = True,
             capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
-            fused: bool = True, nic=None, rep=None, device="cuda"):
+            fused: bool = True, nic=None, rep=None, ptable=None, pcfg=None,
+            device="cuda"):
     """Run a batch of transactions to convergence (bounded by max_rounds).
 
     Arguments mirror tx.run_transactions; additionally:
@@ -168,11 +191,16 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                   round installs the write set on all f+1 copies (zero extra
                   exchange rounds); a dropped backup write aborts its lane
                   (cause overflow), which THIS loop retries.
+      ptable/pcfg: optional placement.PlacementTable + PlacementConfig —
+                  every round routes through the table; a retry round
+                  entered with stale-route aborts first refreshes it with
+                  one one-sided read of the published routing region.
       device:     where the protocol runs; ``state["arena"]`` must be there.
 
     Returns (state, cache, TxLoopResult); ``state["arena"]`` is updated in
     place.
     """
+    _check_placement(ptable, pcfg, "tx_loop")
     dev = _on_device(state, device, "tx_loop")
     read_keys = _as_words(read_keys, dev)
     write_keys = _as_words(write_keys, dev)
@@ -191,6 +219,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     rvals = torch.zeros(read_enabled.shape + (sl.VALUE_WORDS,),
                         dtype=torch.int32, device=dev)
     ys = []
+    stale_in = False
     for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
                                             DEFAULT_SEED, "tx_loop")):
         inv = torch.argsort(perm, dim=1)
@@ -198,6 +227,8 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         p = lambda x: _perm_lanes(x, perm)
         u = lambda x: _perm_lanes(x, inv)
         act_p = p(active)
+        ptable, s_ref = _refresh_table(t, state, layout, pcfg, ptable, rnd,
+                                       stale_in, nic)
 
         state, cache, res = txm.run_transactions(
             t, state, cfg, layout,
@@ -206,7 +237,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             read_enabled=p(read_enabled) & act_p[..., None],
             write_enabled=p(write_enabled) & act_p[..., None],
             cache=cache, use_onesided=use_onesided, capacity=capacity,
-            fused=fused, nic=nic, rep=rep)
+            fused=fused, nic=nic, rep=rep, ptable=ptable)
         res = dataclasses.replace(res, **{
             k: u(getattr(res, k)) for k in (
                 "committed", "read_found", "read_values", "aborted_lock",
@@ -217,7 +248,9 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         commit_round = torch.where(newly, rnd, commit_round)
         rfound = torch.where(active[..., None], res.read_found, rfound)
         rvals = torch.where(active[..., None, None], res.read_values, rvals)
-        ys.append(_round_stats(rnd, newly, active, res))
+        if ptable is not None:
+            stale_in = bool((res.aborted_stale & active).any())
+        ys.append(_round_stats(rnd, newly, active, res, s_ref))
 
     cols, metrics, rts = _totals(ys)
     result = TxLoopResult(
@@ -260,7 +293,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
               scan_enabled=None, write_enabled=None,
               capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
               fused: bool = True, nic=None, rep=None, refresh: bool = True,
-              device="cuda"):
+              ptable=None, pcfg=None, device="cuda"):
     """Run a batch of range-scan transactions to convergence.
 
     Arguments mirror tx.run_scan_transactions; additionally:
@@ -272,9 +305,14 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
       perms:      optional (max_rounds, N, B) lane permutations (row 0
                   ignored); without them a CPU torch.Generator seeded with
                   SCAN_SEED draws them.
+      ptable/pcfg: optional placement table + config — lock-class routing
+                  and the backup fan-out go through the table; a retry
+                  round entered with stale-route aborts refreshes it (after
+                  the directory), as tx_loop does.
       device:     where the protocol runs; ``state["arena"]`` must be there.
     Returns (state, meta, ScanLoopResult); ``state["arena"]`` is updated in
     place."""
+    _check_placement(ptable, pcfg, "scan_loop")
     dev = _on_device(state, device, "scan_loop")
     scan_lo = _as_words(scan_lo, dev)
     scan_hi = _as_words(scan_hi, dev)
@@ -305,6 +343,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
                         device=dev)
     smask = torch.zeros((N, B, S, LW), dtype=torch.bool, device=dev)
     ys = []
+    stale_in = False
     for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
                                             SCAN_SEED, "scan_loop")):
         inv = torch.argsort(perm, dim=1)
@@ -319,6 +358,10 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         s_ref = None
         if refresh and rnd > 0:
             meta, s_ref = bt.refresh_meta(t, state, cfg, layout, nic=nic)
+        ptable, s_pl = _refresh_table(t, state, layout, pcfg, ptable, rnd,
+                                      stale_in, nic)
+        if s_pl is not None:
+            s_ref = s_pl if s_ref is None else s_ref + s_pl
 
         state, res = txm.run_scan_transactions(
             t, state, cfg, layout,
@@ -326,7 +369,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
             write_keys=p(write_keys), write_values=p(write_values),
             scan_enabled=p(scan_enabled) & act_p,
             write_enabled=p(write_enabled) & act_p[..., None],
-            capacity=capacity, fused=fused, nic=nic, rep=rep)
+            capacity=capacity, fused=fused, nic=nic, rep=rep, ptable=ptable)
         res = dataclasses.replace(res, **{
             k: u(getattr(res, k)) for k in (
                 "committed", "truncated", "scan_keys", "scan_values",
@@ -341,6 +384,8 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         skeys = torch.where(upd, res.scan_keys, skeys)
         smask = torch.where(upd, res.scan_mask, smask)
         svals = torch.where(upd[..., None], res.scan_values, svals)
+        if ptable is not None:
+            stale_in = bool((res.aborted_stale & active).any())
         ys.append(_round_stats(rnd, newly, active, res, s_ref))
 
     cols, metrics, rts = _totals(ys, init_wire)

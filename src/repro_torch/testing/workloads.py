@@ -1,10 +1,10 @@
 """Workload builders of the port: counterparts of ``benchmarks/common.py``'s
 ``populate`` / ``make_tx_workload``, of the TATP transaction draw in
 ``benchmarks/fig6_tatp.py``, of ``benchmarks/range_scan.py``'s
-``build_tree`` / ``scan_workload``, and of the bench gate's replicated and
-ordered workloads, making the SAME ``np.random.RandomState`` draws in the
-same order, so a workload built here equals the reference's word for word.
-Every builder takes ``device=`` (default ``"cuda"``)."""
+``build_tree`` / ``scan_workload``, and of the bench gate's replicated,
+ordered and membership workloads, making the SAME ``np.random.RandomState``
+draws in the same order, so a workload built here equals the reference's
+word for word.  Every builder takes ``device=`` (default ``"cuda"``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -295,3 +295,195 @@ def fence_chain_keys(cfg, layout, arena, node):
     ordered = keys[order][live[order]]
     assert (np.diff(ordered) > 0).all(), f"node {node}: records out of order"
     return ordered.tolist()
+
+
+# ---------------------------------------------------------------------------
+# Membership churn: benchmarks/membership_churn.py's events and gate keys
+# ---------------------------------------------------------------------------
+CHURN_NODES, CHURN_LANES, CHURN_MAX_ROUNDS = 4, 8, 2
+
+
+def churn_cluster(seed=5, device="cuda"):
+    """``membership_churn._cluster``: the bench gate's cluster and workload
+    (4 nodes, 256 buckets, 64 keys per node, 8 lanes).  Returns (cfg,
+    layout, t, state, read_keys, write_keys, write_values)."""
+    from repro_torch.core.transport import SimTransport
+
+    cfg = ht.HashTableConfig(n_nodes=CHURN_NODES, n_buckets=256,
+                             bucket_width=1, n_overflow=64, max_chain=8)
+    layout = ht.build_layout(cfg)
+    t = SimTransport(CHURN_NODES)
+    state = ht.init_cluster_state(cfg, device=device)
+    state, rk, wk, wv = make_tx_workload(t, cfg, layout, state,
+                                         lanes=CHURN_LANES, n_keys=64,
+                                         seed=seed, device=device)
+    return cfg, layout, t, state, rk, wk, wv
+
+
+def churn_steady_state(device="cuda"):
+    """The gate workload at f=1 with and without the identity placement
+    table: identical rounds, no stale abort, equal commits."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.replication import ReplicaConfig
+
+    cfg, layout, t, state, rk, wk, wv = churn_cluster(device=device)
+    rep = ReplicaConfig(CHURN_NODES, 1)
+    pcfg = pl.PlacementConfig(CHURN_NODES, f=1)
+    kw = dict(read_keys=rk, write_keys=wk, write_values=wv,
+              max_rounds=CHURN_MAX_ROUNDS, rep=rep, device=device)
+    _, _, res0 = txl.tx_loop(t, {"arena": state["arena"].clone()}, cfg,
+                             layout, **kw)
+    _, _, res1 = txl.tx_loop(t, state, cfg, layout,
+                             ptable=pl.initial_table(pcfg, device=device),
+                             pcfg=pcfg, **kw)
+    rt0, rt1 = float(res0.round_trips), float(res1.round_trips)
+    assert rt1 == rt0, \
+        f"identity placement table must add ZERO exchange rounds ({rt0} -> {rt1})"
+    assert int(res1.round_abort_stale.sum()) == 0, \
+        "no stale-route aborts at a stable epoch"
+    assert torch.equal(res0.committed, res1.committed)
+    return dict(
+        round_trips_stable=rt1, round_trips_rep_only=rt0,
+        commit_rate_stable=round(float(res1.committed.float().mean()), 4),
+        wire_bytes_stable=round(float(res1.metrics.wire.total_bytes)
+                                / (CHURN_NODES * CHURN_LANES), 2))
+
+
+def churn_refresh_cost(device="cuda"):
+    """ONE one-sided read per table refresh; a gated-off refresh issues
+    nothing."""
+    from repro_torch.core import placement as pl
+
+    cfg, layout, t, state, *_ = churn_cluster(device=device)
+    pcfg = pl.PlacementConfig(CHURN_NODES, f=1)
+    table = pl.initial_table(pcfg, device=device)
+    _, stats = pl.refresh_table(t, state, layout, pcfg, table)
+    _, s_off = pl.refresh_table(t, state, layout, pcfg, table, enabled=False)
+    assert float(s_off.round_trips) == 0.0 and float(s_off.ops) == 0.0, \
+        "a gated-off refresh must issue nothing"
+    return dict(round_trips=float(stats.round_trips),
+                bytes=float(stats.total_bytes))
+
+
+def churn_populated(seed=5, perms=None, device="cuda"):
+    """``_populated_placement_cluster``: the cluster with its write set
+    committed through the replicated commit path at f=1 with placement
+    routing (write-only lanes, 4 rounds; ``perms`` as tx_loop's).  Returns
+    (cfg, layout, t, state, write_keys, write_values, rep, pcfg, table)."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.replication import ReplicaConfig
+
+    cfg, layout, t, state, rk, wk, wv = churn_cluster(seed=seed,
+                                                      device=device)
+    rep = ReplicaConfig(CHURN_NODES, 1)
+    pcfg = pl.PlacementConfig(CHURN_NODES, f=1)
+    table = pl.initial_table(pcfg, device=device)
+    no_reads = torch.zeros((CHURN_NODES, CHURN_LANES, 0, 2), dtype=torch.int32,
+                           device=wk.device)
+    state, _, res = txl.tx_loop(
+        t, state, cfg, layout, read_keys=no_reads, write_keys=wk,
+        write_values=wv, max_rounds=4, rep=rep, ptable=table, pcfg=pcfg,
+        perms=perms, device=device)
+    assert bool(res.committed.all())
+    return cfg, layout, t, state, wk, wv, rep, pcfg, table
+
+
+def churn_kill_event(device="cuda"):
+    """Fail node 1 at f=1: repair_plan + rereplicate restore the copy count;
+    the re-replication bytes and the transfer count."""
+    from repro_torch.core import placement as pl
+
+    cfg, layout, t, state, wk, wv, rep, pcfg, table = churn_populated(
+        device=device)
+    dead = 1
+    table = pl.kill_node(pcfg, table, dead)
+    table, transfers = pl.repair_plan(pcfg, table)
+    state["arena"][dead] = 0xDEAD
+    state = pl.install_local(state, layout, pcfg, table,
+                             nodes=[n for n in range(CHURN_NODES)
+                                    if n != dead])
+    state, s_rr = pl.rereplicate(t, state, cfg, layout, pcfg, transfers)
+    return dict(rereplication_bytes=round(float(s_rr.total_bytes), 2),
+                transfers=len(transfers))
+
+
+def churn_stale_mix(perms=(None, None), device="cuda"):
+    """Partition 0 migrates to node 3; clients still holding the pre-flip
+    table run a write batch: partition 0's lanes are refused by the old
+    owner in round 0 (stale_route), pay ONE refresh read in round 1 and
+    commit.  ``perms``: tx_loop's permutations for the population and the
+    batch.  Returns (numbers, final state, TxLoopResult)."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core import txloop as txl
+
+    cfg, layout, t, state, wk, wv, rep, pcfg, table = churn_populated(
+        perms=perms[0], device=device)
+    stale_table = table                       # the pre-flip client view
+    table, state, _, ok = pl.migrate_partition(t, state, cfg, layout, pcfg,
+                                               table, 0, 3)
+    assert ok, "uncontended migration must succeed"
+    wk2 = wk ^ sl.word(0x5DEECE66)
+    no_reads = torch.zeros((CHURN_NODES, CHURN_LANES, 0, 2), dtype=torch.int32,
+                           device=wk.device)
+    state, _, res = txl.tx_loop(
+        t, state, cfg, layout, read_keys=no_reads, write_keys=wk2,
+        write_values=wv, max_rounds=3, rep=rep, ptable=stale_table, pcfg=pcfg,
+        perms=perms[1], device=device)
+    stale_r = res.round_abort_stale
+    assert bool(res.committed.all()), \
+        "stale clients must converge after one refresh"
+    assert int(stale_r[0]) > 0, \
+        "the flipped partition's lanes must abort stale_route in round 0"
+    assert int(stale_r[1:].sum()) == 0, \
+        "one refresh resolves every stale route"
+    numbers = dict(
+        abort_stale_round0=int(stale_r[0]),
+        abort_lock=int(res.round_abort_lock.sum()),
+        abort_validate=int(res.round_abort_validate.sum()),
+        abort_overflow=int(res.round_abort_overflow.sum()),
+        stale_rounds_to_converge=int(res.commit_round.max()) + 1,
+        stale_round_trips=float(res.round_trips))
+    return numbers, state, res
+
+
+def churn_fill_registry(reg, device="cuda"):
+    """``membership_churn.fill_registry``: publish the membership bill —
+    refresh reads, re-replication bytes, the stale-retry schedule and the
+    epoch-stable baseline — to a telemetry.MetricsRegistry."""
+    ss = churn_steady_state(device)
+    rf = churn_refresh_cost(device)
+    kl = churn_kill_event(device)
+    sm, _, _ = churn_stale_mix(device=device)
+    reg.set("membership.round_trips_stable", ss["round_trips_stable"])
+    reg.set("membership.commit_rate_stable", ss["commit_rate_stable"])
+    reg.set("membership.wire_bytes_stable", ss["wire_bytes_stable"])
+    reg.incr("membership.refresh_reads_issued", rf["round_trips"])
+    reg.set("membership.refresh_round_trips", rf["round_trips"])
+    reg.set("membership.refresh_bytes", rf["bytes"])
+    reg.set("membership.rereplication_bytes", kl["rereplication_bytes"])
+    reg.incr("membership.rereplication_transfers", kl["transfers"])
+    reg.set("membership.stale_round_trips", sm["stale_round_trips"])
+    reg.incr("membership.stale_aborts_round0", sm["abort_stale_round0"])
+    reg.set("membership.stale_rounds_to_converge",
+            sm["stale_rounds_to_converge"])
+    return reg
+
+
+def gate_membership(registry=None, device="cuda"):
+    """The bench gate's ``membership`` keys (``membership_churn.
+    gate_numbers``), derived from the ``churn_fill_registry`` counters after
+    its structural asserts: round_trips_stable, commit_rate_stable,
+    refresh_round_trips, rereplication_bytes, stale_round_trips."""
+    from repro_torch.core import telemetry as T
+
+    reg = churn_fill_registry(registry if registry is not None
+                              else T.MetricsRegistry(), device)
+    assert reg.get("membership.refresh_round_trips") == 1.0, \
+        "a table refresh is ONE one-sided read"
+    assert reg.get("membership.stale_rounds_to_converge") <= 2.0, \
+        "one refresh must resolve every stale route"
+    return {k: reg.get(f"membership.{k}") for k in (
+        "round_trips_stable", "commit_rate_stable", "refresh_round_trips",
+        "rereplication_bytes", "stale_round_trips")}
