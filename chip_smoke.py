@@ -24,15 +24,16 @@ Phases (any failure exits non-zero):
      one chunk, initial states) within stated tolerances, then both timed
      at the serving shapes beside their plain versions, their bounds and
      achieved TFLOP/s and, for attention, ``scaled_dot_product_attention``;
-  3. the bench gate's tx_loop workload, unreplicated and at f=1, and its
-     ordered workload (4 nodes x 48 keys, scans and upserts through
-     ``scan_loop``), on the card and on the CPU: identical arenas and the
-     gate keys of ``benchmarks/BENCH_BASELINE.json`` (top level,
-     ``replication``, ``ordered``, ``membership`` from
-     ``workloads.gate_membership``); a small TATP mix with retry rounds and
-     a small B-tree membership run (``scan_loop`` through a placement
-     table, kill -> rereplicate and a migration over keys above 2**31, a
-     stale-table batch), card against CPU;
+  3. the bench gate (``repro_torch.testing.gate.collect``) on the card and
+     on the CPU: every key of ``benchmarks/BENCH_BASELINE.json``, the gate
+     workload's arenas unreplicated and at f=1, the ordered workload's (4
+     nodes x 48 keys), the traced TATP smoke's trace rows (equal card to
+     CPU, both exports passing ``check_trace``); the flight recorder's
+     appends and pricing under ``torch.cuda.set_sync_debug_mode("error")``
+     (no host sync); a small TATP mix with retry rounds and a small B-tree
+     membership run (``scan_loop`` through a placement table, kill ->
+     rereplicate and a migration over keys above 2**31, a stale-table
+     batch), card against CPU;
   4. zamba2-1.2b at full width cut to 7 layers, prefill and 4 decode steps
      on the card and on the CPU (the kernels' plain versions) in float32
      weights: logits and greedy tokens must agree, within a tolerance set
@@ -56,7 +57,15 @@ Phases (any failure exits non-zero):
      through ``replication.failover_lookup`` with every even and then every
      odd node dead, from its backup, the two slot images equal but for
      next_ptr; one protocol round under torch.profiler;
-  7. membership on the TATP arenas (``membership_path``): the replicated
+  7. the flight recorder at full width: the TATP batch at f=0 and f=1
+     from clones of the populated arenas, untraced, traced, traced,
+     untraced (wall times in turns): each traced run equal to the untraced
+     one (arenas, commits, commit rounds, WireStats, round trips,
+     ``hash_probe`` launches), its trace dropping nothing, its SUMMARY rows
+     the result's round columns, its per-destination tails reconciling,
+     its export passing ``check_trace``; ``latency_by_path`` and the
+     modeled span printed;
+  8. membership on the TATP arenas (``membership_path``): the replicated
      batch again, routed through the epoch-0 placement table, must equal
      the replicated run (arenas, commits, wire, no refresh, the same
      ``hash_probe`` launches); kill node 1 -> ``repair_plan`` ->
@@ -68,16 +77,21 @@ Phases (any failure exits non-zero):
      (0 -> node 3, timed), then the TATP batch from the stale table: round
      0 aborts stale_route on exactly the lanes writing partition 0, one
      refresh of ``routing_words`` per client, commits at the new owner,
-     read back from it and from the old owner, now its backup;
-  8. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
+     read back from it and from the old owner, now its backup; the stale
+     batch again with the flight recorder, equal to it, its REFRESH row
+     carrying wire in round 1 alone;
+  9. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
      keys (1,048,576; both B-link trees of every node on the card), a
      pure-scan batch against a numpy sorted-array reference, then
      ``scan_loop`` over the scan-heavy mix at f=0 and f=1 from clones of the
      one tree: equal round trips and commits, equal primary trees, no
      truncated lane, every committed upsert read back from the primary tree
      and from the backup tree once its primary is dead, every partition's
-     fence chain sorted and linked; one round under torch.profiler;
-  9. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+     fence chain sorted and linked; the f=0 mix again with the flight
+     recorder, with the directory given (equal to the untraced run) and
+     fetched up front (a REFRESH row of round -1), every round's
+     directory-refresh row checked; one round under torch.profiler;
+ 10. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
@@ -436,29 +450,50 @@ def probe_shapes(dev, arenas, tatp_args, row, n_buckets):
 
 
 def parity_checks(dev, baseline):
-    """Gate workload and a small TATP mix: card against CPU."""
+    """The bench gate (``testing.gate.collect``: every key of the baseline,
+    the traced TATP smoke), the recorder's host discipline, a B-tree
+    membership run and a small TATP mix: card against CPU."""
+    import numpy as np
     import torch
+    from repro_torch.core import telemetry as T
     from repro_torch.core import txloop as txl
     from repro_torch.core.datastructs import hashtable as ht
     from repro_torch.core.transport import SimTransport
+    from repro_torch.testing import check_trace as ct
+    from repro_torch.testing import gate
     from repro_torch.testing import workloads as wl
-    import numpy as np
 
-    st_c, res_c, keys_c, f1_c = wl.gate_tx_smoke(device=dev)
-    st_h, res_h, keys_h, f1_h = wl.gate_tx_smoke(device="cpu")
-    check(torch.equal(st_c["arena"].cpu(), st_h["arena"]),
-          "gate: CUDA arenas differ from the CPU run")
-    check(torch.equal(f1_c["arena"].cpu(), f1_h["arena"]),
-          "gate f=1: CUDA arenas differ from the CPU run")
-    check(torch.equal(res_c.committed.cpu(), res_h.committed),
+    keys_c, runs_c = gate.collect(dev)
+    keys_h, runs_h = gate.collect("cpu")
+    print(f"gate keys (cuda): {json.dumps(keys_c, sort_keys=True)}",
+          flush=True)
+    check(keys_c == baseline and keys_h == baseline,
+          f"gate keys differ from the baseline: cuda {keys_c} cpu {keys_h}")
+    for name, x, y in (
+            ("gate", runs_c["tx"]["f0"][0], runs_h["tx"]["f0"][0]),
+            ("gate f=1", runs_c["tx"]["f1"][0], runs_h["tx"]["f1"][0]),
+            ("ordered gate", runs_c["ordered_state"], runs_h["ordered_state"])):
+        check(torch.equal(x["arena"].cpu(), y["arena"]),
+              f"{name}: CUDA arenas differ from the CPU run")
+    check(torch.equal(runs_c["tx"]["f0"][1].committed.cpu(),
+                      runs_h["tx"]["f0"][1].committed),
           "gate: commit masks differ")
-    ord_c, ost_c = wl.gate_ordered(device=dev)
-    ord_h, ost_h = wl.gate_ordered(device="cpu")
-    check(torch.equal(ost_c["arena"].cpu(), ost_h["arena"]),
-          "ordered gate: CUDA arenas differ from the CPU run")
-    keys_c["ordered"], keys_h["ordered"] = ord_c, ord_h
-    keys_c["membership"] = wl.gate_membership(device=dev)
-    keys_h["membership"] = wl.gate_membership(device="cpu")
+    (_, doc_c, tel_c), (_, doc_h, tel_h) = runs_c["smoke"], runs_h["smoke"]
+    for name, doc in (("cuda", doc_c), ("cpu", doc_h)):
+        fails = ct.check_trace(doc)
+        check(not fails, f"traced smoke ({name}): check_trace {fails}")
+    ev_c, ev_h = T.events(tel_c.trace), T.events(tel_h.trace)
+    check(np.array_equal(ev_c, ev_h),
+          "traced smoke: the card's trace rows differ from the CPU's")
+    lat_c = tel_c.lane_latency_us.cpu().numpy()
+    lat_h = tel_h.lane_latency_us.numpy()
+    ulps = np.abs(lat_c - lat_h) / np.spacing(np.abs(lat_h))
+    check(float(ulps.max()) <= 2,
+          f"traced smoke: lane latencies {float(ulps.max())} ulps apart")
+    print(f"traced smoke: {tel_c.trace.n} rows equal card == CPU, lane "
+          f"latencies within {float(ulps.max())} float32 ulps, both "
+          f"exports pass check_trace", flush=True)
+    recorder_checks(dev)
     mem = [btree_membership(d) for d in (dev, "cpu")]
     for name, x, y in zip(("rereplicated arenas", "migrated arenas",
                            "rereplication wire", "migration wire",
@@ -474,13 +509,6 @@ def parity_checks(dev, baseline):
           f"{float(mem[0][2].total_bytes)} B, migration "
           f"{float(mem[0][3].total_bytes)} B, stale aborts by round {stale}, "
           f"card == CPU", flush=True)
-    print(f"gate keys (cuda): {json.dumps(keys_c)}", flush=True)
-    for k, v in keys_c.items():
-        want = baseline[k]
-        if isinstance(v, dict):      # the replication and ordered keys
-            want = {kk: baseline[k][kk] for kk in v}
-        check(v == want and keys_h[k] == want,
-              f"gate key {k}: cuda {v} cpu {keys_h[k]} baseline {want}")
 
     # the fig6 smoke configuration (4 nodes, 160 subscribers, 16 lanes),
     # with retry rounds drawing the same generator permutations
@@ -508,6 +536,47 @@ def parity_checks(dev, baseline):
     print(f"small TATP: commit rate "
           f"{float(outs[0][1].committed.float().mean())}, retries "
           f"{int(outs[0][1].round_retries.sum())}, card == CPU", flush=True)
+
+
+def recorder_checks(dev):
+    """The flight recorder reads no value of the card on the host: its
+    appends, its latency pricing and a loop's round close run with torch's
+    sync debug mode set to raise on any synchronising call."""
+    import dataclasses
+    import torch
+    from repro_torch.core import telemetry as T
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.transport import WireStats
+
+    n = TATP_NODES
+    rec = T.Recorder(T.TelemetryConfig(), T.make_buffer(n, 8, device=dev))
+    # round trips 1, messages 2, ops 3, bytes 4 + 5, NIC hits 6, penalty 7
+    stats = WireStats(**{f.name: torch.full((), float(i + 1), device=dev)
+                         for i, f in enumerate(dataclasses.fields(WireStats))})
+    pd = torch.ones((n,), device=dev)
+    count = torch.ones((), dtype=torch.int32, device=dev)
+    active = torch.ones((n, 4), dtype=torch.bool, device=dev)
+    lat = torch.zeros((n, 4), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rec.set_round(0)
+        rec.record(T.PH_READ, stats, n_classes=3, per_dest_msgs=pd,
+                   per_dest_bytes=pd)
+        rec.record(T.PH_REFRESH, WireStats.zero(dev))
+        lat = txl._close_round(rec, 0, lat, active, dict(
+            committed=count, attempts=count, abort_lock=count,
+            abort_validate=count, abort_overflow=count, abort_stale=count))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ev = T.events(rec.buf)
+    want = 1.8 + 7.0 / 3.0 + 9.0 * 8.0e-3 / 100.0   # the READ row alone
+    check(ev.shape[0] == 3 and abs(float(lat[0, 0]) - want) < 1e-5,
+          f"recorder: rows {ev.shape[0]}, lane latency {float(lat[0, 0])} "
+          f"(want {want})")
+    print("recorder: appends, pricing and the round close ran under "
+          "torch.cuda.set_sync_debug_mode('error') (no host sync)",
+          flush=True)
 
 
 def btree_membership(dev):
@@ -661,7 +730,7 @@ def tatp_main_path(dev, rows):
     profile_round(lambda: txl.tx_loop(
         t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
         read_enabled=ren, write_enabled=wen, max_rounds=1, device=dev))
-    return dict(stats=f0, cfg=cfg, layout=layout, t=t,
+    return dict(stats=f0, cfg=cfg, layout=layout, t=t, res=res,
                 populated=populated, batch=(rk, wk, ren, wen, wv))
 
 
@@ -808,6 +877,118 @@ def replicated_tatp(dev, tatp):
     return dict(stats=stats, final=final, res=res)
 
 
+def same_run(a, b):
+    """Two tx_loop / scan_loop results agree: committed lanes, commit
+    rounds, every WireStats field and the round trips."""
+    import torch
+    from repro_torch.core.transport import WireStats
+    wa, wb = a.metrics.wire, b.metrics.wire
+    return (torch.equal(a.committed, b.committed)
+            and torch.equal(a.commit_round, b.commit_round)
+            and all(torch.equal(getattr(wa, f), getattr(wb, f))
+                    for f in WireStats.__dataclass_fields__)
+            and torch.equal(a.round_trips, b.round_trips))
+
+
+def check_trace_of(tel, res, what, cfg=None):
+    """A loop's flight-recorder output against its result: nothing
+    dropped, SUMMARY rows equal to the ``round_*`` columns, per-destination
+    tails summing to each row's scalars and the rows' wire to the result's
+    WireStats (float64 within a relative 1e-6: float32 counts stop being
+    exact integers at 2**24), and an export that passes check_trace.
+    Returns (host rows, export document)."""
+    import numpy as np
+    from repro_torch.core import telemetry as T
+    from repro_torch.testing import check_trace as ct
+
+    tr = tel.trace
+    check(tr.dropped == 0, f"{what}: the trace dropped {tr.dropped} events")
+    ev = T.events(tr).astype(np.float64)
+    nd = tr.n_dst
+    summ = ev[ev[:, T.EV_PHASE] == T.PH_SUMMARY]
+    for col, name in ((T.EV_COMMITTED, "committed"),
+                      (T.EV_ATTEMPTS, "attempts"),
+                      (T.EV_AB_LOCK, "abort_lock"),
+                      (T.EV_AB_VALIDATE, "abort_validate"),
+                      (T.EV_AB_OVERFLOW, "abort_overflow"),
+                      (T.EV_AB_STALE, "abort_stale")):
+        want = getattr(res, f"round_{name}").cpu().numpy()
+        check(np.array_equal(summ[:, col], want),
+              f"{what}: SUMMARY {name} {summ[:, col]} != {want}")
+    close = lambda x, y: bool(np.all(np.abs(x - y) <= 1e-6 * np.maximum(
+        1.0, np.abs(y))))
+    byts = ev[:, T.EV_REQ_BYTES] + ev[:, T.EV_REPLY_BYTES]
+    w = res.metrics.wire
+    check(close(ev[:, T.EV_WORDS:T.EV_WORDS + nd].sum(1), ev[:, T.EV_MSGS])
+          and close(ev[:, T.EV_WORDS + nd:].sum(1), byts),
+          f"{what}: per-destination tails do not reconcile")
+    check(close(ev[:, T.EV_MSGS].sum(), float(w.messages))
+          and close(byts.sum(), float(w.total_bytes))
+          and close(ev[:, T.EV_OPS].sum(), float(w.ops))
+          and ev[:, T.EV_RT].sum() == float(res.round_trips),
+          f"{what}: the trace's wire differs from the result's")
+    doc = T.export_trace(tr)
+    fails = ct.check_trace(doc)
+    check(not fails, f"{what}: check_trace {fails[:3]}")
+    return ev, doc
+
+
+def traced_tatp(dev, tatp, rep_run):
+    """The TATP batch at full width with the flight recorder, at f=0 and
+    f=1, each from a clone of the populated arenas: untraced, traced,
+    traced, untraced (wall times in turns).  Each traced run equals its
+    untraced run (arenas, commits, commit rounds, WireStats, round trips,
+    hash_probe launches) and the main path's / replicated phase's run; its
+    trace drops nothing, its SUMMARY rows are the result's round columns,
+    its tails reconcile and its export passes check_trace."""
+    import torch
+    from repro_torch.core import replication as repl
+    from repro_torch.core import telemetry as T
+    from repro_torch.core import txloop as txl
+    from repro_torch.kernels import hash_probe as hp
+
+    cfg, layout, t = tatp["cfg"], tatp["layout"], tatp["t"]
+    rk, wk, ren, wen, wv = tatp["batch"]
+    kw = dict(read_keys=rk, write_keys=wk, write_values=wv, read_enabled=ren,
+              write_enabled=wen, max_rounds=TATP_MAX_ROUNDS, device=dev)
+    for f, ref in ((0, tatp["res"]), (REP_F, rep_run["res"])):
+        rep = repl.ReplicaConfig(TATP_NODES, f)
+        runs, walls = {}, {"untraced": [], "traced": []}
+        for name in ("untraced", "traced", "traced", "untraced"):
+            st = {"arena": tatp["populated"].clone()}
+            tel = T.TelemetryConfig() if name == "traced" else None
+            hp.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = txl.tx_loop(t, st, cfg, layout, rep=rep, telemetry=tel, **kw)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            runs.setdefault(name, (out, hp.launches))
+            del st, out
+        (st0, _, r0), l0 = runs["untraced"]
+        (st1, _, r1, tel), l1 = runs["traced"]
+        what = f"traced tatp (f={f})"
+        check(torch.equal(st1["arena"], st0["arena"]),
+              f"{what}: the arenas differ from the untraced run's")
+        check(same_run(r1, r0) and same_run(r0, ref),
+              f"{what}: the run differs from the untraced run")
+        check(l1 == l0 > 0, f"{what}: {l1} hash_probe launches, untraced {l0}")
+        check(tel.trace.capacity == 10 * TATP_MAX_ROUNDS + 4,
+              f"{what}: capacity {tel.trace.capacity}")
+        _, doc = check_trace_of(tel, r1, what)
+        print(f"{what}: " + json.dumps({
+            "card": card(), "rows": tel.trace.n,
+            "capacity": tel.trace.capacity, "dropped": tel.trace.dropped,
+            "hash_probe_launches": l1,
+            "modeled_span_us": doc["otherData"]["modeled_span_us"],
+            "latency_by_path": T.latency_by_path(
+                tel.lane_latency_us, r1.committed, r1.commit_round),
+            "tx_loop_s_untraced_traced_traced_untraced": [
+                walls["untraced"][0], walls["traced"][0],
+                walls["traced"][1], walls["untraced"][1]]}), flush=True)
+        del runs, st0, st1
+
+
 @contextlib.contextmanager
 def counted_refreshes():
     """The WireStats of every placement-table refresh issued inside the
@@ -892,6 +1073,7 @@ def membership_path(dev, tatp, rep_run):
     from repro_torch.core import placement as pl
     from repro_torch.core import replication as repl
     from repro_torch.core import slots as sl
+    from repro_torch.core import telemetry as T
     from repro_torch.core import txloop as txl
     from repro_torch.core.datastructs import hashtable as ht
     from repro_torch.kernels import hash_probe as hp
@@ -1009,6 +1191,7 @@ def membership_path(dev, tatp, rep_run):
               and torch.equal(got.alive, table_m.alive),
               f"membership: node {n}'s routing region is not the new table")
     hits0 = wen[..., 0] & (ht.part_of(cfg, wk[..., 0, 0], wk[..., 0, 1]) == 0)
+    pre = {"arena": mig["arena"].clone()}          # the traced batch's start
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with counted_refreshes() as refreshes:
@@ -1033,6 +1216,28 @@ def membership_path(dev, tatp, rep_run):
               n_nodes * words + float(refreshes[0].messages) / 2),
           f"membership: refreshes {[(float(s.ops), float(s.reply_bytes)) for s in refreshes]}")
     out["refresh_words_per_client"] = words
+
+    # --- the stale batch again, with the flight recorder --------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre, _, res_t, tel = txl.tx_loop(t, pre, cfg, layout, ptable=table,
+                                     pcfg=pcfg, telemetry=T.TelemetryConfig(),
+                                     **kw)
+    torch.cuda.synchronize()
+    out["stale_traced_tx_loop_s"] = time.perf_counter() - t0
+    check(torch.equal(pre["arena"], mig["arena"]) and same_run(res_t, res),
+          "membership: the traced stale batch differs from the untraced one")
+    ev, _ = check_trace_of(tel, res_t, "traced stale batch")
+    ref = ev[ev[:, T.EV_PHASE] == T.PH_REFRESH]
+    wired = ref[:, T.EV_RT] > 0
+    check(ref[:, T.EV_ROUND].tolist() == list(range(TATP_MAX_ROUNDS))
+          and wired.tolist() == [r == 1 for r in range(TATP_MAX_ROUNDS)]
+          and ref[1, T.EV_OPS] == n_nodes
+          and bool((ref[~wired][:, T.EV_RT:] == 0).all()),
+          f"membership: the traced stale batch's REFRESH rows "
+          f"{ref[:, :T.EV_WORDS].tolist()}")
+    out["stale_trace_rows"] = tel.trace.n
+    del pre
     item = (wen & res.committed[..., None]).reshape(-1)
     mwk, mwv = wk.reshape(-1, 2)[item], wv.reshape(-1, sl.VALUE_WORDS)[item]
     m = ht.part_of(cfg, mwk[:, 0], mwk[:, 1]) == 0
@@ -1060,6 +1265,7 @@ def ordered_path(dev):
     from repro_torch.core import placement as pl
     from repro_torch.core import replication as repl
     from repro_torch.core import slots as sl
+    from repro_torch.core import telemetry as T
     from repro_torch.core import tx as txm
     from repro_torch.core import txloop as txl
     from repro_torch.core.datastructs import btree as bt
@@ -1113,7 +1319,8 @@ def ordered_path(dev):
                                        device=dev)
     wv = wl.value_for(wk)
     n_tx = n_nodes * lanes
-    runs = {}
+    pre = state["arena"].clone()              # the traced runs' start
+    runs, runs_wall = {}, {}
     for f in (0, REP_F):
         st = {"arena": state["arena"].clone()} if f == 0 else state
         torch.cuda.reset_peak_memory_stats()
@@ -1150,6 +1357,7 @@ def ordered_path(dev):
         }
         print("ordered scan mix: " + json.dumps(stats), flush=True)
         runs[f] = (st, r)
+        runs_wall[f] = wall
     (s0, r0), (s1, r1) = runs[0], runs[REP_F]
     check(float(r1.round_trips) == float(r0.round_trips),
           "ordered: f=1 took other round trips than f=0")
@@ -1206,6 +1414,53 @@ def ordered_path(dev):
           f"from the primary trees and, with every even and then every odd "
           f"node dead, from the backup trees; {n_nodes} fence chains sorted "
           f"and linked over {chain.size} keys", flush=True)
+
+    # --- the mix at f=0 again with the flight recorder: with the directory
+    # given, and fetched up front (meta=None, a REFRESH row of round -1) ----
+    kw = dict(scan_lo=lo, scan_hi=hi, write_keys=wk, write_values=wv,
+              write_enabled=wen, max_rounds=ORDERED_MAX_ROUNDS,
+              rep=repl.ReplicaConfig(n_nodes, 0),
+              telemetry=T.TelemetryConfig(), device=dev)
+    traced = {}
+    for name, m in (("given", meta), ("fetched", None)):
+        st = {"arena": pre.clone()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, r, tel = txl.scan_loop(t, st, cfg, layout, meta=m, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(torch.equal(st["arena"], s0["arena"])
+              and torch.equal(r.committed, r0.committed)
+              and torch.equal(r.commit_round, r0.commit_round),
+              f"ordered: the traced mix ({name} directory) differs from the "
+              f"untraced f=0 run")
+        ev, doc = check_trace_of(tel, r, f"traced scan mix ({name})")
+        traced[name] = (r, ev, wall, doc["otherData"]["modeled_span_us"])
+        del st
+    del pre
+    (r_g, ev_g, wall_g, span_g), (r_f, ev_f, wall_f, _) = (
+        traced["given"], traced["fetched"])
+    check(same_run(r_g, r0), "ordered: the traced scan mix differs from the "
+          "untraced f=0 run")
+    fetch = ev_f[ev_f[:, T.EV_ROUND] < 0]
+    check(len(fetch) == 1 and fetch[0, T.EV_PHASE] == T.PH_REFRESH
+          and fetch[0, T.EV_RT] == 1 and not (ev_g[:, T.EV_ROUND] < 0).any()
+          and float(r_f.round_trips) == float(r0.round_trips) + 1,
+          f"ordered: the up-front fetch's row {fetch.tolist()}")
+    for name, ev in (("given", ev_g), ("fetched", ev_f)):
+        d = ev[(ev[:, T.EV_PHASE] == T.PH_REFRESH) & (ev[:, T.EV_ROUND] >= 0)]
+        check(d[:, T.EV_ROUND].tolist() == list(range(ORDERED_MAX_ROUNDS))
+              and bool((d[0, T.EV_RT:] == 0).all())
+              and bool((d[1:, T.EV_RT:] == fetch[0, T.EV_RT:]).all()),
+              f"ordered ({name} directory): the directory-refresh rows "
+              f"{d[:, :T.EV_WORDS].tolist()}")
+    print("ordered, traced scan mix (f=0): " + json.dumps({
+        "card": card(), "rows": len(ev_g), "modeled_span_us": span_g,
+        "scan_loop_s_traced": wall_g, "scan_loop_s_traced_fetched": wall_f,
+        "scan_loop_s_untraced": runs_wall[0],
+        "refresh_row_bytes": float(fetch[0, T.EV_REQ_BYTES]
+                                   + fetch[0, T.EV_REPLY_BYTES])}),
+        flush=True)
 
     # --- where the time goes: one more round of the mix --------------------
     profile_round(lambda: txl.scan_loop(
@@ -1880,6 +2135,9 @@ def main():
 
     phase("replicated TATP: f=1 on the node ring")
     rep_run = replicated_tatp(dev, tatp)
+
+    phase("traced TATP: the flight recorder at full width, f=0 and f=1")
+    traced_tatp(dev, tatp, rep_run)
 
     phase("membership: epoch-stamped placement, kill -> rereplicate, "
           "migration")

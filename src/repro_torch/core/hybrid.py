@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import onesided as osd
 from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
+from repro_torch.core import telemetry as T
 from repro_torch.core import wireproto as W
 from repro_torch.core.datastructs import hashtable as ht
 from repro_torch.core.transport import Transport, WireStats
@@ -52,7 +53,7 @@ def _count(x):
 def onesided_probe(t: Transport, state, key_lo, key_hi, cfg, layout, *,
                    cache=None, use_onesided: bool = True,
                    capacity: Optional[int] = None, enabled=None, nic=None,
-                   ds=ht, ptable=None):
+                   ds=ht, ptable=None, telemetry=None):
     """Phase 1 of Algorithm 1: lookup_start + one-sided read + lookup_end.
 
     The read round routes and accounts exactly like ``onesided.remote_read``
@@ -63,6 +64,9 @@ def onesided_probe(t: Transport, state, key_lo, key_hi, cfg, layout, *,
     on SimTransport, where the exchange is a transpose and the read round
     runs no handler; a transport with one node per device (the reference's
     MeshTransport, a later slice) must move the launch to the owner side.
+    The read round's flight-recorder event (``telemetry``, phase READ) is
+    recorded by ``read_round`` from the round's own masks, as the
+    reference's ``remote_read`` records it.
 
     Returns a dict with the per-lane probe outcome: node, cache `hit`,
     one-sided `success`, value/version/slot_idx of the hit, `need_rpc`,
@@ -78,7 +82,7 @@ def onesided_probe(t: Transport, state, key_lo, key_hi, cfg, layout, *,
     if use_onesided:
         delivered, ovf, s_read = osd.read_round(
             t, node, off, length=ds.probe_words(cfg), capacity=capacity,
-            enabled=enabled, nic=nic)
+            enabled=enabled, nic=nic, telemetry=telemetry, phase=T.PH_READ)
         pe = ds.probe_read(cfg, layout, state["arena"], node, off, key_lo,
                            key_hi, hit, delivered)
         success = pe["found"] & ~ovf & enabled
@@ -124,15 +128,19 @@ def update_lookup_cache(cfg, cache, key_lo, key_hi, node, slot_idx, found,
 def hybrid_lookup(t: Transport, state, key_lo, key_hi, cfg, layout, *,
                   cache=None, use_onesided: bool = True,
                   rpc_serial: bool = False, capacity: Optional[int] = None,
-                  enabled=None, nic=None, ds=ht, ptable=None):
+                  enabled=None, nic=None, ds=ht, ptable=None,
+                  telemetry=None):
     """Batched one-two-sided lookup.  key_lo/key_hi: (N, B) int32 words.
+    ``telemetry``: one flight-recorder event for the read round (READ) and
+    one for the RPC fallback (FALLBACK).
 
     Returns (state, cache, found (N,B), value (N,B,V), version (N,B),
     owner (N,B) int32, slot_idx (N,B), overflow (N,B) bool, HybridMetrics).
     """
     probe = onesided_probe(t, state, key_lo, key_hi, cfg, layout, cache=cache,
                            use_onesided=use_onesided, capacity=capacity,
-                           enabled=enabled, nic=nic, ds=ds, ptable=ptable)
+                           enabled=enabled, nic=nic, ds=ds, ptable=ptable,
+                           telemetry=telemetry)
 
     # ---- phase 2: write-based RPC for the failed lanes --------------------
     recs = ds.lookup_records(cfg, key_lo, key_hi)
@@ -140,7 +148,8 @@ def hybrid_lookup(t: Transport, state, key_lo, key_hi, cfg, layout, *,
                else ds.make_lookup_handler_vector(cfg, layout))
     state, replies, ovf2, s_rpc = R.rpc_call(
         t, state, probe["node"], recs, handler, capacity=capacity,
-        enabled=probe["need_rpc"], nic=nic)
+        enabled=probe["need_rpc"], nic=nic, telemetry=telemetry,
+        phase=T.PH_FALLBACK)
     mg = merge_rpc_fallback(probe, replies, ovf2)
 
     # ---- lookup_end caching duty ------------------------------------------

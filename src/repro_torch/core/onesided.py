@@ -20,23 +20,24 @@ from repro_torch.core.transport import Transport, route_by_dest, wire_for, wire_
 def remote_read(t: Transport, arenas, dest, offsets, *, length: int,
                 capacity: Optional[int] = None,
                 mode: rg.AddressMode | None = None, page_tables=None,
-                enabled=None, nic=None):
+                enabled=None, nic=None, telemetry=None, phase: int = 0):
     """Batched one-sided READ — a single-class fused round.
 
     arenas: (N, words) int32; dest: (N, B) int32; offsets: (N, B) int32
     word offsets; length: words per read.  Disabled lanes issue nothing and
-    read back zeros.  Returns (data (N, B, length), overflow (N, B),
-    WireStats)."""
+    read back zeros.  ``telemetry``/``phase``: the round's flight-recorder
+    event.  Returns (data (N, B, length), overflow (N, B), WireStats)."""
     _, ((out, ovf),), stats = rs.fused_round(
         t, {"arena": arenas},
         [rs.read_class(dest, offsets, length=length, enabled=enabled,
                        capacity=capacity, mode=mode, page_tables=page_tables)],
-        nic=nic)
+        nic=nic, telemetry=telemetry, phase=phase)
     return out, ovf, stats
 
 
 def read_round(t: Transport, dest, offsets, *, length: int,
-               capacity: Optional[int] = None, enabled=None, nic=None):
+               capacity: Optional[int] = None, enabled=None, nic=None,
+               telemetry=None, phase: int = 0):
     """Route and account a one-sided READ round whose owner-side gather the
     caller performs itself (``hybrid.onesided_probe`` fuses it with the
     probe check in one kernel).
@@ -44,12 +45,14 @@ def read_round(t: Transport, dest, offsets, *, length: int,
     Returns (delivered (N, B) bool, overflow (N, B) bool, WireStats): the
     lanes that hold a live send-queue cell — exactly those for which
     :func:`remote_read` returns the owner's words instead of zeros — with
-    overflow, parking and wire accounting identical to :func:`remote_read`.
+    overflow, parking and wire accounting identical to :func:`remote_read`,
+    and so is the flight-recorder event (``telemetry``/``phase``).
     """
     spec = rs.route_class(t.n_nodes, rs.read_class(
         dest, offsets, length=length, enabled=enabled, capacity=capacity))
     stats = wire_for_classes([spec["mask"]], [spec["W"]], [spec["R"]],
                              nic=nic)
+    rs.record_round(telemetry, phase, [spec], stats)
     return spec["pos"] < spec["cap"], spec["ovf"], stats
 
 

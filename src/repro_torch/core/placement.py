@@ -42,6 +42,7 @@ import torch
 from repro_torch.core import onesided as osd
 from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
+from repro_torch.core import telemetry as T
 from repro_torch.core import wireproto as W
 from repro_torch.core.transport import (Transport, WireStats, placement_dest,
                                         wire_for_classes)
@@ -214,7 +215,8 @@ def decode_region(pcfg: PlacementConfig, words) -> PlacementTable:
 # Publication: refresh (one-sided read) and install (RPC broadcast / local)
 # ---------------------------------------------------------------------------
 def refresh_table(t: Transport, state, layout, pcfg: PlacementConfig,
-                  table: PlacementTable, *, enabled=None, nic=None):
+                  table: PlacementTable, *, enabled=None, nic=None,
+                  telemetry=None):
     """Refresh the client-cached table with ONE one-sided read of the
     published routing region of the lowest live node per the CURRENT
     (possibly stale) table.
@@ -223,6 +225,7 @@ def refresh_table(t: Transport, state, layout, pcfg: PlacementConfig,
     zero round trips) and the decoded table is garbage; ``txloop`` issues
     the refresh only where it is wanted instead.  Every SimTransport client
     reads identical bytes, so lane 0's decode is the one shared table.
+    ``telemetry``: the read's flight-recorder event (phase REFRESH).
     Returns (table, WireStats)."""
     n_local = t.n_local
     dev = state["arena"].device
@@ -236,7 +239,8 @@ def refresh_table(t: Transport, state, layout, pcfg: PlacementConfig,
             n_local, 1)
     buf, _, stats = osd.remote_read(t, state["arena"], dest, off,
                                     length=routing_words(pcfg.n_nodes),
-                                    enabled=en, nic=nic)
+                                    enabled=en, nic=nic, telemetry=telemetry,
+                                    phase=T.PH_REFRESH)
     return decode_region(pcfg, buf[0, 0]), stats
 
 

@@ -30,8 +30,9 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import regions as rg
-from repro_torch.core.transport import (Transport, pick_replies,
-                                        route_by_dest, wire_for_classes)
+from repro_torch.core.transport import (Transport, per_dest_wire,
+                                        pick_replies, route_by_dest,
+                                        wire_for_classes)
 from repro_torch.core.wireproto import ST_DROPPED
 
 
@@ -139,7 +140,8 @@ def _pad_words(x, width):
 
 
 def fused_round(t: Transport, state, classes: Sequence[dict], *,
-                arena_key: str = "arena", nic=None):
+                arena_key: str = "arena", nic=None, telemetry=None,
+                phase: int = 0):
     """Run one fused exchange round carrying several traffic classes.
 
     state: dict of cluster tensors; read classes gather from
@@ -150,19 +152,26 @@ def fused_round(t: Transport, state, classes: Sequence[dict], *,
     Returns ``(state, results, stats)`` where ``results[k]`` is a
     ``(reply (N, B_k, R_k), overflow (N, B_k))`` pair aligned with
     ``classes`` and ``stats`` is ONE coalesced :class:`WireStats`.
+
+    ``telemetry`` (an optional :class:`telemetry.Recorder`) appends ONE
+    flight-recorder event for this round, tagged ``phase``: the class count,
+    the WireStats snapshot and the per-destination message/byte counts.
+    Recording only reads round values: ``telemetry=None`` is bit-identical.
     """
     n_dst = t.n_nodes
     specs = [route_class(n_dst, c) for c in classes]
 
-    def stats():
-        return wire_for_classes([s["mask"] for s in specs],
-                                [s["W"] for s in specs],
-                                [s["R"] for s in specs], nic=nic)
+    def account():
+        st = wire_for_classes([s["mask"] for s in specs],
+                              [s["W"] for s in specs],
+                              [s["R"] for s in specs], nic=nic)
+        record_round(telemetry, phase, specs, st)
+        return st
 
     c_total = sum(s["cap"] for s in specs)
     if c_total == 0:
         # nothing can be delivered this round: no exchange, no wire traffic
-        return state, [(_dropped_replies(s), s["ovf"]) for s in specs], stats()
+        return state, [(_dropped_replies(s), s["ovf"]) for s in specs], account()
 
     w_max = max(s["W"] for s in specs)
     r_max = max(s["R"] for s in specs)
@@ -219,7 +228,19 @@ def fused_round(t: Transport, state, classes: Sequence[dict], *,
         out = pick_replies(back[:, :, s0:s1, :s["R"]], s["cls"]["dest"],
                            s["pos"], s["ovf"])
         results.append((_finalize_reply(s, out), s["ovf"]))
-    return state, results, stats()
+    return state, results, account()
+
+
+def record_round(telemetry, phase, specs, stats):
+    """Append a round's flight-recorder event (no-op when disabled): its
+    per-destination tails come from the routed classes' masks."""
+    if telemetry is None:
+        return
+    masks = [s["mask"] for s in specs]
+    pd_msgs, pd_bytes = per_dest_wire(masks, [s["W"] for s in specs],
+                                      [s["R"] for s in specs])
+    telemetry.record(phase, stats, n_classes=len(specs),
+                     per_dest_msgs=pd_msgs, per_dest_bytes=pd_bytes)
 
 
 def _gather_live(arenas, offsets, live, c):

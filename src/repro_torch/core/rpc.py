@@ -38,7 +38,8 @@ class Handler:
 
 
 def rpc_call(t: Transport, state, dest, records, handler: Handler, *,
-             capacity: Optional[int] = None, enabled=None, nic=None):
+             capacity: Optional[int] = None, enabled=None, nic=None,
+             telemetry=None, phase: int = 0):
     """Batched write-based RPC round (one round trip for B lanes/node) — a
     single-class fused round.
 
@@ -48,9 +49,12 @@ def rpc_call(t: Transport, state, dest, records, handler: Handler, *,
 
     Returns (state, replies (N, B, R), overflow (N, B), WireStats).
     Overflowed and parked lanes carry ST_DROPPED in reply word 0.
+    ``telemetry``/``phase``: the round's flight-recorder event
+    (roundsched.fused_round).
     """
     state, ((out, ovf),), stats = rs.fused_round(
         t, state,
         [rs.rpc_class(dest, records, handler, enabled=enabled,
-                      capacity=capacity)], nic=nic)
+                      capacity=capacity)], nic=nic, telemetry=telemetry,
+        phase=phase)
     return state, out, ovf, stats

@@ -56,6 +56,7 @@ from repro_torch.core import replication as repl
 from repro_torch.core import roundsched as rs
 from repro_torch.core import rpc as R
 from repro_torch.core import slots as sl
+from repro_torch.core import telemetry as T
 from repro_torch.core import wireproto as W
 from repro_torch.core.datastructs import btree as bt
 from repro_torch.core.datastructs import hashtable as ht
@@ -148,7 +149,7 @@ def _lanes(x, N, B, K):
 def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                      read_keys, read_enabled, cache=None,
                      use_onesided: bool = True, capacity: Optional[int] = None,
-                     nic=None, ptable=None):
+                     nic=None, ptable=None, telemetry=None):
     """EXECUTE phase, read half: one-two-sided lookups of the read set.
     read_keys: (N, B, Rd, 2); read_enabled: (N, B, Rd) bool."""
     N, B, Rd = read_keys.shape[:3]
@@ -158,7 +159,7 @@ def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     state, cache, found, rvals, rvers, rnode, rslot, rovf, m = hy.hybrid_lookup(
         t, state, rk_lo, rk_hi, cfg, layout, cache=cache,
         use_onesided=use_onesided, rpc_serial=False, capacity=capacity,
-        enabled=en, nic=nic, ptable=ptable)
+        enabled=en, nic=nic, ptable=ptable, telemetry=telemetry)
     return state, cache, dict(
         key_lo=rk_lo, key_hi=rk_hi, enabled=en, found=found, values=rvals,
         versions=rvers, node=rnode, slot=rslot, overflow=rovf, metrics=m)
@@ -166,14 +167,15 @@ def execute_read_set(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
 
 def lock_write_set(t: Transport, state, cfg: ht.HashTableConfig, layout,
                    serial_h, *, write_keys, write_enabled,
-                   capacity: Optional[int] = None, nic=None, ptable=None):
+                   capacity: Optional[int] = None, nic=None, ptable=None,
+                   telemetry=None):
     """EXECUTE phase, write half: LOCK + read-for-update the write set."""
     N, B, Wr = write_keys.shape[:3]
     lk, lock_recs = _lock_requests(t, cfg, layout, write_keys=write_keys,
                                    write_enabled=write_enabled, ptable=ptable)
     state, lrep, lovf, s_lock = R.rpc_call(
         t, state, lk["node"], lock_recs, serial_h, capacity=capacity,
-        enabled=lk["enabled"], nic=nic)
+        enabled=lk["enabled"], nic=nic, telemetry=telemetry, phase=T.PH_LOCK)
     lctx = _parse_lock_replies(lk, lrep, lovf, N, B, Wr)
     lctx["wire"] = s_lock
     return state, lctx
@@ -181,7 +183,7 @@ def lock_write_set(t: Transport, state, cfg: ht.HashTableConfig, layout,
 
 def validate_read_set(t: Transport, state, layout, read_ctx, *,
                       capacity: Optional[int] = None, nic=None,
-                      offset_of=None):
+                      offset_of=None, telemetry=None):
     """VALIDATE phase: one-sided re-read of every FOUND read-set slot.
     ``offset_of(layout, slot_idx)`` maps a read-set slot index to its arena
     word offset (default the hash table's ``slots`` region; the ordered
@@ -192,7 +194,8 @@ def validate_read_set(t: Transport, state, layout, read_ctx, *,
     vbuf, vovf, s_val = osd.remote_read(
         t, state["arena"], read_ctx["node"],
         offset_of(layout, read_ctx["slot"]), length=sl.SLOT_WORDS,
-        capacity=capacity, enabled=issued, nic=nic)
+        capacity=capacity, enabled=issued, nic=nic, telemetry=telemetry,
+        phase=T.PH_VALIDATE)
     vctx = _validate_from_bytes(read_ctx, vbuf, vovf)
     vctx["wire"] = s_val
     return vctx
@@ -216,7 +219,7 @@ def _backup_dest(lock_ctx, rep, i, ptable=None):
 
 
 def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
-             capacity, nic, rep, backup_fail, ptable=None):
+             capacity, nic, rep, backup_fail, ptable=None, telemetry=None):
     """The commit round: the COMMIT/ABORT class, plus one backup class per
     copy at rep.f > 0 (committing lock holders only), in ONE fused round.
     A backup write that is dropped, or answered with a ``backup_fail``
@@ -235,7 +238,9 @@ def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
             classes.append(rs.rpc_class(
                 _backup_dest(lock_ctx, rep, i, ptable), recs, serial_h,
                 enabled=bk_en, capacity=capacity))
-    state, results, s_cm = rs.fused_round(t, state, classes, nic=nic)
+    state, results, s_cm = rs.fused_round(t, state, classes, nic=nic,
+                                          telemetry=telemetry,
+                                          phase=T.PH_COMMIT)
     overflow = results[0][1] & lock_ctx["lock_ok"]
     for brep, bovf in results[1:]:
         bad = bovf
@@ -247,7 +252,7 @@ def _fan_out(t, state, serial_h, lock_ctx, cm_recs, bk_recs, *, commit_item,
 
 def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
                     write_values, capacity: Optional[int] = None, nic=None,
-                    rep=None, ptable=None):
+                    rep=None, ptable=None, telemetry=None):
     """COMMIT / ABORT phase: lanes that hold locks either install their
     values (version += 2, unlock) or roll back.  commit_lane: (N, B) bool.
 
@@ -270,7 +275,7 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
         t, state, serial_h, lock_ctx, cm_recs,
         lambda: repl.backup_write_records(lock_ctx, write_values),
         commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
-        backup_fail=(W.ST_NO_SPACE,), ptable=ptable)
+        backup_fail=(W.ST_NO_SPACE,), ptable=ptable, telemetry=telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +284,7 @@ def commit_or_abort(t: Transport, state, serial_h, lock_ctx, *, commit_lane,
 def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
                        write_values, rctx, lctx, vctx, read_wire,
                        onesided_success, rpc_fallback, total, capacity,
-                       nic=None, rep=None, ptable=None):
+                       nic=None, rep=None, ptable=None, telemetry=None):
     lane_locks_ok = _lanes(lctx["lock_ok"] | ~lctx["enabled"], N, B, Wr).all(-1)
     lane_valid = _lanes(vctx["valid"] | ~rctx["enabled"], N, B, Rd).all(-1)
     # a read dropped by back-pressure is NOT a miss: abort (overflow), retry
@@ -289,7 +294,7 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
     state, cctx = commit_or_abort(
         t, state, serial_h, lctx, commit_lane=commit_lane,
         write_values=write_values, capacity=capacity, nic=nic, rep=rep,
-        ptable=ptable)
+        ptable=ptable, telemetry=telemetry)
 
     has_writes = write_enabled.any(-1)
     commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)
@@ -334,7 +339,7 @@ def _decide_and_finish(t, state, serial_h, *, N, B, Rd, Wr, write_enabled,
 def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
                             write_keys, write_values, write_enabled,
                             read_enabled, cache, use_onesided, capacity,
-                            nic=None, rep=None, ptable=None):
+                            nic=None, rep=None, ptable=None, telemetry=None):
     N, B, Rd = read_keys.shape[:3]
     Wr = write_keys.shape[2]
     serial_h = ht.make_rpc_handler(cfg, layout)
@@ -345,7 +350,8 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
     # ---- round 1: one-sided read of the read set --------------------------
     probe = hy.onesided_probe(t, state, rk_lo, rk_hi, cfg, layout, cache=cache,
                               use_onesided=use_onesided, capacity=capacity,
-                              enabled=ren, nic=nic, ptable=ptable)
+                              enabled=ren, nic=nic, ptable=ptable,
+                              telemetry=telemetry)
 
     # ---- round 2: read-set RPC fallback ∥ LOCK ∥ validate(one-sided hits) -
     # Under an explicit capacity bound the validate phase keeps its own
@@ -364,7 +370,8 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
         classes.append(rs.read_class(
             probe["node"], ht.slot_idx_offset(layout, probe["slot_idx"]),
             length=sl.SLOT_WORDS, enabled=ren & probe["success"]))
-    state, results, s2 = rs.fused_round(t, state, classes, nic=nic)
+    state, results, s2 = rs.fused_round(t, state, classes, nic=nic,
+                                        telemetry=telemetry, phase=T.PH_LOCK)
     lookup_rep, lookup_ovf = results[0]
     lrep, lovf = results[1]
 
@@ -383,14 +390,15 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
         v2buf, _, s3 = osd.remote_read(
             t, state["arena"], probe["node"],
             ht.slot_idx_offset(layout, mg["slot_idx"]), length=sl.SLOT_WORDS,
-            enabled=ren & mg["rpc_ok"], nic=nic)
+            enabled=ren & mg["rpc_ok"], nic=nic, telemetry=telemetry,
+            phase=T.PH_VALIDATE)
         vbuf = torch.where(probe["success"][..., None], v1buf, v2buf)
         # without a capacity bound neither validate sub-round can overflow
         vctx = _validate_from_bytes(rctx, vbuf, torch.zeros_like(ren))
         vctx["wire"] = s3
     else:
         vctx = validate_read_set(t, state, layout, rctx, capacity=capacity,
-                                 nic=nic)
+                                 nic=nic, telemetry=telemetry)
 
     # the lock round's wire is fused into s2; attribute the whole fused round
     # to the lock slot of the accounting so totals stay exact
@@ -403,7 +411,7 @@ def _run_transactions_fused(t: Transport, state, cfg, layout, *, read_keys,
         onesided_success=hy._count(probe["success"]),
         rpc_fallback=hy._count(probe["need_rpc"]),
         total=hy._count(ren), capacity=capacity, nic=nic, rep=rep,
-        ptable=ptable)
+        ptable=ptable, telemetry=telemetry)
     return state, cache, res
 
 
@@ -411,7 +419,7 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                      read_keys, write_keys, write_values, write_enabled=None,
                      read_enabled=None, cache=None, use_onesided: bool = True,
                      capacity: Optional[int] = None, fused: bool = True,
-                     nic=None, rep=None, ptable=None):
+                     nic=None, rep=None, ptable=None, telemetry=None):
     """Execute a batch of transactions, one per lane (single shot — aborted
     lanes report their cause and stop; see txloop.tx_loop for bounded retry).
 
@@ -432,6 +440,8 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                   to the OWNER only; a stale table surfaces as
                   ``aborted_stale``.  The identity table with every node up
                   is bit-identical to ptable=None.
+    telemetry:    optional telemetry.Recorder — one flight-recorder event
+                  per exchange round, tagged with its phase.
 
     Returns (state, cache, TxResult); ``state["arena"]`` is updated in place.
     Read/write sets are assumed disjoint per lane.
@@ -449,26 +459,28 @@ def run_transactions(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             t, state, cfg, layout, read_keys=read_keys, write_keys=write_keys,
             write_values=write_values, write_enabled=write_enabled,
             read_enabled=read_enabled, cache=cache, use_onesided=use_onesided,
-            capacity=capacity, nic=nic, rep=rep, ptable=ptable)
+            capacity=capacity, nic=nic, rep=rep, ptable=ptable,
+            telemetry=telemetry)
 
     serial_h = ht.make_rpc_handler(cfg, layout)
     state, cache, rctx = execute_read_set(
         t, state, cfg, layout, read_keys=read_keys, read_enabled=read_enabled,
         cache=cache, use_onesided=use_onesided, capacity=capacity, nic=nic,
-        ptable=ptable)
+        ptable=ptable, telemetry=telemetry)
     m = rctx["metrics"]
     state, lctx = lock_write_set(
         t, state, cfg, layout, serial_h, write_keys=write_keys,
         write_enabled=write_enabled, capacity=capacity, nic=nic,
-        ptable=ptable)
+        ptable=ptable, telemetry=telemetry)
     vctx = validate_read_set(t, state, layout, rctx, capacity=capacity,
-                             nic=nic)
+                             nic=nic, telemetry=telemetry)
     state, res = _decide_and_finish(
         t, state, serial_h, N=N, B=B, Rd=Rd, Wr=Wr,
         write_enabled=write_enabled, write_values=write_values,
         rctx=rctx, lctx=lctx, vctx=vctx, read_wire=m.wire,
         onesided_success=m.onesided_success, rpc_fallback=m.rpc_fallback,
-        total=m.total, capacity=capacity, nic=nic, rep=rep, ptable=ptable)
+        total=m.total, capacity=capacity, nic=nic, rep=rep, ptable=ptable,
+        telemetry=telemetry)
     return state, cache, res
 
 
@@ -545,7 +557,7 @@ def _bt_leaf_offset_of(layout, slot_idx):
 def _bt_commit_or_abort(t: Transport, state, serial_h, lock_ctx, *,
                         commit_lane, write_values,
                         capacity: Optional[int] = None, nic=None, rep=None,
-                        ptable=None):
+                        ptable=None, telemetry=None):
     """COMMIT/ABORT for btree write sets: key in key_lo, the lock TAG in
     key_hi, the locked leaf's header slot in aux.  With rep.f > 0 the
     OP_BT_BACKUP classes ride this SAME fused round; a backup write that is
@@ -562,7 +574,8 @@ def _bt_commit_or_abort(t: Transport, state, serial_h, lock_ctx, *,
         t, state, serial_h, lock_ctx, cm_recs,
         lambda: repl.btree_backup_records(lock_ctx, write_values),
         commit_item=commit_item, capacity=capacity, nic=nic, rep=rep,
-        backup_fail=(W.ST_NO_SPACE, W.ST_LOCK_FAIL), ptable=ptable)
+        backup_fail=(W.ST_NO_SPACE, W.ST_LOCK_FAIL), ptable=ptable,
+        telemetry=telemetry)
 
 
 def _scan_chain(fence_lo, fence_hi, lo, hi, en, resolved):
@@ -591,7 +604,7 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
                           write_values=None, write_enabled=None,
                           scan_enabled=None, capacity: Optional[int] = None,
                           fused: bool = True, nic=None, rep=None,
-                          ptable=None):
+                          ptable=None, telemetry=None):
     """Execute a batch of range-scan transactions over the ordered index,
     one per lane (single shot; see txloop.scan_loop for bounded retry).
 
@@ -636,7 +649,8 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
     # ---- round 1: one-sided reads of the planned leaves -------------------
     buf, ovf1, s1 = osd.remote_read(
         t, state["arena"], dest, bt.leaf_offset(cfg, layout, pleaf),
-        length=cfg.leaf_words, capacity=capacity, enabled=en_f, nic=nic)
+        length=cfg.leaf_words, capacity=capacity, enabled=en_f, nic=nic,
+        telemetry=telemetry, phase=T.PH_READ)
     p1 = bt.parse_leaf(cfg, buf)
     # resolved one-sided iff the image is stable and its immutable low fence
     # matches the plan (stale separators can only MISS leaves)
@@ -661,7 +675,9 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
             classes.append(rs.read_class(
                 dest, _bt_leaf_offset_of(layout, bt.header_slot(cfg, pleaf)),
                 length=sl.SLOT_WORDS, enabled=pos_ok))
-        state, results, s2 = rs.fused_round(t, state, classes, nic=nic)
+        state, results, s2 = rs.fused_round(t, state, classes, nic=nic,
+                                            telemetry=telemetry,
+                                            phase=T.PH_LOCK)
         scan_rep, scan_ovf = results[0]
         lrep, lovf = results[1]
         s_fallback = None
@@ -669,10 +685,11 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
         # ---- reference rounds 2 and 3: fallback, then LOCK ----------------
         state, scan_rep, scan_ovf, s_fallback = R.rpc_call(
             t, state, dest, scan_recs, scan_h, capacity=capacity,
-            enabled=need, nic=nic)
+            enabled=need, nic=nic, telemetry=telemetry, phase=T.PH_FALLBACK)
         state, lrep, lovf, s2 = R.rpc_call(
             t, state, lk["node"], lock_recs, serial_h, capacity=capacity,
-            enabled=lk["enabled"], nic=nic)
+            enabled=lk["enabled"], nic=nic, telemetry=telemetry,
+            phase=T.PH_LOCK)
     lctx = _parse_lock_replies(lk, lrep, lovf, N, B, Wr)
 
     # merge the authoritative fallback leaf images over the one-sided reads
@@ -690,13 +707,15 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
         v1 = results[2][0]
         v2, _, s3 = osd.remote_read(
             t, state["arena"], dest, _bt_leaf_offset_of(layout, mslot),
-            length=sl.SLOT_WORDS, enabled=rpc_ok, nic=nic)
+            length=sl.SLOT_WORDS, enabled=rpc_ok, nic=nic,
+            telemetry=telemetry, phase=T.PH_VALIDATE)
         vbuf = torch.where(pos_ok[..., None], v1, v2)
         vctx = _validate_from_bytes(rctx, vbuf, torch.zeros_like(en_f))
         vctx["wire"] = s3
     else:
         vctx = validate_read_set(t, state, layout, rctx, capacity=capacity,
-                                 nic=nic, offset_of=_bt_leaf_offset_of)
+                                 nic=nic, offset_of=_bt_leaf_offset_of,
+                                 telemetry=telemetry)
     read_wire = s1 if s_fallback is None else s1 + s_fallback
     lctx["wire"] = s2
 
@@ -713,7 +732,7 @@ def run_scan_transactions(t: Transport, state, cfg: bt.BTreeConfig, layout, *,
     state, cctx = _bt_commit_or_abort(
         t, state, serial_h, lctx, commit_lane=commit_lane,
         write_values=write_values, capacity=capacity, nic=nic, rep=rep,
-        ptable=ptable)
+        ptable=ptable, telemetry=telemetry)
 
     has_writes = write_enabled.any(-1)
     commit_delivered = ~_lanes(cctx["overflow"], N, B, Wr).any(-1)

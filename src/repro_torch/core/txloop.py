@@ -30,6 +30,14 @@ aborts first REFRESHES the table with one one-sided read of the published
 routing region.  A round entered without them issues no refresh, so an
 epoch-stable run has exactly the schedule and wire of a run without a
 table.
+
+Both loops take an optional flight recorder (``telemetry=`` a
+``telemetry.TelemetryConfig``): one event per exchange round, one SUMMARY
+row per protocol round, and the modeled latency of every lane still live in
+a round.  The reference issues its gated refreshes in every round and
+records them; where the port issues none (a round without a wanted
+refresh), the recorder appends the reference's zero-wire row, so the two
+traces agree row for row.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.convert import words
 from repro_torch.core import hybrid as hy
 from repro_torch.core import placement as pl
 from repro_torch.core import slots as sl
+from repro_torch.core import telemetry as T
 from repro_torch.core import tx as txm
 from repro_torch.core.datastructs import btree as bt
 from repro_torch.core.datastructs import hashtable as ht
@@ -119,13 +128,50 @@ def _check_placement(ptable, pcfg, who):
         raise ValueError(f"{who}: ptable requires pcfg (PlacementConfig)")
 
 
-def _refresh_table(t, state, layout, pcfg, ptable, rnd, stale_in, nic):
+def _refresh_table(t, state, layout, pcfg, ptable, rnd, stale_in, nic, rec):
     """A retry round entered with stale-route aborts refreshes the cached
     table (one one-sided read); any other round keeps it and issues
-    nothing.  Returns (table, WireStats or None)."""
-    if ptable is None or rnd == 0 or not stale_in:
+    nothing, and records the zero-wire REFRESH row of the reference's
+    gated-off read.  Returns (table, WireStats or None)."""
+    if ptable is None:
         return ptable, None
-    return pl.refresh_table(t, state, layout, pcfg, ptable, nic=nic)
+    if rnd == 0 or not stale_in:
+        if rec is not None:
+            rec.record(T.PH_REFRESH, WireStats.zero(rec.buf.rows.device))
+        return ptable, None
+    return pl.refresh_table(t, state, layout, pcfg, ptable, nic=nic,
+                            telemetry=rec)
+
+
+def _recorder(telemetry, t, max_rounds, N, B, dev):
+    """(Recorder, per-lane latency accumulator), or (None, None) when the
+    flight recorder is off."""
+    if telemetry is None:
+        return None, None
+    buf = T.make_buffer(t.n_nodes, T.loop_capacity(telemetry, max_rounds),
+                        device=dev)
+    return (T.Recorder(telemetry, buf),
+            torch.zeros((N, B), dtype=torch.float32, device=dev))
+
+
+def _open_round(rec, rnd):
+    """Stamp round ``rnd`` on the recorder; the row its events start at."""
+    if rec is None:
+        return 0
+    rec.set_round(rnd)
+    return rec.buf.n
+
+
+def _close_round(rec, n0, lat, active, stats):
+    """Every lane still live this round accumulates the round's modeled
+    latency; the SUMMARY row carries the abort vector.  Returns lat."""
+    if rec is None:
+        return lat
+    lat = lat + rec.round_cost_us(n0) * active.to(torch.float32)
+    rec.summary(**{k: stats[k] for k in (
+        "committed", "attempts", "abort_lock", "abort_validate",
+        "abort_overflow", "abort_stale")})
+    return lat
 
 
 def _round_stats(rnd, newly, active, res, s_ref=None):
@@ -177,7 +223,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             write_enabled=None, cache=None, use_onesided: bool = True,
             capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
             fused: bool = True, nic=None, rep=None, ptable=None, pcfg=None,
-            device="cuda"):
+            telemetry: Optional[T.TelemetryConfig] = None, device="cuda"):
     """Run a batch of transactions to convergence (bounded by max_rounds).
 
     Arguments mirror tx.run_transactions; additionally:
@@ -195,10 +241,13 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                   every round routes through the table; a retry round
                   entered with stale-route aborts first refreshes it with
                   one one-sided read of the published routing region.
+      telemetry:  optional telemetry.TelemetryConfig — a flight recorder
+                  through every exchange round (``None`` = bit-identical).
       device:     where the protocol runs; ``state["arena"]`` must be there.
 
-    Returns (state, cache, TxLoopResult); ``state["arena"]`` is updated in
-    place.
+    Returns (state, cache, TxLoopResult) — plus a ``telemetry.TelemetryOut``
+    as a fourth element when ``telemetry`` is given; ``state["arena"]`` is
+    updated in place.
     """
     _check_placement(ptable, pcfg, "tx_loop")
     dev = _on_device(state, device, "tx_loop")
@@ -218,17 +267,19 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
     rfound = torch.zeros(read_enabled.shape, dtype=torch.bool, device=dev)
     rvals = torch.zeros(read_enabled.shape + (sl.VALUE_WORDS,),
                         dtype=torch.int32, device=dev)
+    rec, lat = _recorder(telemetry, t, max_rounds, N, B, dev)
     ys = []
     stale_in = False
     for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
                                             DEFAULT_SEED, "tx_loop")):
+        n0 = _open_round(rec, rnd)
         inv = torch.argsort(perm, dim=1)
         active = ~done
         p = lambda x: _perm_lanes(x, perm)
         u = lambda x: _perm_lanes(x, inv)
         act_p = p(active)
         ptable, s_ref = _refresh_table(t, state, layout, pcfg, ptable, rnd,
-                                       stale_in, nic)
+                                       stale_in, nic, rec)
 
         state, cache, res = txm.run_transactions(
             t, state, cfg, layout,
@@ -237,7 +288,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
             read_enabled=p(read_enabled) & act_p[..., None],
             write_enabled=p(write_enabled) & act_p[..., None],
             cache=cache, use_onesided=use_onesided, capacity=capacity,
-            fused=fused, nic=nic, rep=rep, ptable=ptable)
+            fused=fused, nic=nic, rep=rep, ptable=ptable, telemetry=rec)
         res = dataclasses.replace(res, **{
             k: u(getattr(res, k)) for k in (
                 "committed", "read_found", "read_values", "aborted_lock",
@@ -251,6 +302,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         if ptable is not None:
             stale_in = bool((res.aborted_stale & active).any())
         ys.append(_round_stats(rnd, newly, active, res, s_ref))
+        lat = _close_round(rec, n0, lat, active, ys[-1])
 
     cols, metrics, rts = _totals(ys)
     result = TxLoopResult(
@@ -262,6 +314,9 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         round_trips=rts,
         **cols,
     )
+    if rec is not None:
+        return state, cache, result, T.TelemetryOut(trace=rec.buf,
+                                                    lane_latency_us=lat)
     return state, cache, result
 
 
@@ -293,7 +348,8 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
               scan_enabled=None, write_enabled=None,
               capacity: Optional[int] = None, max_rounds: int = 4, perms=None,
               fused: bool = True, nic=None, rep=None, refresh: bool = True,
-              ptable=None, pcfg=None, device="cuda"):
+              ptable=None, pcfg=None,
+              telemetry: Optional[T.TelemetryConfig] = None, device="cuda"):
     """Run a batch of range-scan transactions to convergence.
 
     Arguments mirror tx.run_scan_transactions; additionally:
@@ -309,9 +365,14 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
                   and the backup fan-out go through the table; a retry
                   round entered with stale-route aborts refreshes it (after
                   the directory), as tx_loop does.
+      telemetry:  optional telemetry.TelemetryConfig — tx_loop's flight
+                  recorder; the up-front directory fetch is a REFRESH row
+                  of round -1, each round's directory refresh a REFRESH row
+                  (zero wire in round 0, where it is not accounted).
       device:     where the protocol runs; ``state["arena"]`` must be there.
-    Returns (state, meta, ScanLoopResult); ``state["arena"]`` is updated in
-    place."""
+    Returns (state, meta, ScanLoopResult) — plus a ``telemetry.TelemetryOut``
+    as a fourth element when ``telemetry`` is given; ``state["arena"]`` is
+    updated in place."""
     _check_placement(ptable, pcfg, "scan_loop")
     dev = _on_device(state, device, "scan_loop")
     scan_lo = _as_words(scan_lo, dev)
@@ -331,9 +392,13 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         write_enabled = torch.ones((N, B, Wr), dtype=torch.bool)
     scan_enabled = torch.as_tensor(scan_enabled, dtype=torch.bool).to(dev)
     write_enabled = torch.as_tensor(write_enabled, dtype=torch.bool).to(dev)
+    rec, lat = _recorder(telemetry, t, max_rounds, N, B, dev)
     init_wire = WireStats.zero(dev)
     if meta is None:
         meta, init_wire = bt.refresh_meta(t, state, cfg, layout, nic=nic)
+        if rec is not None:
+            rec.set_round(-1)
+            _record_directory(rec, init_wire)
 
     done = torch.zeros((N, B), dtype=torch.bool, device=dev)
     trunc = torch.zeros((N, B), dtype=torch.bool, device=dev)
@@ -346,6 +411,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
     stale_in = False
     for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
                                             SCAN_SEED, "scan_loop")):
+        n0 = _open_round(rec, rnd)
         inv = torch.argsort(perm, dim=1)
         active = ~done
         p = lambda x: _perm_lanes(x, perm)
@@ -358,8 +424,11 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         s_ref = None
         if refresh and rnd > 0:
             meta, s_ref = bt.refresh_meta(t, state, cfg, layout, nic=nic)
+        if refresh and rec is not None:
+            _record_directory(rec, s_ref if s_ref is not None
+                              else WireStats.zero(dev))
         ptable, s_pl = _refresh_table(t, state, layout, pcfg, ptable, rnd,
-                                      stale_in, nic)
+                                      stale_in, nic, rec)
         if s_pl is not None:
             s_ref = s_pl if s_ref is None else s_ref + s_pl
 
@@ -369,7 +438,8 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
             write_keys=p(write_keys), write_values=p(write_values),
             scan_enabled=p(scan_enabled) & act_p,
             write_enabled=p(write_enabled) & act_p[..., None],
-            capacity=capacity, fused=fused, nic=nic, rep=rep, ptable=ptable)
+            capacity=capacity, fused=fused, nic=nic, rep=rep, ptable=ptable,
+            telemetry=rec)
         res = dataclasses.replace(res, **{
             k: u(getattr(res, k)) for k in (
                 "committed", "truncated", "scan_keys", "scan_values",
@@ -387,6 +457,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         if ptable is not None:
             stale_in = bool((res.aborted_stale & active).any())
         ys.append(_round_stats(rnd, newly, active, res, s_ref))
+        lat = _close_round(rec, n0, lat, active, ys[-1])
 
     cols, metrics, rts = _totals(ys, init_wire)
     result = ScanLoopResult(
@@ -398,4 +469,19 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         round_trips=rts,
         **cols,
     )
+    if rec is not None:
+        return state, meta, result, T.TelemetryOut(trace=rec.buf,
+                                                   lane_latency_us=lat)
     return state, meta, result
+
+
+def _record_directory(rec, stats):
+    """The separator-directory refresh's REFRESH row: a uniform all-to-all
+    (every node reads every node), so its per-destination tails are the
+    scalar split evenly.  Round 0 accounts no refresh (the reference reads
+    but does not account it): its ``stats`` are zero."""
+    nd = rec.buf.n_dst
+    rec.record(T.PH_REFRESH, stats,
+               per_dest_msgs=(stats.messages / nd).expand(nd),
+               per_dest_bytes=((stats.req_bytes + stats.reply_bytes) / nd
+                               ).expand(nd))

@@ -113,42 +113,52 @@ def tatp_transactions(klo, khi, *, n_nodes, lanes, subscribers_per_node,
             torch.from_numpy(write_en).to(dev), wvals)
 
 
-def gate_tx_smoke(device="cuda"):
+GATE_NODES, GATE_LANES, GATE_MAX_ROUNDS = 4, 8, 2
+
+
+def gate_tx_runs(device="cuda"):
     """The bench gate's fused tx_loop workload (``bench_gate._tx_smoke``: 4
     nodes, 8 lanes, 256 buckets, 64 keys per node, seed 5, 2 rounds), run
     unreplicated and then, from the same populated state, at
     ``ReplicaConfig(4, 1)``.
 
-    Returns (state, TxLoopResult, keys, state_f1): the unreplicated run's
-    final state and result, the gate's top-level keys ``round_trips`` /
-    ``rt_round`` / ``commit_rate`` / ``wire_bytes_tx`` with its
-    ``replication`` keys ``round_trips_f1`` / ``wire_bytes_tx_f1`` /
-    ``commit_rate_f1``, rounded as ``bench_gate.collect`` rounds them, and
-    the f=1 run's final state."""
+    Returns a dict: ``t``, ``cfg``, ``layout``, the ``populated`` arenas
+    (untouched), the loop's keyword arguments ``kw`` (the batch, the bound,
+    the device) and the two runs' (final state, TxLoopResult) as ``f0`` and
+    ``f1``."""
     from repro_torch.core import txloop as txl
     from repro_torch.core.replication import ReplicaConfig
     from repro_torch.core.transport import SimTransport
 
     dev = resolve_device(device)
-    n_nodes, lanes, max_rounds = 4, 8, 2
-    cfg = ht.HashTableConfig(n_nodes=n_nodes, n_buckets=256, bucket_width=1,
-                             n_overflow=64, max_chain=8)
+    cfg = ht.HashTableConfig(n_nodes=GATE_NODES, n_buckets=256,
+                             bucket_width=1, n_overflow=64, max_chain=8)
     layout = ht.build_layout(cfg)
-    t = SimTransport(n_nodes)
+    t = SimTransport(GATE_NODES)
     state = ht.init_cluster_state(cfg, device=dev)
-    state, rk, wk, wv = make_tx_workload(t, cfg, layout, state, lanes=lanes,
-                                         n_keys=64, seed=5, device=dev)
-    populated = {"arena": state["arena"].clone()}
-    state, _, res = txl.tx_loop(t, state, cfg, layout, read_keys=rk,
-                                write_keys=wk, write_values=wv,
-                                max_rounds=max_rounds, device=dev)
-    state1, _, res1 = txl.tx_loop(t, populated, cfg, layout, read_keys=rk,
-                                  write_keys=wk, write_values=wv,
-                                  max_rounds=max_rounds,
-                                  rep=ReplicaConfig(n_nodes, 1), device=dev)
+    state, rk, wk, wv = make_tx_workload(t, cfg, layout, state,
+                                         lanes=GATE_LANES, n_keys=64, seed=5,
+                                         device=dev)
+    populated = state["arena"].clone()
+    kw = dict(read_keys=rk, write_keys=wk, write_values=wv,
+              max_rounds=GATE_MAX_ROUNDS, device=dev)
+    state, _, res = txl.tx_loop(t, state, cfg, layout, **kw)
+    state1, _, res1 = txl.tx_loop(t, {"arena": populated.clone()}, cfg,
+                                  layout, rep=ReplicaConfig(GATE_NODES, 1),
+                                  **kw)
+    return dict(t=t, cfg=cfg, layout=layout, populated=populated, kw=kw,
+                f0=(state, res), f1=(state1, res1))
+
+
+def gate_tx_keys(res, res1):
+    """The gate's top-level keys ``round_trips`` / ``rt_round`` /
+    ``commit_rate`` / ``wire_bytes_tx`` of the f=0 TxLoopResult, with the
+    ``replication`` keys ``round_trips_f1`` / ``wire_bytes_tx_f1`` /
+    ``commit_rate_f1`` of the f=1 one, rounded as ``bench_gate.collect``
+    rounds them."""
     rounds_attempted = int((res.round_attempts > 0).sum())
-    n_tx = n_nodes * lanes
-    keys = {
+    n_tx = GATE_NODES * GATE_LANES
+    return {
         "round_trips": float(res.round_trips),
         "rt_round": round(float(res.round_trips) / max(rounds_attempted, 1), 4),
         "commit_rate": round(float(res.committed.float().mean()), 4),
@@ -160,7 +170,6 @@ def gate_tx_smoke(device="cuda"):
             "commit_rate_f1": round(float(res1.committed.float().mean()), 4),
         },
     }
-    return state, res, keys, state1
 
 
 # ---------------------------------------------------------------------------
@@ -230,32 +239,37 @@ def scan_workload(allk, n_nodes, lanes, *, scan_frac, seed, theta=0.0,
             torch.from_numpy(~is_scan)[..., None].to(dev))
 
 
-def gate_ordered(device="cuda"):
-    """The bench gate's ``ordered`` keys (``range_scan.gate_numbers``):
-    ``scan_round_trips``, the exchange rounds of a fused pure scan over a
-    fresh directory (``check_schedule_claims``: 4 nodes x 48 keys, tree seed
-    5, scans seed 9), and ``commit_rate`` of the scan-heavy mix (scan_frac
-    0.9, seed 7) through scan_loop with 2 rounds.  Returns (keys, state of
-    the mix's tree after the loop)."""
+def gate_ordered_runs(device="cuda"):
+    """The bench gate's ordered workload (``range_scan.gate_numbers``): a
+    fused pure scan over a fresh directory (``check_schedule_claims``: 4
+    nodes x 48 keys, tree seed 5, scans seed 9), then the scan-heavy mix
+    (scan_frac 0.9, seed 7) through scan_loop with 2 rounds.  Returns (the
+    pure scan's ScanTxResult, the tree's state after the loop, the loop's
+    ScanLoopResult)."""
     from repro_torch.core import tx as txm
     from repro_torch.core import txloop as txl
 
-    n_nodes, lanes = 4, 8
-    cfg, layout, t, state, allk, meta = build_tree(n_nodes, seed=5,
+    cfg, layout, t, state, allk, meta = build_tree(GATE_NODES, seed=5,
                                                    device=device)
-    lo, hi, _, _ = scan_workload(allk, n_nodes, lanes, scan_frac=1.0, seed=9,
-                                 device=device)
+    lo, hi, _, _ = scan_workload(allk, GATE_NODES, GATE_LANES, scan_frac=1.0,
+                                 seed=9, device=device)
     _, res_f = txm.run_scan_transactions(t, state, cfg, layout, scan_lo=lo,
                                          scan_hi=hi, meta=meta)
-    lo, hi, wk, wen = scan_workload(allk, n_nodes, lanes, scan_frac=0.9,
-                                    seed=7, device=device)
+    lo, hi, wk, wen = scan_workload(allk, GATE_NODES, GATE_LANES,
+                                    scan_frac=0.9, seed=7, device=device)
     state, _, res = txl.scan_loop(
         t, state, cfg, layout, scan_lo=lo, scan_hi=hi, meta=meta,
         write_keys=wk, write_values=value_for(wk), write_enabled=wen,
         max_rounds=2, device=device)
+    return res_f, state, res
+
+
+def gate_ordered_keys(res_f, res):
+    """The gate's ``ordered`` protocol keys of :func:`gate_ordered_runs`:
+    ``scan_round_trips`` of the pure scan and ``commit_rate`` of the mix,
+    as ``range_scan.gate_numbers`` rounds them."""
     return {"scan_round_trips": float(res_f.round_trips),
-            "commit_rate": round(float(res.committed.float().mean()), 4)}, \
-        state
+            "commit_rate": round(float(res.committed.float().mean()), 4)}
 
 
 def fence_chain_keys(cfg, layout, arena, node):

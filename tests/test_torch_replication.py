@@ -453,7 +453,9 @@ def test_gate_f1_keys_exact(bench_common):
     equal to the reference's (bench_gate._tx_smoke's f=1 tx_loop)."""
     baseline = json.loads((ROOT / "benchmarks" / "BENCH_BASELINE.json")
                           .read_text())["replication"]
-    _, _, keys, state_f1 = pwl.gate_tx_smoke(device=CPU)
+    runs = pwl.gate_tx_runs(device=CPU)
+    keys = pwl.gate_tx_keys(runs["f0"][1], runs["f1"][1])
+    state_f1 = runs["f1"][0]
     assert keys["replication"] == {"round_trips_f1": 4.0,
                                    "wire_bytes_tx_f1": 1031.12,
                                    "commit_rate_f1": 1.0}

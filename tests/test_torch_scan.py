@@ -287,7 +287,8 @@ def test_ordered_gate_numbers_exact(range_scan):
     permutations."""
     baseline = json.loads((ROOT / "benchmarks" / "BENCH_BASELINE.json")
                           .read_text())["ordered"]
-    keys, _ = pwl.gate_ordered(device=CPU)
+    res_f, _, res = pwl.gate_ordered_runs(device=CPU)
+    keys = pwl.gate_ordered_keys(res_f, res)
     assert keys == {"scan_round_trips": 2.0, "commit_rate": 1.0}
     assert keys == {k: baseline[k] for k in keys}
     jcfg, jl, jt, js, jallk, jmeta = range_scan.build_tree(4, seed=5)

@@ -82,7 +82,8 @@ def test_gate_workload_matches_reference_and_baseline(bench_common):
     # the same keys through the port's gate entry point, against the file
     baseline = json.loads((ROOT / "benchmarks" / "BENCH_BASELINE.json")
                           .read_text())
-    _, _, keys, _ = pwl.gate_tx_smoke(device=CPU)
+    runs = pwl.gate_tx_runs(device=CPU)
+    keys = pwl.gate_tx_keys(runs["f0"][1], runs["f1"][1])
     rep = keys.pop("replication")
     assert keys == {k: baseline[k] for k in keys}
     assert keys == {"round_trips": 4.0, "rt_round": 4.0, "commit_rate": 1.0,
