@@ -96,7 +96,23 @@ Phases (any failure exits non-zero):
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
      logits, ids in the vocabulary, the cache's length and dtypes; then one
-     decode step and one prefill under torch.profiler.
+     decode step and one prefill under torch.profiler;
+ 11. the dense and pure-SSM families (gemma2-27b, qwen2.5-32b, qwen1.5-4b,
+     glm4-9b, mamba2-780m) at their smoke() sizes, float32, prefill and 4
+     decode steps on the card against the CPU, with the launches of each
+     prefill; gemma2-27b at full width cut to 2 layers (one local, one
+     global), float32, card against CPU after its conditioning is measured;
+ 12. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
+     D 128, group 2, causal, softcap 50, with and without its 4096-token
+     window) and ``ssd_scan`` at mamba2-780m's (B 8, 8 chunks of 256, H 48,
+     P 64, N 128) against their plain versions, with the negative control,
+     timed beside their bounds, the plain versions and, for attention,
+     ``scaled_dot_product_attention`` (no softcap, not the same function);
+ 13. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
+     layers, 8 x 2048) served at full size through ``repro_torch.launch.serve``
+     with 32 greedy tokens each, as in phase 10, each with its own launch
+     counts (46 ``flash_attention`` and 0 ``ssd_scan``; 0 and 48) and its
+     peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
@@ -120,6 +136,18 @@ TF32_FLOP_PER_S = 495e12          # dense TF32 tensor-core peak (data sheet)
 # the serving main path: zamba2-1.2b at full size, 8 requests x 2048-token
 # prompts, then 32 greedy tokens
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE = "zamba2-1.2b", 8, 2048, 32
+# the dense and pure-SSM families: gemma2-27b at full size over its published
+# 8,192-token context, 2 requests, 32 greedy tokens; mamba2-780m, 8 x 2048
+DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE = "gemma2-27b", 2, 8192, 32
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_DECODE = "mamba2-780m", 8, 2048, 32
+# card against CPU: every arch of those families at smoke() size (a prompt
+# longer than gemma2's smoke window of 64, three SSD chunks of 32), and
+# gemma2-27b at full width cut to 2 layers (one local, one global) with a
+# prompt past its 4096-token window, so the local layer's window bites
+FAMILY_ARCHS = ("gemma2-27b", "qwen2.5-32b", "qwen1.5-4b", "glm4-9b",
+                "mamba2-780m")
+SMOKE_PROMPT, SMOKE_DECODE = 96, 4
+GEMMA_LAYERS, GEMMA_PROMPT, GEMMA_DECODE = 2, 4608, 4
 # card against CPU: zamba2-1.2b at full width cut to 7 layers (one shared
 # block application and one tail layer), B 1, 256-token prompt, 4 decode steps
 PARITY_LAYERS, PARITY_PROMPT, PARITY_DECODE = 7, 256, 4
@@ -1548,30 +1576,32 @@ FLASH_KERNEL = {"bfloat16": "bf16 tensor-core kernel, wgmma + TMA, 128 x 128",
                 "float32": "float32 CUDA-core kernel, 64 x 64"}
 
 
-def flash_flops(BH, Sq, Sk, D, causal):
-    """The two products over the (q, k) pairs the mask keeps."""
+def flash_flops(BH, Sq, Sk, D, causal, window=None):
+    """The two products over the (q, k) pairs the mask keeps: causal, and
+    within the window (k > q - window) where there is one."""
     import numpy as np
-    qpos = np.arange(Sq)[:, None]
-    kpos = np.arange(Sk)[None, :]
-    pairs = int((qpos >= kpos).sum()) if causal else Sq * Sk
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window is not None else 0
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
     return 4 * BH * D * pairs
 
 
-def flash_bound(BH, Sq, Sk, D, causal, elem_bytes):
+def flash_bound(BH, Sq, Sk, D, causal, elem_bytes, window=None, group=1):
     """Least time (ms) for one call and what bounds it: the two products
     over the pairs the mask keeps, at the bf16 tensor-core peak, against
-    q, k, v read once and out written once."""
-    flops = flash_flops(BH, Sq, Sk, D, causal)
-    byts = elem_bytes * D * (2 * BH * Sq + 2 * BH * Sk)
+    q, k, v (BH / group kv heads) read once and out written once."""
+    flops = flash_flops(BH, Sq, Sk, D, causal, window)
+    byts = elem_bytes * D * (2 * BH * Sq + 2 * (BH // group) * Sk)
     t_ops, t_mem = flops / BF16_FLOP_PER_S, byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
 
 
 def flash_checks(dev, rows):
-    """flash_attention against its plain version at every case, then timed
-    at the serving shape beside its plain version and PyTorch's
-    scaled_dot_product_attention."""
-    import torch
+    """flash_attention against its plain version at every case, then at each
+    main path's prefill shapes (flash_path_shapes): checked and timed beside
+    its plain version and PyTorch's scaled_dot_product_attention.  The
+    first shape, zamba2's, fills the kernels row."""
     from repro_torch.kernels import flash_attention as fa
     err = 0.0
     for i, (B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt) in \
@@ -1584,54 +1614,147 @@ def flash_checks(dev, rows):
             f"flash_attention case {i} ({FLASH_KERNEL[dt]}): B={B} Sq={Sq} "
             f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
             f"window={window} softcap={cap} {dt}", got, want, dt))
+    for n, shape in enumerate(flash_path_shapes()):
+        e, ms = flash_at_shape(dev, *shape)
+        if n == 0:
+            rows["flash_attention"].update(max_abs_err=max(err, e), **ms)
 
-    # the serving shape: the shared block's prefill attention, with diffuse
-    # and with sharp scores
+
+def flash_path_shapes():
+    """(label, B, S, Hq, Hkv, D, window, softcap, sharp scores held to,
+    seed of the inputs) of
+    flash_attention in the main paths' prefills: zamba2's shared block, and
+    gemma2-27b's global and local layers.  At gemma2's 67M outputs one p
+    that rounds to the other bf16 neighbour, in the kernel or in the plain
+    version, can put them 2 ulps apart with both as far from the exact
+    answer, so there sharp scores are held to the float64 answer."""
     from repro_torch.configs.registry import get
-    cfg = get(SERVE_ARCH)
-    B, S, H, D = SERVE_BATCH, SERVE_PROMPT, cfg.n_heads, cfg.head_dim
-    for scale in (1.5, 0.5):
-        q, k, v = flash_inputs(B, S, S, H, H, D, "bfloat16", dev, 99,
-                               qk_scale=scale)
-        got = fa.flash_attention_bhsd(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
-        err = max(err, _flash_compare(
-            f"flash_attention at the serving shape (BH={B * H}, S={S}, "
-            f"D={D}, causal, bf16, scores of std {scale ** 2})", got, want,
-            "bfloat16"))
-    # the limit rejects a fault confined to one kv block far from the
-    # diagonal: the plain version with v's rows 0..63 zeroed, held against
-    # the kernel in the rows S/2.. (diffuse scores, where outputs are least)
+    z, g = get(SERVE_ARCH), get(DENSE_ARCH)
+    dense = (DENSE_BATCH, DENSE_PROMPT, g.n_heads, g.n_kv_heads, g.head_dim)
+    return [("zamba2's shared block", SERVE_BATCH, SERVE_PROMPT, z.n_heads,
+             z.n_kv_heads, z.head_dim, None, None, "plain", 99),
+            ("gemma2's global layers", *dense, None, g.attn_softcap,
+             "float64", 98),
+            ("gemma2's local layers", *dense, g.sliding_window,
+             g.attn_softcap, "float64", 98)]
+
+
+def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
+                   seed):
+    """flash_attention (bf16, causal) at one main-path shape: with sharp
+    scores (std 2.25) against its plain version element by element, or
+    against the float64 answer on the rows where kernel and plain differ
+    most and as many at random; with diffuse scores (std 0.25) against its
+    plain version element by element, with the dropped-kv-block negative
+    control; then timed beside its plain version, its bound over the
+    unmasked pairs and scaled_dot_product_attention.  Returns the largest
+    |kernel - plain| and the kernels row's timing keys."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    group, BH = Hq // Hkv, B * Hq
+    kw = dict(causal=True, window=window, softcap=cap, group=group)
+    tag = (f"flash_attention at {label} (BH={BH}, S={S}, D={D}, group "
+           f"{group}, causal, window={window}, softcap={cap}, bf16, "
+           f"{FLASH_KERNEL['bfloat16']}")
+    q, k, v = flash_inputs(B, S, S, Hq, Hkv, D, "bfloat16", dev, seed,
+                           qk_scale=1.5)
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    if sharp_vs == "plain":
+        err = _flash_compare(f"{tag}, scores of std 2.25)", got, want,
+                             "bfloat16")
+    else:
+        gap = flash_excess(got, want, "bfloat16")[0].amax(-1).flatten()
+        err = float((got.float() - want.float()).abs().max())
+        g = torch.Generator(device=dev).manual_seed(5)
+        pick = torch.cat([gap.topk(EXACT_ROWS).indices, torch.randint(
+            0, BH * S, (EXACT_ROWS,), device=dev, generator=g)])
+        heads, rows = pick // S, pick % S
+        exact = exact_rows(q, k, v, heads, rows, window=window, softcap=cap,
+                           group=group)
+        k_over = float(flash_excess(got[heads, rows], exact,
+                                    "bfloat16")[0].max())
+        p_over = float(flash_excess(want[heads, rows], exact,
+                                    "bfloat16")[0].max())
+        print(f"{tag}, scores of std 2.25): kernel vs plain "
+              f"{float(gap.max()):.3f} of the limit ({FLASH_ULPS['bfloat16']}"
+              f" ulps of |plain| + row rms, information); on "
+              f"{2 * EXACT_ROWS} rows (the {EXACT_ROWS} with the largest gaps "
+              f"and {EXACT_ROWS} at random) against the float64 answer: "
+              f"kernel {k_over:.3f}, plain {p_over:.3f} of the same limit "
+              f"around it", flush=True)
+        check(k_over <= 1, f"{tag}, sharp scores): kernel != float64 answer")
+    q, k, v = flash_inputs(B, S, S, Hq, Hkv, D, "bfloat16", dev, seed,
+                           qk_scale=0.5)
+    got = fa.flash_attention_bhsd(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    err = max(err, _flash_compare(f"{tag}, scores of std 0.25)", got, want,
+                                  "bfloat16"))
+    # negative control: the plain version with v's rows lo..lo+63 zeroed,
+    # held against the kernel in the rows S/2.. that see all of them (diffuse
+    # scores, where outputs are least)
+    lo = 0 if window is None else S // 2 - 64
+    rows = slice(S // 2, S if window is None else lo + window)
     v0 = v.clone()
-    v0[:, :64] = 0
-    bad = fa.flash_attention_plain(q, k, v0, causal=True)
-    over, _ = flash_excess(got[:, S // 2:], bad[:, S // 2:], "bfloat16")
+    v0[:, lo:lo + 64] = 0
+    bad = fa.flash_attention_plain(q, k, v0, **kw)
+    over, _ = flash_excess(got[:, rows], bad[:, rows], "bfloat16")
     caught = float((over.amax(-1) > 1).float().mean())
-    print(f"flash_attention negative control (kv rows 0..63 dropped from v): "
-          f"the limit rejects {caught:.4f} of the rows S/2.. (max |diff| "
-          f"{float((got - bad)[:, S // 2:].float().abs().max()):.3e})",
+    print(f"{tag}) negative control (kv rows {lo}..{lo + 63} dropped from "
+          f"v): the limit rejects {caught:.4f} of the rows {rows.start}.."
+          f"{rows.stop - 1} (max |diff| "
+          f"{float((got - bad)[:, rows].float().abs().max()):.3e})",
           flush=True)
-    check(caught > 0.99, "the flash_attention limit does not reject a "
-          "dropped kv block")
+    check(caught > 0.99, f"{tag}): the limit does not reject a dropped kv "
+          "block")
     del got, want, bad, v0, over
-    q4, k4, v4 = (t.reshape(B, H, S, D) for t in (q, k, v))
+    q4 = q.reshape(B, Hq, S, D)
+    k4, v4 = (t.reshape(B, Hkv, S, D) for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k_ms = time_cuda(lambda: fa.flash_attention_bhsd(q, k, v, causal=True), 20)
-    p_ms = time_cuda(lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
-    l_ms = time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True), 20)
-    bound_ms, bound_by = flash_bound(B * H, S, S, D, True, 2)
-    ks, ps, ls = (_mean(t) for t in (k_ms, p_ms, l_ms))
-    tflop = flash_flops(B * H, S, S, D, True) / 1e12
-    print(f"flash_attention at the serving shape (BH={B * H}, S={S}, D={D}, "
-          f"causal, bf16, {FLASH_KERNEL['bfloat16']}): kernel {ks:.4f} ms "
-          f"({tflop / ks * 1e3:.1f} TFLOP/s), plain {ps:.4f} ms, "
-          f"scaled_dot_product_attention {ls:.4f} ms "
-          f"({tflop / ls * 1e3:.1f} TFLOP/s), bound {bound_ms:.5f} ms "
-          f"({bound_by}, {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); kernel "
-          f"/ SDPA {ks / ls:.3f}", flush=True)
-    rows["flash_attention"].update(max_abs_err=err, ms=ks, plain_ms=ps,
-                                   library_ms=ls, bound_ms=bound_ms,
-                                   bound_by=bound_by)
+    ks = _mean(time_cuda(lambda: fa.flash_attention_bhsd(q, k, v, **kw), 20))
+    ps = _mean(time_cuda(lambda: fa.flash_attention_plain(q, k, v, **kw), 3))
+    ls = _mean(time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                      enable_gqa=group > 1), 20))
+    bound_ms, bound_by = flash_bound(BH, S, S, D, True, 2, window, group)
+    tflop = flash_flops(BH, S, S, D, True, window) / 1e12
+    same = ("" if window is None and cap is None else
+            " (no softcap, no window: not the same function)")
+    print(f"{tag}): kernel {ks:.4f} ms ({tflop / ks * 1e3:.1f} TFLOP/s of "
+          f"the unmasked pairs), plain {ps:.4f} ms, "
+          f"scaled_dot_product_attention(is_causal=True) {ls:.4f} ms "
+          f"({tflop / ls * 1e3:.1f} TFLOP/s){same}, bound {bound_ms:.5f} ms "
+          f"({bound_by}, {tflop * 1e3:.1f} GFLOP at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); kernel / SDPA "
+          f"{ks / ls:.3f}; {time.perf_counter() - t0:.1f} s; card {card()}",
+          flush=True)
+    return err, dict(ms=ks, plain_ms=ps, library_ms=ls, bound_ms=bound_ms,
+                     bound_by=bound_by)
+
+
+def exact_rows(q, k, v, heads, rows, *, window, softcap, group):
+    """float64 attention of the (head, row) pairs from the same bf16 inputs
+    (causal, optional window and softcap): the exact answer."""
+    import torch
+    D, Sk = q.shape[-1], k.shape[1]
+    kpos = torch.arange(Sk, device=q.device)
+    out = []
+    for h, r in zip(heads.split(32), rows.split(32)):
+        s = torch.einsum("nd,nkd->nk", q[h, r].double(),
+                         k[h // group].double()) * D ** -0.5
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        keep = kpos[None] <= r[:, None]
+        if window is not None:
+            keep &= kpos[None] > r[:, None] - window
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+        out.append(torch.einsum("nk,nkd->nd", p, v[h // group].double()))
+    return torch.cat(out)
+
+
+# rows of the sharp-score check held against the float64 answer: those with
+# the largest kernel-vs-plain gaps, and as many drawn at random
+EXACT_ROWS = 128
 
 
 def _flash_compare(tag, got, want, dtype):
@@ -1678,55 +1801,73 @@ def ssd_bound(B, nc, Q, H, P, N, flop_per_s=F32_FLOP_PER_S, passes=1):
 
 
 def ssd_checks(dev, rows):
-    """ssd_scan against its plain version at every case, then timed at the
-    serving shape beside its plain version (no single PyTorch call computes
-    it)."""
+    """ssd_scan against its plain version at every case, then at each main
+    path's prefill shape (ssd_path_shapes), checked and timed beside its
+    plain version and its bounds (no single PyTorch call computes it).  The
+    first shape, zamba2's, fills the kernels row."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     err = 0.0
-    cases = list(SSD_CASES)
-    cfg_shape = _serve_ssd_shape()
-    for i, (B, nc, Q, H, P, N, h_tile, with_init) in enumerate(
-            cases + [cfg_shape + (1, False)]):
+    for i, (B, nc, Q, H, P, N, h_tile, with_init) in enumerate(SSD_CASES):
         xdt, dA, Bc, Cc = ssd_inputs(B, nc, Q, H, P, N, dev, i)
         init = (torch.randn((B, H, N, P), device=dev) * 0.1 if with_init
                 else None)
-        y, st = ss.ssd_scan(xdt, dA, Bc, Cc, h_tile=h_tile, init_state=init)
-        yp, sp = ss.ssd_scan_plain(xdt, dA, Bc, Cc, init_state=init)
-        e = max(float((y - yp).abs().max()), float((st - sp).abs().max()))
-        scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
-        serving = i == len(cases)
-        print(f"ssd_scan {'serving shape' if serving else f'case {i}'}: "
-              f"B={B} nc={nc} Q={Q} H={H} P={P} N={N} h_tile={h_tile} "
-              f"init={with_init}: max |kernel - plain| {e:.3e} (limit "
-              f"{SSD_RTOL * scale:.3e})", flush=True)
-        check(e <= SSD_RTOL * scale, f"ssd_scan != plain at case {i}")
-        err = max(err, e)
-    k_ms = time_cuda(lambda: ss.ssd_scan(xdt, dA, Bc, Cc, h_tile=1), 10)
-    p_ms = time_cuda(lambda: ss.ssd_scan_plain(xdt, dA, Bc, Cc), 5)
-    bound_ms, bound_by = ssd_bound(*cfg_shape)
-    tc_ms, tc_by = ssd_bound(*cfg_shape, flop_per_s=TF32_FLOP_PER_S, passes=3)
-    ks, ps = _mean(k_ms), _mean(p_ms)
-    tflop = ssd_flops(*cfg_shape) / 1e12
-    print(f"ssd_scan at the serving shape {cfg_shape} (3 CUDA kernels: "
-          f"chunk states and C B^T, state passing, outputs; 3xTF32 "
-          f"mma.sync): kernel "
-          f"{ks:.4f} ms ({tflop / ks * 1e3:.2f} TFLOP/s of the causal work), "
-          f"plain {ps:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, float32 "
-          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); 3xTF32 tensor-core bound "
-          f"{tc_ms:.5f} ms ({tc_by}, 3 x {tflop * 1e3:.1f} GFLOP at "
-          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)", flush=True)
-    rows["ssd_scan"].update(max_abs_err=err, ms=ks, plain_ms=ps,
-                            bound_ms=bound_ms, bound_by=bound_by)
+        err = max(err, _ssd_compare(
+            f"ssd_scan case {i}: B={B} nc={nc} Q={Q} H={H} P={P} N={N} "
+            f"h_tile={h_tile} init={with_init}", (xdt, dA, Bc, Cc), h_tile,
+            init))
+    for n, (label, shape) in enumerate(ssd_path_shapes()):
+        t0 = time.perf_counter()
+        x = ssd_inputs(*shape, dev, len(SSD_CASES) + n)
+        tag = f"ssd_scan at {label}'s prefill shape (B, nc, Q, H, P, N) = {shape}"
+        e = _ssd_compare(tag, x, 1, None)
+        ks = _mean(time_cuda(lambda: ss.ssd_scan(*x, h_tile=1), 10))
+        ps = _mean(time_cuda(lambda: ss.ssd_scan_plain(*x), 5))
+        bound_ms, bound_by = ssd_bound(*shape)
+        tc_ms, tc_by = ssd_bound(*shape, flop_per_s=TF32_FLOP_PER_S, passes=3)
+        tflop = ssd_flops(*shape) / 1e12
+        print(f"{tag} (3 CUDA kernels: chunk states and C B^T, state "
+              f"passing, outputs; 3xTF32 mma.sync): kernel {ks:.4f} ms "
+              f"({tflop / ks * 1e3:.2f} TFLOP/s of the causal work), plain "
+              f"{ps:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, float32 "
+              f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); 3xTF32 tensor-core "
+              f"bound {tc_ms:.5f} ms ({tc_by}, 3 x {tflop * 1e3:.1f} GFLOP at "
+              f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s); "
+              f"{time.perf_counter() - t0:.1f} s; card {card()}", flush=True)
+        if n == 0:
+            rows["ssd_scan"].update(max_abs_err=max(err, e), ms=ks,
+                                    plain_ms=ps, bound_ms=bound_ms,
+                                    bound_by=bound_by)
 
 
-def _serve_ssd_shape():
-    """(B, nc, Q, H, P, N) of ssd_scan in the serving main path's prefill."""
+def _ssd_compare(tag, x, h_tile, init):
+    """ssd_scan against its plain version on inputs x = (xdt, dA, B, C):
+    y and the final state within SSD_RTOL.  Returns the largest error."""
+    from repro_torch.kernels import ssd_scan as ss
+    y, st = ss.ssd_scan(*x, h_tile=h_tile, init_state=init)
+    yp, sp = ss.ssd_scan_plain(*x, init_state=init)
+    e = max(float((y - yp).abs().max()), float((st - sp).abs().max()))
+    scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+    print(f"{tag}: max |kernel - plain| {e:.3e} (limit "
+          f"{SSD_RTOL * scale:.3e})", flush=True)
+    check(e <= SSD_RTOL * scale, f"{tag}: ssd_scan != plain")
+    return e
+
+
+def ssd_shape(arch, batch, prompt):
+    """(B, nc, Q, H, P, N) of ssd_scan in ``arch``'s prefill."""
     from repro_torch.configs.registry import get
-    cfg = get(SERVE_ARCH)
-    Q = min(cfg.ssm_chunk, SERVE_PROMPT)
-    return (SERVE_BATCH, SERVE_PROMPT // Q, Q, cfg.ssm_heads,
-            cfg.ssm_head_dim, cfg.ssm_state)
+    cfg = get(arch)
+    Q = min(cfg.ssm_chunk, prompt)
+    return (batch, prompt // Q, Q, cfg.ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_state)
+
+
+def ssd_path_shapes():
+    """(label, shape) of ssd_scan in the main paths' prefills: zamba2's
+    Mamba layers, then mamba2-780m's."""
+    return [("zamba2", ssd_shape(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT)),
+            ("mamba2-780m", ssd_shape(SSM_ARCH, SSM_BATCH, SSM_PROMPT))]
 
 
 def _mean(ms):
@@ -1740,12 +1881,10 @@ def teacher_forced(cfg, params, tokens, prompt, decode):
     """Prefill logits, then the logits of ``decode`` steps fed the next
     tokens of ``tokens`` (not the argmax, so two runs see the same
     inputs), and the final cache."""
-    from repro_torch.serving.decode import (grow_cache, make_decode_step,
-                                            make_prefill)
-    logits, cache = make_prefill(cfg, prompt)(params,
-                                              {"tokens": tokens[:, :prompt]})
+    from repro_torch.serving.decode import make_decode_step, make_prefill
+    logits, cache = make_prefill(cfg, prompt, room=decode)(
+        params, {"tokens": tokens[:, :prompt]})
     out = [logits]
-    cache = grow_cache(cache, decode)
     step = make_decode_step(cfg)
     for t in range(prompt, prompt + decode):
         logits, cache = step(params, cache, tokens[:, t])
@@ -1763,6 +1902,14 @@ def teacher_forced(cfg, params, tokens, prompt, decode):
 # beside the comparison; the tolerance sits a few times above it.  In bf16
 # the rounding is 2^-8, and card and CPU runs are compared for information.
 F32_REL = 1e-2
+# The dense and SSM families are well conditioned: gemma2-27b at full width
+# and 2 layers moves its float32 logits by ~2e-6 of their range for a 1e-7
+# change of the embeddings, and card and CPU runs of it and of the five
+# smoke configs came 7e-7 to 6.5e-5 of the range apart (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 6).  Their limit sits a few times above
+# the largest of those readings; gemma2's run measures its conditioning
+# first and fails if it is not well below the limit.
+F32_REL_FAMILY = 3e-4
 
 
 def _compare(tag, got, ref, V, rel):
@@ -1870,7 +2017,7 @@ def bf16_blocks(dev, cfg, params, pb):
     outs, states = [], None
     for p, d in ((params, "cpu"), (pb, dev)):
         to = lambda t: t.to(d)
-        lp = zamba.layer(p["layers"], 0)
+        lp = L.layer(p["layers"], 0)
         hp, (cs, st) = M.mamba_block(cfg, lp, to(h),
                                      conv_state=tuple(map(to, zero)))
         if states is None:                    # both decode from the CPU's
@@ -1898,11 +2045,12 @@ def _map_tree(tree, fn):
             for k, v in tree.items()}
 
 
-def serving_main_path(dev, rows):
-    """zamba2-1.2b at full size through repro_torch.launch.serve: prefill
-    SERVE_BATCH x SERVE_PROMPT tokens, then SERVE_DECODE greedy tokens, with
-    the kernels' launch counts read around that one run; one more decode
-    step and one more prefill under torch.profiler."""
+def serve_full_size(dev, arch, batch, prompt, decode, expect):
+    """``arch`` at full size through repro_torch.launch.serve: prefill
+    batch x prompt tokens, then ``decode`` greedy tokens, with the kernels'
+    launch counts set to 0 just before that one run and read just after
+    (``expect``: {kernel: launches}); what came out checked; one more decode
+    step and one more prefill under torch.profiler.  Returns the stats."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -1910,66 +2058,185 @@ def serving_main_path(dev, rows):
     from repro_torch.serving.decode import (cache_specs, make_decode_step,
                                             make_prefill)
 
-    cfg, params = serve.build(SERVE_ARCH, seed=0, device=dev)
+    t0 = time.perf_counter()
+    cfg, params = serve.build(arch, seed=0, device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"serve: {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
-          f"(config {cfg.n_params()} without the padded vocab rows), weights "
-          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f} GB",
+          f"(the config's formula {cfg.n_params()}: no padded vocab rows), "
+          f"weights {sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f}"
+          f" GB, drawn in {time.perf_counter() - t0:.2f} s; card {card()}",
           flush=True)
-    tokens = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_DECODE,
-                                dev)
+    tokens = serve.prompt_batch(cfg, batch, prompt, decode, dev)
     # warm-up (cuBLAS handles, allocator) at a small size, outside the count
-    w = SERVE_PROMPT // 8
+    w = prompt // 8
     serve.serve(cfg, params, tokens[:1, :w], w, 2)
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = ss.launches = 0
-    ids, st = serve.serve(cfg, params, tokens, SERVE_PROMPT, SERVE_DECODE)
+    ids, st = serve.serve(cfg, params, tokens, prompt, decode)
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
     stats = {
-        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode": SERVE_DECODE,
+        "arch": arch, "batch": batch, "prompt": prompt, "decode": decode,
         "prefill_ms": st["prefill_ms"],
-        "prefill_tok_per_s": SERVE_BATCH * SERVE_PROMPT / st["prefill_ms"] * 1e3,
+        "prefill_tok_per_s": batch * prompt / st["prefill_ms"] * 1e3,
         "decode_ms": st["decode_ms"], "decode_tokens": st["decode_tokens"],
         "decode_tok_per_s": st["decode_tok_per_s"],
-        "decode_ms_per_step": st["decode_ms"] / (SERVE_DECODE - 1),
+        "decode_ms_per_step": st["decode_ms"] / (decode - 1),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_prefill": launches,
     }
     print("serve: " + json.dumps(stats), flush=True)
-    for name, n in launches.items():
-        rows[name]["launches"] = n
-    napps = cfg.n_layers // cfg.shared_attn_every
-    check(launches == {"flash_attention": napps, "ssd_scan": cfg.n_layers},
-          f"launches per prefill {launches}, expected {napps} flash_attention "
-          f"and {cfg.n_layers} ssd_scan")
+    check(launches == expect, f"{arch}: launches per prefill {launches}, "
+          f"expected {expect}")
 
     # --- what came out is right ---------------------------------------------
     cache, last = st["cache"], st["last_logits"]
-    check(tuple(ids.shape) == (SERVE_BATCH, SERVE_DECODE), "generated ids shape")
+    check(tuple(ids.shape) == (batch, decode), f"{arch}: generated ids shape")
     check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
-          "a generated id is outside the real vocabulary")
+          f"{arch}: a generated id is outside the real vocabulary")
     check(bool(torch.isfinite(last[:, :cfg.vocab_size]).all()),
-          "non-finite logits")
-    check(bool((cache["len"] == SERVE_PROMPT + SERVE_DECODE - 1).all()),
-          "cache length")
-    for n in ("ssm", "shared_k", "shared_v", "conv_x"):
-        check(bool(torch.isfinite(cache[n].float()).all()), f"non-finite {n}")
-    for n, (shape, dt) in cache_specs(cfg, SERVE_BATCH, SERVE_PROMPT
-                                      + SERVE_DECODE).items():
+          f"{arch}: non-finite logits")
+    check(bool((cache["len"] == prompt + decode - 1).all()),
+          f"{arch}: cache length")
+    for n, (shape, dt) in cache_specs(cfg, batch, prompt + decode).items():
         check(cache[n].dtype == dt and tuple(cache[n].shape) == shape,
-              f"cache {n}: {cache[n].dtype} {tuple(cache[n].shape)}, expected "
-              f"{dt} {shape}")
+              f"{arch}: cache {n}: {cache[n].dtype} {tuple(cache[n].shape)}, "
+              f"expected {dt} {shape}")
+        # layer by layer: gemma2-27b's K region is 3.1 GB
+        check(all(bool(torch.isfinite(x).all()) for x in cache[n]),
+              f"{arch}: non-finite {n}")
     # --- one more decode step under the profiler ------------------------------
     step = make_decode_step(cfg)
     tok = ids[:, -1]
-    profile_round(lambda: step(params, cache, tok), label="decode step")
+    profile_round(lambda: step(params, cache, tok), label=f"{arch} decode step")
     del cache, st
     # --- and one more prefill, to show where its time goes ---------------------
-    prefill = make_prefill(cfg, SERVE_PROMPT)
-    profile_round(lambda: prefill(params, {"tokens": tokens[:, :SERVE_PROMPT]}),
-                  label="prefill")
+    prefill = make_prefill(cfg, prompt)
+    profile_round(lambda: prefill(params, {"tokens": tokens[:, :prompt]}),
+                  label=f"{arch} prefill")
     return stats
+
+
+def serving_main_path(dev, rows):
+    """zamba2-1.2b at full size (serve_full_size); its launch counts are the
+    kernels line's."""
+    from repro_torch.configs.registry import get
+    cfg = get(SERVE_ARCH)
+    napps = cfg.n_layers // cfg.shared_attn_every
+    stats = serve_full_size(dev, SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT,
+                            SERVE_DECODE, {"flash_attention": napps,
+                                           "ssd_scan": cfg.n_layers})
+    for name, n in stats["launches_per_prefill"].items():
+        rows[name]["launches"] = n
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# the dense and pure-SSM families: gemma2-27b and mamba2-780m
+# ---------------------------------------------------------------------------
+def _family_launches(cfg):
+    """Kernel launches of one prefill: a flash_attention per dense layer, an
+    ssd_scan per Mamba layer."""
+    n = cfg.n_layers
+    return ({"flash_attention": n, "ssd_scan": 0} if cfg.family == "dense"
+            else {"flash_attention": 0, "ssd_scan": n})
+
+
+def family_smoke(dev):
+    """Every arch of the dense and SSM families at its smoke() size, from the
+    same float32 weights and tokens: prefill and SMOKE_DECODE teacher-forced
+    steps on the card (the kernels) against the CPU (their plain
+    versions), within F32_REL_FAMILY of the logit range."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import init_params
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get(arch).smoke()
+        p32 = _map_tree(init_params(api.param_specs(cfg),
+                                    torch.Generator().manual_seed(0), "cpu"),
+                        lambda t: t.float())
+        tokens = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE, "cpu")
+        run = lambda p, toks: teacher_forced(cfg, p, toks, SMOKE_PROMPT,
+                                             SMOKE_DECODE)[0]
+        ref = run(p32, tokens)
+        fa.launches = ss.launches = 0
+        got = run(_map_tree(p32, lambda t: t.to(dev)), tokens.to(dev))
+        launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+        check(launches == _family_launches(cfg),
+              f"{arch} smoke: launches {launches}")
+        _compare(f"{arch} smoke, card vs cpu, float32", got, ref,
+                 cfg.vocab_size, F32_REL_FAMILY)
+        print(f"{arch} smoke: launches {json.dumps(launches)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def gemma_card_vs_cpu(dev):
+    """gemma2-27b at full width cut to GEMMA_LAYERS layers (one local, one
+    global), float32, from the same seeded weights and tokens: prefill and
+    decode on the card against the CPU.  First its conditioning: a 1e-7
+    relative change of the embeddings, on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import init_params
+    cfg = dataclasses.replace(get(DENSE_ARCH), n_layers=GEMMA_LAYERS)
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    p_dev = _map_tree(init_params(api.param_specs(cfg),
+                                  torch.Generator(device=dev).manual_seed(1),
+                                  dev), lambda t: t.float())
+    tokens = serve.prompt_batch(cfg, 1, GEMMA_PROMPT, GEMMA_DECODE, "cpu")
+    run = lambda p, toks: teacher_forced(cfg, p, toks, GEMMA_PROMPT,
+                                         GEMMA_DECODE)[0]
+    got = run(p_dev, tokens.to(dev))
+    g = torch.Generator(device=dev).manual_seed(2)
+    e = p_dev["embed"]
+    shaken = dict(p_dev, embed=e * (1 + 1e-7 * torch.randn(
+        e.shape, generator=g, device=dev)))
+    moved = max(float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
+                for a, b in zip(run(shaken, tokens.to(dev)), got))
+    del shaken
+    print(f"gemma2 sensitivity: a 1e-7 relative change of the embeddings "
+          f"moves the float32 logits (card) by {moved:.3e} of their range "
+          f"(at most a tenth of the card-vs-CPU limit {F32_REL_FAMILY}); card "
+          f"runs and draws {time.perf_counter() - t0:.1f} s", flush=True)
+    check(moved <= F32_REL_FAMILY / 10, "gemma2: conditioned worse than the "
+          "card-vs-CPU limit assumes")
+    p_cpu = _map_tree(p_dev, lambda t: t.cpu())
+    del p_dev
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = run(p_cpu, tokens)
+    print(f"gemma2 {GEMMA_LAYERS} layers, {GEMMA_PROMPT} + {GEMMA_DECODE} "
+          f"tokens: CPU run {time.perf_counter() - t0:.1f} s", flush=True)
+    _compare(f"gemma2 {GEMMA_LAYERS} layers, card vs cpu, float32", got, ref,
+             V, F32_REL_FAMILY)
+
+
+def families_served(dev):
+    """gemma2-27b, then mamba2-780m, at full size (serve_full_size), each
+    with its own launch counts; the card's memory freed between them."""
+    import torch
+    from repro_torch.configs.registry import get
+    for arch, batch, prompt, decode in (
+            (DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_DECODE),
+            (SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_DECODE)):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        stats = serve_full_size(dev, arch, batch, prompt, decode,
+                                _family_launches(get(arch)))
+        check(stats["max_memory_allocated_gb"] * 1e9
+              < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch}: peak memory above the card's")
+        print(f"{arch} served: {time.perf_counter() - t0:.1f} s of phase",
+              flush=True)
 
 
 def _tensors(x):
@@ -2080,7 +2347,7 @@ def build_kernels():
           + 128 for D in (16, 32, 64, 128)}
     f32 = {D: 4 * (64 * (D + 1) * 2 + 64 * D + 64 * 80)
            for D in (16, 32, 64, 128)}
-    B, nc, Q, H, P, N = _serve_ssd_shape()
+    B, nc, Q, H, P, N = ssd_shape(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT)
     print(f"dynamic shared memory per CTA: flash_attention bf16 by D "
           f"{json.dumps(tc)}, float32 by D {json.dumps(f32)}; ssd_scan at "
           f"the serving shape {ss.smem_bytes(Q, N, P)} B (the larger of "
@@ -2149,6 +2416,22 @@ def main():
 
     phase("serving main path: zamba2-1.2b")
     serving_main_path(dev, rows)
+
+    t_new = time.perf_counter()
+    phase("the dense and SSM families at smoke() size: card against CPU")
+    t0 = time.perf_counter()
+    family_smoke(dev)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("gemma2-27b at full width, 2 layers: card against CPU")
+    t0 = time.perf_counter()
+    gemma_card_vs_cpu(dev)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("serving gemma2-27b and mamba2-780m at full size")
+    families_served(dev)
+    print(f"the dense and SSM families' phases: "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
     print(card())                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))

@@ -70,18 +70,25 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def n_params(self) -> int:
-        """Parameter count of a hybrid (Mamba2 + shared block) model, the
-        only family the port serves (the JAX package's formula, that branch)."""
-        if self.family != "hybrid":
+        """Parameter count of a dense, pure-SSM or hybrid model, the families
+        the port serves (the JAX package's formula, those branches: no norm
+        weights, no qkv bias, the unpadded vocab)."""
+        if self.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(self.family)
         d, L, hd = self.d_model, self.n_layers, self.head_dim
-        di, H, G, N = self.d_inner, self.ssm_heads, self.ssm_groups, self.ssm_state
-        per = (2 * d * di + 2 * d * G * N + d * H + self.conv_width * (di + 2 * G * N)
-               + di * d + di + 3 * H)
-        shared = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-                  + self.n_heads * hd * d + 3 * d * self.shared_d_ff)
+        attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                + self.n_heads * hd * d)
+        if self.family == "dense":
+            per = attn + 3 * d * self.d_ff
+        else:
+            di, H, G, N = (self.d_inner, self.ssm_heads, self.ssm_groups,
+                           self.ssm_state)
+            per = (2 * d * di + 2 * d * G * N + d * H
+                   + self.conv_width * (di + 2 * G * N) + di * d + di + 3 * H)
+        shared = (attn + 3 * d * self.shared_d_ff
+                  if self.family == "hybrid" and self.shared_attn_every else 0)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return int(emb + L * per + (shared if self.shared_attn_every else 0))
+        return int(emb + L * per + shared)
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests (the JAX package's)."""

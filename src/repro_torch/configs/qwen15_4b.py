@@ -1,0 +1,9 @@
+"""qwen1.5-4b [dense]: 40 layers, d_model 2560, 20 heads (kv 20), d_ff 6912,
+vocab 151936, QKV bias (hf:Qwen/Qwen1.5-0.5B, the family)."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b", family="dense",
+    n_layers=40, d_model=2560, n_heads=20, n_kv_heads=20, d_ff=6912,
+    vocab_size=151936, head_dim=128, qkv_bias=True,
+    source="hf:Qwen/Qwen1.5-0.5B (family)")

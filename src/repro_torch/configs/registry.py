@@ -1,13 +1,18 @@
-"""The architectures the port can serve.  The JAX package registers ten;
-the others wait in ROADMAP.md's queue of model families."""
+"""The architectures the port can serve: the dense, pure-SSM and hybrid
+families.  The JAX package registers ten; the MoE, audio and VLM ones wait
+in ROADMAP.md's queue of model families."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import zamba2_1p2b
+from repro_torch.configs import (gemma2_27b, glm4_9b, mamba2_780m, qwen15_4b,
+                                 qwen25_32b, zamba2_1p2b)
 from repro_torch.configs.base import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {zamba2_1p2b.CONFIG.name: zamba2_1p2b.CONFIG}
+_MODULES = [gemma2_27b, qwen25_32b, qwen15_4b, glm4_9b, mamba2_780m,
+            zamba2_1p2b]
+
+ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
 
 def get(name: str) -> ModelConfig:

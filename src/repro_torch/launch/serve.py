@@ -1,9 +1,11 @@
 """Serving launcher: batched prefill, then greedy decode (counterpart of
-``repro/launch/serve.py``).  Runs on the card unless ``--device cpu``.
+``repro/launch/serve.py``) for every registered arch: the dense family
+(gemma2-27b, qwen2.5-32b, qwen1.5-4b, glm4-9b), mamba2-780m and
+zamba2-1.2b.  Runs on the card unless ``--device cpu``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
-        --batch 8 --prompt 2048 --decode 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --batch 2 --prompt 8192 --decode 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --smoke --device cpu
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.parallel.sharding import init_params
-from repro_torch.serving.decode import grow_cache, make_decode_step, make_prefill
+from repro_torch.serving.decode import make_decode_step, make_prefill
 
 
 def build(arch: str, *, smoke: bool = False, seed: int = 0, device="cuda"):
@@ -43,17 +45,17 @@ def prompt_batch(cfg, batch: int, prompt: int, decode: int, device="cuda"):
 def serve(cfg, params, tokens, prompt: int, decode: int):
     """Prefill ``tokens[:, :prompt]``, then ``decode`` greedy tokens.  Returns
     (generated ids (B, decode), stats): the first id comes from the prefill
-    logits, each later one from a decode step."""
+    logits, each later one from a decode step.  The prefill leaves room in
+    the cache for ``decode`` positions."""
     dev = tokens.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    logits, cache = make_prefill(cfg, prompt)(params,
-                                              {"tokens": tokens[:, :prompt]})
+    logits, cache = make_prefill(cfg, prompt, room=decode)(
+        params, {"tokens": tokens[:, :prompt]})
     tok = logits.argmax(-1)
     sync()
     t_prefill = time.perf_counter() - t0
-    cache = grow_cache(cache, decode)
     step = make_decode_step(cfg)
     outs = [tok]
     sync()

@@ -19,6 +19,11 @@ from repro_torch.kernels import ops
 NEG = -1e30
 
 
+def layer(stack, i: int):
+    """Layer ``i`` of a stacked parameter dict (views, no copies)."""
+    return {k: v[i] for k, v in stack.items()}
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
     """Scales by ``1 + weight`` (zero-centred weights), so it is not
     ``torch.nn.RMSNorm``."""

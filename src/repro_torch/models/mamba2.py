@@ -1,4 +1,5 @@
-"""Mamba2 (SSD, arXiv:2405.21060): counterpart of ``repro/models/mamba2.py``.
+"""Mamba2 (SSD, arXiv:2405.21060): counterpart of ``repro/models/mamba2.py``,
+the layer (which zamba2 stacks too) and the pure-SSM model (mamba2-780m).
 
 Prefill runs the chunked SSD scan through the ``ssd_scan`` kernel
 (``ssd_chunked`` folds ``xdt = x * dt`` and ``dA = dt * A`` and cuts the
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.embedding import embed_lookup, logits_of
 from repro_torch.parallel.sharding import ParamSpec as PS
 
 
@@ -40,6 +42,14 @@ def mamba_layer_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
         "dt_bias": PS(Ld + (H,), "zeros"),
         "gnorm": PS(Ld + (di,), "ones"),
         "wo": PS(Ld + (di, d), "scaled"),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    return {
+        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
+        "final_norm": PS((cfg.d_model,), "ones"),
+        "layers": mamba_layer_specs(cfg),
     }
 
 
@@ -132,3 +142,12 @@ def mamba_block(cfg: ModelConfig, p, h, *, conv_state=None, ssm_state=None,
     if decode or conv_state is not None or ssm_state is not None:
         return h, ((ns_x, ns_B, ns_C), new_state)
     return h, None
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> logits (B, S, V_padded) float32 (tied head, no
+    softcap)."""
+    h = embed_lookup(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        h, _ = mamba_block(cfg, L.layer(params["layers"], i), h)
+    return logits_of(cfg, params, h)

@@ -1,15 +1,22 @@
-"""Transformer blocks (the dense part of ``repro/models/transformer.py``):
+"""Decoder-only dense LM (the dense part of ``repro/models/transformer.py``):
 parameter specs, the attention block (prefill attention through the
-``flash_attention`` kernel), the SwiGLU FFN block and the decoder layer.
-The zamba2 shared block is one such decoder layer.  MoE, head padding and
-rematerialisation are not on the port's path, and neither is the
-reference's ``RunOptions``: its attention tiles are the kernel's own."""
+``flash_attention`` kernel), the SwiGLU FFN block, the decoder layer and the
+forward pass, with gemma2's local/global alternation, GQA, qkv bias,
+post-norms and softcaps.  The zamba2 shared block is one such decoder layer.
+MoE, head padding and rematerialisation are not on the port's path, and
+neither is the reference's ``RunOptions``: its attention tiles are the
+kernel's own.  On one device every head is local (the reference's
+``head_tp``, ``tp == 1``), so the padded and sequence-parallel branches
+wait for the mesh slice."""
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.embedding import embed, logits_of
 from repro_torch.parallel.sharding import ParamSpec as PS
 
 
@@ -39,6 +46,26 @@ def layer_param_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
         p["attn_post_norm"] = PS(Ld + (d,), "ones")
         p["mlp_post_norm"] = PS(Ld + (d,), "ones")
     return p
+
+
+def param_specs(cfg: ModelConfig):
+    """The whole tree: embedding, final norm, the stacked layers, and an LM
+    head where the embeddings are not tied (qwen2.5-32b)."""
+    tree = {
+        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
+        "final_norm": PS((cfg.d_model,), "ones"),
+        "layers": layer_param_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = PS((cfg.vocab_padded, cfg.d_model), "normal")
+    return tree
+
+
+def is_local(cfg: ModelConfig, i: int) -> bool:
+    """Does layer ``i`` take the sliding window?  Layer 0 of each group of
+    ``local_global_pattern`` layers does, where the pattern is 2 (gemma2:
+    local, global, local, ...)."""
+    return cfg.local_global_pattern == 2 and i % 2 == 0
 
 
 def qkv(cfg: ModelConfig, p, h, cos, sin):
@@ -87,3 +114,18 @@ def decoder_layer(cfg: ModelConfig, p, h, cos, sin, *, local: bool):
     window = cfg.sliding_window if local else None
     h = attention_block(cfg, p, h, cos, sin, window=window)
     return ffn_block(cfg, p, h)
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> logits (B, S, V_padded) float32."""
+    g = max(1, cfg.local_global_pattern)
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                         f"groups of {g}")
+    h = embed(cfg, params["embed"], tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        h = decoder_layer(cfg, L.layer(params["layers"], i), h, cos, sin,
+                          local=is_local(cfg, i))
+    return logits_of(cfg, params, h)

@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
-from repro_torch.models.embedding import embed_lookup
+from repro_torch.models.embedding import embed_lookup, logits_of
 from repro_torch.parallel.sharding import ParamSpec as PS
 
 
@@ -48,20 +48,8 @@ def param_specs(cfg: ModelConfig):
     return tree
 
 
-def layer(stack, i: int):
-    """Layer ``i`` of a stacked parameter dict (views, no copies)."""
-    return {k: v[i] for k, v in stack.items()}
-
-
 def shared_block(cfg: ModelConfig, p, h, cos, sin):
     return T.decoder_layer(_shared_cfg(cfg), p, h, cos, sin, local=False)
-
-
-def logits_of(cfg: ModelConfig, params, h):
-    """Final norm and the tied LM head in float32, padded tail masked."""
-    h = L.rms_norm(h, params["final_norm"])
-    logits = h.float() @ params["embed"].float().T
-    return L.mask_pad_logits(logits, cfg.vocab_size)
 
 
 def forward(cfg: ModelConfig, params, tokens):
@@ -72,10 +60,10 @@ def forward(cfg: ModelConfig, params, tokens):
     pos = torch.arange(S, device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     for i in range(n_scan_layers(cfg)):
-        h, _ = M.mamba_block(cfg, layer(params["layers"], i), h)
+        h, _ = M.mamba_block(cfg, L.layer(params["layers"], i), h)
         if i % k == k - 1:
             h = shared_block(cfg, params["shared"], h, cos, sin)
     for i in range(cfg.n_layers - n_scan_layers(cfg)):
-        h, _ = M.mamba_block(cfg, layer(params["tail_layers"], i), h)
+        h, _ = M.mamba_block(cfg, L.layer(params["tail_layers"], i), h)
     return logits_of(cfg, params, h)
 

@@ -1,2 +1,2 @@
-from repro_torch.serving.decode import (cache_specs, grow_cache, init_cache,  # noqa: F401
+from repro_torch.serving.decode import (cache_specs, init_cache,  # noqa: F401
                                         make_decode_step, make_prefill)

@@ -1,7 +1,13 @@
-"""Prefill (the hybrid part of ``repro/serving/prefill.py``): the forward
-pass over the prompt, emitting each Mamba layer's conv tails and final SSM
-state and each shared-block application's K/V rows into the cache, with the
-LM head on the last position only."""
+"""Prefill (the dense, pure-SSM and hybrid parts of
+``repro/serving/prefill.py``): the forward pass over the prompt, emitting
+each attention layer's K/V rows and each Mamba layer's conv tails and final
+SSM state into the cache, with the LM head on the last position only.
+
+The K/V regions are allocated once, for the prompt and ``room`` more
+positions, and each layer's rows are written into them: at gemma2-27b's
+2 x 8,192 positions the region is 6.2 GB, so neither a stack of per-layer
+rows nor a later pad copies it.
+"""
 from __future__ import annotations
 
 import torch
@@ -10,60 +16,99 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
-from repro_torch.models.api import require_hybrid
-from repro_torch.models.embedding import embed_lookup
-from repro_torch.models.zamba import _shared_cfg, layer, logits_of, n_scan_layers
+from repro_torch.models.api import require_served
+from repro_torch.models.embedding import embed, embed_lookup, logits_of
+from repro_torch.models.zamba import _shared_cfg, n_scan_layers
 from repro_torch.serving.decode import SSM_CACHE
 
 
-def _attn_with_cache(cfg, p, h, cos, sin, *, window):
-    """The attention block, also returning its (B, S, Hkv, hd) K/V rows."""
-    return T.attention_block(cfg, p, h, cos, sin, window=window,
-                             return_kv=True)
+def _rope(cfg, S, device):
+    return L.rope_tables(torch.arange(S, device=device), cfg.head_dim,
+                         cfg.rope_theta)
 
 
-def _hybrid_prefill(cfg: ModelConfig, S, params, batch):
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    k = cfg.shared_attn_every
-    n_scan = n_scan_layers(cfg)
-    h = embed_lookup(params["embed"], tokens)
-    pos = torch.arange(S, device=tokens.device)
-    cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    scfg = _shared_cfg(cfg)
-    K, di = cfg.conv_width, cfg.d_inner
+def _ssm_prefill_layer(cfg, p, h, states):
+    """A Mamba layer from zero conv states, appending its conv tails and final
+    SSM state to ``states``."""
+    B, K = h.shape[0], cfg.conv_width
     GN = cfg.ssm_groups * cfg.ssm_state
-    new = {n: [] for n in SSM_CACHE}
-    shared_k, shared_v = [], []
+    zero = tuple(torch.zeros((B, K - 1, C), dtype=h.dtype, device=h.device)
+                 for C in (cfg.d_inner, GN, GN))
+    h, (ncs, nst) = M.mamba_block(cfg, p, h, conv_state=zero, ssm_state=None)
+    for n, t in zip(SSM_CACHE, (*ncs, nst)):
+        states[n].append(t)
+    return h
 
-    def ssm_layer(h, p):
-        zc = lambda C: torch.zeros((B, K - 1, C), dtype=h.dtype,
-                                   device=h.device)
-        h, (ncs, nst) = M.mamba_block(cfg, p, h, conv_state=(zc(di), zc(GN),
-                                                             zc(GN)),
-                                      ssm_state=None)
-        for n, t in zip(SSM_CACHE, (*ncs, nst)):
-            new[n].append(t)
-        return h
 
-    for i in range(n_scan):
-        h = ssm_layer(h, layer(params["layers"], i))
-        if i % k == k - 1:
-            h, sk, sv = _attn_with_cache(scfg, params["shared"], h, cos, sin,
-                                         window=None)
-            h = T.ffn_block(scfg, params["shared"], h)
-            shared_k.append(sk)
-            shared_v.append(sv)
-    for i in range(cfg.n_layers - n_scan):
-        h = ssm_layer(h, layer(params["tail_layers"], i))
+def _kv_region(cfg, n, h, room):
+    """K and V regions of ``n`` attention layers of ``cfg``: (n, B, S + room,
+    Hkv, hd) zeros in the dtype of the activations h (B, S, d)."""
+    B, S = h.shape[:2]
+    shape = (n, B, S + room, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(torch.zeros(shape, dtype=h.dtype, device=h.device)
+                 for _ in "kv")
 
-    cache = {n: torch.stack(new[n]) for n in SSM_CACHE}
-    cache["shared_k"] = torch.stack(shared_k)
-    cache["shared_v"] = torch.stack(shared_v)
-    cache["len"] = torch.full((B,), S, dtype=torch.int32, device=h.device)
+
+def _lens(B, S, device):
+    return torch.full((B,), S, dtype=torch.int32, device=device)
+
+
+def _tf_prefill(cfg: ModelConfig, S, room, params, batch):
+    tokens = batch["tokens"]
+    h = embed(cfg, params["embed"], tokens)
+    cos, sin = _rope(cfg, S, tokens.device)
+    kc, vc = _kv_region(cfg, cfg.n_layers, h, room)
+    for i in range(cfg.n_layers):
+        p = L.layer(params["layers"], i)
+        window = cfg.sliding_window if T.is_local(cfg, i) else None
+        h, kc[i, :, :S], vc[i, :, :S] = T.attention_block(
+            cfg, p, h, cos, sin, window=window, return_kv=True)
+        h = T.ffn_block(cfg, p, h)
+    cache = {"k": kc, "v": vc, "len": _lens(h.shape[0], S, h.device)}
     return logits_of(cfg, params, h[:, -1]), cache
 
 
-def prefill_fn(cfg: ModelConfig, S: int, params, batch):
-    require_hybrid(cfg)
-    return _hybrid_prefill(cfg, S, params, batch)
+def _ssm_prefill(cfg: ModelConfig, S, room, params, batch):
+    tokens = batch["tokens"]
+    h = embed_lookup(params["embed"], tokens)
+    states = {n: [] for n in SSM_CACHE}
+    for i in range(cfg.n_layers):
+        h = _ssm_prefill_layer(cfg, L.layer(params["layers"], i), h, states)
+    cache = {n: torch.stack(states[n]) for n in SSM_CACHE}
+    cache["len"] = _lens(h.shape[0], S, h.device)
+    return logits_of(cfg, params, h[:, -1]), cache
+
+
+def _hybrid_prefill(cfg: ModelConfig, S, room, params, batch):
+    tokens = batch["tokens"]
+    k = cfg.shared_attn_every
+    n_scan = n_scan_layers(cfg)
+    h = embed_lookup(params["embed"], tokens)
+    cos, sin = _rope(cfg, S, tokens.device)
+    scfg = _shared_cfg(cfg)
+    states = {n: [] for n in SSM_CACHE}
+    kc, vc = _kv_region(scfg, cfg.n_layers // k, h, room)
+    for i in range(n_scan):
+        h = _ssm_prefill_layer(cfg, L.layer(params["layers"], i), h, states)
+        if i % k == k - 1:
+            a = i // k
+            h, kc[a, :, :S], vc[a, :, :S] = T.attention_block(
+                scfg, params["shared"], h, cos, sin, window=None,
+                return_kv=True)
+            h = T.ffn_block(scfg, params["shared"], h)
+    for i in range(cfg.n_layers - n_scan):
+        h = _ssm_prefill_layer(cfg, L.layer(params["tail_layers"], i), h,
+                               states)
+    cache = {n: torch.stack(states[n]) for n in SSM_CACHE}
+    cache["shared_k"], cache["shared_v"] = kc, vc
+    cache["len"] = _lens(h.shape[0], S, h.device)
+    return logits_of(cfg, params, h[:, -1]), cache
+
+
+_PREFILL = {"dense": _tf_prefill, "ssm": _ssm_prefill,
+            "hybrid": _hybrid_prefill}
+
+
+def prefill_fn(cfg: ModelConfig, S: int, room: int, params, batch):
+    require_served(cfg)
+    return _PREFILL[cfg.family](cfg, S, room, params, batch)

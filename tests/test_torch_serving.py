@@ -16,6 +16,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import torch_parity as P  # noqa: E402
 from repro.configs.registry import ARCHS as JARCHS  # noqa: E402
 from repro.data.pipeline import DataConfig, synthetic_tokens  # noqa: E402
 from repro.launch.mesh import make_smoke_mesh  # noqa: E402
@@ -60,12 +61,10 @@ def slice_runs():
     opts_j = JOpts(q_block=16, kv_block=16, remat=False)
     lj, cj = jax.jit(jprefill(cfg_j, topo, PROMPT, opts_j))(
         pj, {"tokens": jnp.asarray(toks[:, :PROMPT])})
-    lt, ct = D.make_prefill(cfg, PROMPT)(
+    lt, ct = D.make_prefill(cfg, PROMPT, room=DECODE)(
         pt, {"tokens": torch.from_numpy(toks[:, :PROMPT]).long()})
     steps = [(lt.numpy(), np.asarray(lj))]
-    pad = lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, DECODE), (0, 0), (0, 0)))
-    cj = dict(cj, shared_k=pad(cj["shared_k"]), shared_v=pad(cj["shared_v"]))
-    ct = D.grow_cache(ct, DECODE)
+    cj = P.pad_kv(cj, DECODE)
     sj, st = jax.jit(jstep(cfg_j, topo)), D.make_decode_step(cfg)
     for i in range(PROMPT, PROMPT + DECODE):
         lj, cj = sj(pj, cj, jnp.asarray(toks[:, i]))
@@ -120,11 +119,10 @@ def test_bf16_prefill_decode_matches_forward():
     prompt, decode = 24, 4
     tokens = serve.prompt_batch(cfg, B, prompt, decode, CPU)
     ref = zamba.forward(cfg, params, tokens)
-    logits, cache = D.make_prefill(cfg, prompt)(
+    logits, cache = D.make_prefill(cfg, prompt, room=decode)(
         params, {"tokens": tokens[:, :prompt]})
     np.testing.assert_allclose(logits.numpy(), ref[:, prompt - 1].numpy(),
                                atol=0.3, rtol=0.1)
-    cache = D.grow_cache(cache, decode)
     step = D.make_decode_step(cfg)
     for i in range(prompt, prompt + decode):
         logits, cache = step(params, cache, tokens[:, i])
@@ -163,13 +161,19 @@ def test_entry_points_default_to_the_card():
         D.init_cache(get(ARCH).smoke(), 1, 4)
 
 
-def test_other_families_are_refused():
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+def test_other_families_are_refused(family):
+    """The families still unported (the dense and SSM ones are served: see
+    test_torch_dense.py and test_torch_ssm.py)."""
     import dataclasses
-    dense = dataclasses.replace(get(ARCH).smoke(), family="dense")
+    other = dataclasses.replace(get(ARCH).smoke(), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.cache_specs(dense, 1, 4)
+        D.cache_specs(other, 1, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.make_decode_step(dense)
+        D.make_decode_step(other)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        D.make_prefill(other, 4)({}, {"tokens": torch.ones((1, 4),
+                                                           dtype=torch.long)})
 
 
 @pytest.mark.cuda
