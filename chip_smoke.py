@@ -104,15 +104,30 @@ Phases (any failure exits non-zero):
      global), float32, card against CPU after its conditioning is measured;
  12. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
      D 128, group 2, causal, softcap 50, with and without its 4096-token
-     window) and ``ssd_scan`` at mamba2-780m's (B 8, 8 chunks of 256, H 48,
-     P 64, N 128) against their plain versions, with the negative control,
-     timed beside their bounds, the plain versions and, for attention,
-     ``scaled_dot_product_attention`` (no softcap, not the same function);
+     window) and at the MoE family's (BH 128, S 4096: D 128 for
+     deepseek-moe-16b, D 64 and group 2 for granite-moe-1b-a400m), and
+     ``ssd_scan`` at mamba2-780m's (B 8, 8 chunks of 256, H 48, P 64, N 128)
+     against their plain versions, with the negative control, timed beside
+     their bounds, the plain versions and, for attention,
+     ``scaled_dot_product_attention`` (the same function at the MoE shapes;
+     at gemma2's, without softcap and window, not);
  13. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
      layers, 8 x 2048) served at full size through ``repro_torch.launch.serve``
      with 32 greedy tokens each, as in phase 10, each with its own launch
      counts (46 ``flash_attention`` and 0 ``ssd_scan``; 0 and 48) and its
      peak memory.
+ 14. the MoE family (deepseek-moe-16b, granite-moe-1b-a400m) at smoke()
+     size, float32, prefill and 4 decode steps on the card against the CPU:
+     logits, greedy tokens and every layer's routing (experts and keep bits);
+ 15. deepseek-moe-16b at full width cut to 2 layers, float32, card against
+     CPU after its conditioning is measured: routing call by call (a flip
+     must lie within 4x the router-logit deviation of the CPU's margin),
+     logits before any flip, then each prefill layer from the CPU's input
+     (the MoE output compared on the tokens whose routing agrees);
+ 16. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
+     4096-token prompts, 32 greedy tokens) as in phase 10: 28 and 24
+     ``flash_attention`` launches a prefill, the share of expert
+     assignments kept at each step, peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
@@ -148,6 +163,13 @@ FAMILY_ARCHS = ("gemma2-27b", "qwen2.5-32b", "qwen1.5-4b", "glm4-9b",
                 "mamba2-780m")
 SMOKE_PROMPT, SMOKE_DECODE = 96, 4
 GEMMA_LAYERS, GEMMA_PROMPT, GEMMA_DECODE = 2, 4608, 4
+# the MoE family at full size: deepseek-moe-16b and granite-moe-1b-a400m, 8
+# requests x 4,096-token prompts (deepseek's published context), 32 greedy
+# tokens; card against CPU at smoke() size (both), and deepseek-moe-16b at
+# full width cut to 2 layers, B 1, a 512-token prompt and 4 decode steps
+MOE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m")
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 4096, 32
+MOE_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_DECODE = 2, 512, 4
 # card against CPU: zamba2-1.2b at full width cut to 7 layers (one shared
 # block application and one tail layer), B 1, 256-token prompt, 4 decode steps
 PARITY_LAYERS, PARITY_PROMPT, PARITY_DECODE = 7, 256, 4
@@ -1623,20 +1645,27 @@ def flash_checks(dev, rows):
 def flash_path_shapes():
     """(label, B, S, Hq, Hkv, D, window, softcap, sharp scores held to,
     seed of the inputs) of
-    flash_attention in the main paths' prefills: zamba2's shared block, and
-    gemma2-27b's global and local layers.  At gemma2's 67M outputs one p
-    that rounds to the other bf16 neighbour, in the kernel or in the plain
-    version, can put them 2 ulps apart with both as far from the exact
-    answer, so there sharp scores are held to the float64 answer."""
+    flash_attention in the main paths' prefills: zamba2's shared block,
+    gemma2-27b's global and local layers, and the MoE family's layers
+    (deepseek-moe-16b at D 128, granite-moe-1b-a400m at D 64, group 2).  At
+    the D 128 shapes' 67M outputs one p that rounds to the other bf16
+    neighbour, in the kernel or in the plain version, can put them 2 ulps
+    apart with both as far from the exact answer, so there sharp scores are
+    held to the float64 answer."""
     from repro_torch.configs.registry import get
     z, g = get(SERVE_ARCH), get(DENSE_ARCH)
     dense = (DENSE_BATCH, DENSE_PROMPT, g.n_heads, g.n_kv_heads, g.head_dim)
+    ds, gr = (get(a) for a in MOE_ARCHS)
     return [("zamba2's shared block", SERVE_BATCH, SERVE_PROMPT, z.n_heads,
              z.n_kv_heads, z.head_dim, None, None, "plain", 99),
             ("gemma2's global layers", *dense, None, g.attn_softcap,
              "float64", 98),
             ("gemma2's local layers", *dense, g.sliding_window,
-             g.attn_softcap, "float64", 98)]
+             g.attn_softcap, "float64", 98),
+            ("deepseek-moe-16b's layers", MOE_BATCH, MOE_PROMPT, ds.n_heads,
+             ds.n_kv_heads, ds.head_dim, None, None, "float64", 97),
+            ("granite-moe-1b-a400m's layers", MOE_BATCH, MOE_PROMPT,
+             gr.n_heads, gr.n_kv_heads, gr.head_dim, None, None, "plain", 96)]
 
 
 def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
@@ -1718,11 +1747,12 @@ def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
                                       enable_gqa=group > 1), 20))
     bound_ms, bound_by = flash_bound(BH, S, S, D, True, 2, window, group)
     tflop = flash_flops(BH, S, S, D, True, window) / 1e12
-    same = ("" if window is None and cap is None else
+    same = (" (the same function)" if window is None and cap is None else
             " (no softcap, no window: not the same function)")
     print(f"{tag}): kernel {ks:.4f} ms ({tflop / ks * 1e3:.1f} TFLOP/s of "
           f"the unmasked pairs), plain {ps:.4f} ms, "
-          f"scaled_dot_product_attention(is_causal=True) {ls:.4f} ms "
+          f"scaled_dot_product_attention(is_causal=True, enable_gqa="
+          f"{group > 1}) {ls:.4f} ms "
           f"({tflop / ls * 1e3:.1f} TFLOP/s){same}, bound {bound_ms:.5f} ms "
           f"({bound_by}, {tflop * 1e3:.1f} GFLOP at "
           f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); kernel / SDPA "
@@ -1908,8 +1938,18 @@ F32_REL = 1e-2
 # smoke configs came 7e-7 to 6.5e-5 of the range apart (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md section 6).  Their limit sits a few times above
 # the largest of those readings; gemma2's run measures its conditioning
-# first and fails if it is not well below the limit.
+# first and fails if it is not well below the limit.  The MoE family's
+# smoke configs are held to it too.
 F32_REL_FAMILY = 3e-4
+# deepseek-moe-16b at full width and 2 layers (at the 28-layer init scale)
+# is not: a 1e-7 relative change of its embeddings, routing held, moves its
+# float32 logits by 1.16e-4 of their range (its random attention scores
+# are sharp), and card and CPU came 1.75e-5 to 4.13e-4 of the range apart
+# with the same routing (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+# 6).  As for zamba2, its limit sits several times above the measured
+# conditioning, and its run fails if the conditioning passes a quarter of
+# the limit.  Its modules, one at a time, stay within F32_REL_FAMILY.
+MOE_F32_REL = 1e-3
 
 
 def _compare(tag, got, ref, V, rel):
@@ -2049,8 +2089,10 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
     """``arch`` at full size through repro_torch.launch.serve: prefill
     batch x prompt tokens, then ``decode`` greedy tokens, with the kernels'
     launch counts set to 0 just before that one run and read just after
-    (``expect``: {kernel: launches}); what came out checked; one more decode
-    step and one more prefill under torch.profiler.  Returns the stats."""
+    (``expect``: {kernel: launches}) and, for an MoE arch, the share of
+    expert assignments kept at each step (``routed``: one sum a layer);
+    what came out checked; one more decode step and one more prefill under
+    torch.profiler.  Returns the stats."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -2073,7 +2115,9 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = ss.launches = 0
-    ids, st = serve.serve(cfg, params, tokens, prompt, decode)
+    with (routed(logits=False) if cfg.is_moe
+          else contextlib.nullcontext()) as calls:
+        ids, st = serve.serve(cfg, params, tokens, prompt, decode)
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
     stats = {
         "arch": arch, "batch": batch, "prompt": prompt, "decode": decode,
@@ -2085,6 +2129,8 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches_per_prefill": launches,
     }
+    if cfg.is_moe:      # the prefill, then each decode step
+        stats["kept_share_by_step"] = kept_shares(calls, cfg.n_layers)
     print("serve: " + json.dumps(stats), flush=True)
     check(launches == expect, f"{arch}: launches per prefill {launches}, "
           f"expected {expect}")
@@ -2135,10 +2181,11 @@ def serving_main_path(dev, rows):
 # the dense and pure-SSM families: gemma2-27b and mamba2-780m
 # ---------------------------------------------------------------------------
 def _family_launches(cfg):
-    """Kernel launches of one prefill: a flash_attention per dense layer, an
-    ssd_scan per Mamba layer."""
+    """Kernel launches of one prefill: a flash_attention per dense or MoE
+    layer, an ssd_scan per Mamba layer."""
     n = cfg.n_layers
-    return ({"flash_attention": n, "ssd_scan": 0} if cfg.family == "dense"
+    return ({"flash_attention": n, "ssd_scan": 0}
+            if cfg.family in ("dense", "moe")
             else {"flash_attention": 0, "ssd_scan": n})
 
 
@@ -2231,6 +2278,328 @@ def families_served(dev):
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         stats = serve_full_size(dev, arch, batch, prompt, decode,
+                                _family_launches(get(arch)))
+        check(stats["max_memory_allocated_gb"] * 1e9
+              < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch}: peak memory above the card's")
+        print(f"{arch} served: {time.perf_counter() - t0:.1f} s of phase",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: deepseek-moe-16b and granite-moe-1b-a400m
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def routed(logits=True):
+    """Record each call of the MoE layer's routing (``models.moe.route``)
+    made inside the block, with no host sync: per call its topi (T, K), its
+    keep bits (T*K,) and, with ``logits``, the router's float32 logits
+    (T, E), recomputed here from the call's inputs as ``moe._router``
+    computes them.  The program's code is unchanged; the wrapper is removed
+    on the way out."""
+    from repro_torch.models import moe
+    inner, calls = moe.route, []
+
+    def route(cfg, x, router_w):
+        out = inner(cfg, x, router_w)
+        rec = {"topi": out[0], "keep": out[2][4]}
+        if logits:
+            with moe._no_tf32():
+                rec["logits"] = (x.reshape(-1, x.shape[-1]).float()
+                                 @ router_w.float())
+        calls.append(rec)
+        return out
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = inner
+
+
+@contextlib.contextmanager
+def forced_routing(calls):
+    """Make the MoE router choose, call by call, the experts recorded in
+    ``calls`` (``routed``'s records of another run over the same tokens),
+    weighting them from its own float32 logits as ``moe._router`` does; the
+    wrapper is removed on the way out."""
+    import torch
+    from repro_torch.models import moe
+    inner, recs = moe._router, iter(calls)
+
+    def router(cfg, xt, router_w):
+        topi = next(recs)["topi"].to(xt.device)
+        with moe._no_tf32():
+            logits = xt.float() @ router_w.float()
+        if cfg.router_renorm:
+            topv = torch.softmax(logits, -1).gather(1, topi)
+            return topv / topv.sum(-1, keepdim=True), topi
+        return torch.softmax(logits.gather(1, topi), -1), topi
+    moe._router = router
+    try:
+        yield
+    finally:
+        moe._router = inner
+
+
+def kept_shares(calls, n_layers):
+    """The share of expert assignments kept (not dropped at an expert's
+    capacity) in each step of ``n_layers`` routing calls."""
+    import torch
+    kept = torch.stack([c["keep"].sum() for c in calls]).cpu().tolist()
+    size = [c["keep"].numel() for c in calls]
+    return [sum(kept[i:i + n_layers]) / sum(size[i:i + n_layers])
+            for i in range(0, len(calls), n_layers)]
+
+
+def routing_agrees(tag, got, ref, k, strict):
+    """Compare the routing of matching calls, card (``got``) against CPU
+    (``ref``).  A token whose top-k experts differ (a flip) is printed with
+    the CPU's smallest gap between its k + 1 largest router logits; with
+    ``strict`` any flip fails, else a gap wider than 4x the call's largest
+    logit deviation does.  Keep bits that differ in a call without a flip
+    fail.  Returns per call the mask of tokens whose experts and keep bits
+    agree, and the index of the first call with a flip (len(ref) if
+    none)."""
+    import torch
+    check(len(got) == len(ref), f"{tag}: {len(got)} routing calls on the "
+          f"card, {len(ref)} on the CPU")
+    masks, first = [], len(ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        gt, rt = g["topi"].cpu(), r["topi"].cpu()
+        gk, rk = (x["keep"].cpu().view(rt.shape) for x in (g, r))
+        flip = (gt != rt).any(-1)
+        same = ~flip & (gk == rk).all(-1)
+        masks.append(same)
+        if not bool(flip.any()):
+            check(bool(same.all()), f"{tag}, call {i}: keep bits differ "
+                  "with the same experts")
+            continue
+        first = min(first, i)
+        gl, rl = g["logits"].cpu(), r["logits"].cpu()
+        dev_l = float((gl - rl).abs().max())
+        top = rl.sort(-1, descending=True).values[:, :k + 1]
+        gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+        for t in flip.nonzero()[:, 0].tolist():
+            print(f"{tag}, call {i}: routing flip at token {t}: cpu experts "
+                  f"{rt[t].tolist()}, card {gt[t].tolist()}; cpu margin "
+                  f"{float(gap[t]):.4e} against 4 x the logit deviation "
+                  f"{4 * dev_l:.4e}", flush=True)
+        check(not strict, f"{tag}: routing differs in call {i}")
+        check(bool((gap[flip] <= 4 * dev_l).all()), f"{tag}: a routing flip "
+              "beyond 4x the router-logit deviation")
+    return masks, first
+
+
+def moe_smoke(dev):
+    """Both MoE archs at smoke() size, from the same float32 weights and
+    tokens: prefill and SMOKE_DECODE teacher-forced steps on the card
+    against the CPU, logits within F32_REL_FAMILY of their range, every
+    layer's routing equal, and one flash_attention launch a layer."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import init_params
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get(arch).smoke()
+        p32 = _map_tree(init_params(api.param_specs(cfg),
+                                    torch.Generator().manual_seed(0), "cpu"),
+                        lambda t: t.float())
+        tokens = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE, "cpu")
+        run = lambda p, toks: teacher_forced(cfg, p, toks, SMOKE_PROMPT,
+                                             SMOKE_DECODE)[0]
+        with routed() as r_cpu:
+            ref = run(p32, tokens)
+        fa.launches = ss.launches = 0
+        with routed() as r_dev:
+            got = run(_map_tree(p32, lambda t: t.to(dev)), tokens.to(dev))
+        launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+        check(launches == _family_launches(cfg),
+              f"{arch} smoke: launches {launches}")
+        _compare(f"{arch} smoke, card vs cpu, float32", got, ref,
+                 cfg.vocab_size, F32_REL_FAMILY)
+        routing_agrees(f"{arch} smoke", r_dev, r_cpu, cfg.top_k, strict=True)
+        print(f"{arch} smoke: launches {json.dumps(launches)}; routing equal "
+              f"in all {len(r_cpu)} calls; kept share by step "
+              f"{kept_shares(r_cpu, cfg.n_layers)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    moe_without_sync(dev)
+
+
+def moe_without_sync(dev):
+    """The MoE layer reads no value of the card on the host (a sync a layer
+    would stall the host-bound decode step): deepseek-moe-16b's layer at
+    full width, on its decode batch of 8 tokens and on a 512-token prefill,
+    under torch's sync debug mode set to raise on a synchronising call."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.models import moe
+    cfg = get(MOE_ARCHS[0])
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(4)
+    w = [torch.randn(s, generator=g, device=dev).to(torch.bfloat16) * 0.02
+         for s in ((d, E), (E, d, f), (E, d, f), (E, f, d))]
+    xs = [torch.randn((b, s, d), generator=g, device=dev).to(torch.bfloat16)
+          for b, s in ((MOE_BATCH, 1), (1, MOE_CHECK_PROMPT))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [moe.moe_ffn(cfg, x, *w) for x in xs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          "moe_ffn: non-finite output")
+    print("moe_ffn (deepseek-moe-16b's layer, 8 decode tokens and a "
+          f"{MOE_CHECK_PROMPT}-token prefill) ran under "
+          "torch.cuda.set_sync_debug_mode('error') (no host sync)",
+          flush=True)
+
+
+def moe_card_vs_cpu(dev):
+    """deepseek-moe-16b at full width cut to MOE_LAYERS layers, float32, from
+    the same seeded weights and tokens: prefill and decode on the card
+    against the CPU.  The reference's init scales a stacked leaf by
+    1/sqrt(its layer count), so the cut's layers are rescaled to the full
+    model's (full_scale_layers): the served model's layers, not sharper
+    ones.  Routing is compared call by call under the flip rule
+    (routing_agrees), and the logits of the steps before the first flip
+    within MOE_F32_REL; the card run again with the CPU's routing choices
+    (forced_routing) within MOE_F32_REL at every step; its
+    conditioning measured on the card (1e-7 on the embeddings, routing
+    held); then each prefill layer one module at a time
+    (moe_layers_card_vs_cpu)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import init_params
+    cfg = dataclasses.replace(get(MOE_ARCHS[0]), n_layers=MOE_LAYERS)
+    V, n = cfg.vocab_size, cfg.n_layers
+    tag = (f"deepseek-moe-16b {n} layers (the "
+           f"{get(MOE_ARCHS[0]).n_layers}-layer init scale)")
+    t0 = time.perf_counter()
+    p_dev = _map_tree(init_params(api.param_specs(cfg),
+                                  torch.Generator(device=dev).manual_seed(1),
+                                  dev), lambda t: t.float())
+    full_scale_layers(cfg, get(MOE_ARCHS[0]).n_layers, p_dev)
+    tokens = serve.prompt_batch(cfg, 1, MOE_CHECK_PROMPT, MOE_CHECK_DECODE,
+                                "cpu")
+    run = lambda p, toks: teacher_forced(cfg, p, toks, MOE_CHECK_PROMPT,
+                                         MOE_CHECK_DECODE)[0]
+    p_cpu = _map_tree(p_dev, lambda t: t.cpu())
+    with routed() as r_cpu:
+        ref = run(p_cpu, tokens)
+    t_cpu = time.perf_counter() - t0
+    with routed() as r_dev:
+        got = run(p_dev, tokens.to(dev))
+    # the card following the CPU's routing choices: the rest of the path
+    # (attention, experts, combine) held to the limit at every step
+    with forced_routing(r_cpu):
+        held = run(p_dev, tokens.to(dev))
+    # conditioning: a 1e-7 relative change of the embeddings, the routing
+    # held to the unshaken card run's so that no choice moves
+    g = torch.Generator(device=dev).manual_seed(2)
+    e = p_dev["embed"]
+    shaken = dict(p_dev, embed=e * (1 + 1e-7 * torch.randn(
+        e.shape, generator=g, device=dev)))
+    with forced_routing(r_dev):
+        moved = max(float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
+                    for a, b in zip(run(shaken, tokens.to(dev)), got))
+    del shaken
+    print(f"{tag} sensitivity: a 1e-7 relative change of the embeddings, "
+          f"routing held, moves the float32 logits (card) by {moved:.3e} of "
+          f"their range ({moved / MOE_F32_REL:.3f} of the card-vs-CPU "
+          f"limit {MOE_F32_REL}, at most a quarter of it); "
+          f"{MOE_CHECK_PROMPT} + {MOE_CHECK_DECODE} tokens, CPU run "
+          f"{t_cpu:.1f} s, all {time.perf_counter() - t0:.1f} s; kept share "
+          f"by step, card {kept_shares(r_dev, n)}, cpu "
+          f"{kept_shares(r_cpu, n)}", flush=True)
+    check(moved <= MOE_F32_REL / 4,
+          f"{tag}: conditioned worse than the card-vs-CPU limit assumes")
+    _, first = routing_agrees(tag, r_dev, r_cpu, cfg.top_k, strict=False)
+    steps = first // n
+    _compare(f"{tag}, card vs cpu, float32", got[:steps], ref[:steps], V,
+             MOE_F32_REL)
+    if steps < len(ref):
+        _compare(f"{tag}, card vs cpu, float32, from step {steps}, after a "
+                 "routing flip (information)", got[steps:], ref[steps:], V,
+                 None)
+    _compare(f"{tag}, card with the CPU's routing vs cpu, float32", held,
+             ref, V, MOE_F32_REL)
+    moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu,
+                           tokens[:, :MOE_CHECK_PROMPT], dev)
+
+
+def full_scale_layers(cfg, n_full, params):
+    """Multiply the stacked "scaled" leaves of a cut to cfg.n_layers layers
+    by sqrt(cfg.n_layers / n_full), in place: the init scale they have in
+    the n_full-layer model (ParamSpec's fan-in is the stacked axis)."""
+    import math
+    from repro_torch.models import transformer
+    f = math.sqrt(cfg.n_layers / n_full)
+    for k, spec in transformer.layer_param_specs(cfg).items():
+        if spec.init == "scaled":
+            params["layers"][k].mul_(f)
+
+
+def moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, dev):
+    """Each layer of the prefill one module at a time, on the card and on
+    the CPU from the same input: the attention block from the CPU's input to
+    the layer, its output within F32_REL_FAMILY of its largest value; the
+    MoE FFN block from the CPU's attention output, its routing under the
+    flip rule and its output within F32_REL_FAMILY of its largest value on
+    the tokens whose experts and keep bits agree."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed
+    S = tokens.shape[1]
+    h = embed(cfg, p_cpu["embed"], tokens)
+    cos, sin = L.rope_tables(torch.arange(S), cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        res, a_c = [], None
+        for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            lp = L.layer(p["layers"], i)
+            a = T.attention_block(cfg, lp, h.to(d), cos.to(d), sin.to(d),
+                                  window=None)
+            a_in = a if a_c is None else a_c.to(d)
+            with routed() as calls:
+                y = T.ffn_block(cfg, lp, a_in)
+            res.append((a.cpu(), (y - a_in).cpu(), calls))
+            a_c = res[0][0]
+        (a_c, f_c, r_c), (a_g, f_g, r_g) = res
+        masks, _ = routing_agrees(f"{tag}, prefill layer {i}", r_g, r_c,
+                                  cfg.top_k, strict=False)
+        same = masks[0].view(f_c.shape[:2])
+        for name, x, ref in (("attention block", a_g, a_c),
+                             ("MoE FFN, tokens with equal routing",
+                              f_g[same], f_c[same])):
+            diff = float((x - ref).abs().max())
+            scale = float(ref.abs().max())
+            print(f"{tag}, prefill layer {i}, {name}: card vs cpu max |diff| "
+                  f"{diff:.4e} = {diff / scale:.3e} of its largest value "
+                  f"{scale:.4e} (limit {F32_REL_FAMILY}); tokens compared "
+                  f"{int(same.sum()) if 'MoE' in name else S} of {S}",
+                  flush=True)
+            check(diff <= F32_REL_FAMILY * scale, f"{tag}, prefill layer {i}: "
+                  f"{name} differs")
+        h = a_c + f_c
+
+
+def moe_served(dev):
+    """deepseek-moe-16b, then granite-moe-1b-a400m, at full size
+    (serve_full_size), each with its launch counts and its kept shares;
+    the card's memory freed between them."""
+    import torch
+    from repro_torch.configs.registry import get
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        stats = serve_full_size(dev, arch, MOE_BATCH, MOE_PROMPT, MOE_DECODE,
                                 _family_launches(get(arch)))
         check(stats["max_memory_allocated_gb"] * 1e9
               < torch.cuda.get_device_properties(0).total_memory,
@@ -2432,6 +2801,18 @@ def main():
     families_served(dev)
     print(f"the dense and SSM families' phases: "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
+    t_moe = time.perf_counter()
+    phase("the MoE family at smoke() size: card against CPU")
+    moe_smoke(dev)
+    phase("deepseek-moe-16b at full width, 2 layers: card against CPU")
+    t0 = time.perf_counter()
+    moe_card_vs_cpu(dev)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("serving deepseek-moe-16b and granite-moe-1b-a400m at full size")
+    moe_served(dev)
+    print(f"the MoE family's phases: {time.perf_counter() - t_moe:.1f} s",
+          flush=True)
 
     print(card())                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))

@@ -70,15 +70,18 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def n_params(self) -> int:
-        """Parameter count of a dense, pure-SSM or hybrid model, the families
-        the port serves (the JAX package's formula, those branches: no norm
-        weights, no qkv bias, the unpadded vocab)."""
-        if self.family not in ("dense", "ssm", "hybrid"):
+        """Parameter count of a dense, MoE, pure-SSM or hybrid model, the
+        families the port serves (the JAX package's formula, those branches:
+        no norm weights, no qkv bias, the unpadded vocab)."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(self.family)
         d, L, hd = self.d_model, self.n_layers, self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
-        if self.family == "dense":
+        if self.is_moe:     # router, routed experts, shared experts
+            per = attn + d * self.n_experts + (
+                self.n_experts + self.n_shared_experts) * 3 * d * self.d_ff
+        elif self.family == "dense":
             per = attn + 3 * d * self.d_ff
         else:
             di, H, G, N = (self.d_inner, self.ssm_heads, self.ssm_groups,
@@ -89,6 +92,15 @@ class ModelConfig:
                   if self.family == "hybrid" and self.shared_attn_every else 0)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(emb + L * per + shared)
+
+    def n_active_params(self) -> int:
+        """Parameters a token passes through (MoE: only its top-k routed
+        experts count)."""
+        if not self.is_moe:
+            return self.n_params()
+        inactive = (self.n_layers * (self.n_experts - self.top_k) * 3
+                    * self.d_model * self.d_ff)
+        return self.n_params() - int(inactive)
 
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU tests (the JAX package's)."""

@@ -1,10 +1,13 @@
 """Serving launcher: batched prefill, then greedy decode (counterpart of
 ``repro/launch/serve.py``) for every registered arch: the dense family
-(gemma2-27b, qwen2.5-32b, qwen1.5-4b, glm4-9b), mamba2-780m and
-zamba2-1.2b.  Runs on the card unless ``--device cpu``.
+(gemma2-27b, qwen2.5-32b, qwen1.5-4b, glm4-9b), the MoE family
+(granite-moe-1b-a400m, deepseek-moe-16b), mamba2-780m and zamba2-1.2b.
+Runs on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --batch 2 --prompt 8192 --decode 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --batch 8 --prompt 4096 --decode 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --smoke --device cpu
 """

@@ -1,7 +1,7 @@
 """Family dispatcher (counterpart of ``repro/models/api.py``).  The port
-serves the ``dense`` (transformer), ``ssm`` (mamba2) and ``hybrid`` (zamba)
-families; ``moe``, ``vlm`` and ``audio`` raise and wait in ROADMAP.md's
-queue of model families."""
+serves the ``dense`` and ``moe`` (transformer), ``ssm`` (mamba2) and
+``hybrid`` (zamba) families; ``vlm`` and ``audio`` raise and wait in
+ROADMAP.md's queue of model families."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -9,7 +9,8 @@ from typing import Any, Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, transformer, zamba
 
-FAMILIES = {"dense": transformer, "ssm": mamba2, "hybrid": zamba}
+FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+            "hybrid": zamba}
 
 
 def require_served(cfg: ModelConfig):

@@ -1,0 +1,163 @@
+"""Mixture-of-Experts FFN, the one-device part of ``repro/models/moe.py``.
+
+Experts are a remote data structure: tokens are routed to them as requests
+are routed to their owners in ``transport.route_by_dest``, with the same
+code shape (sort by destination, position within destination, scatter) and
+a fixed capacity per expert, so an assignment past it is dropped
+(deterministically), the static analogue of send-queue back-pressure.
+
+Routing is the reference's exactly: router logits in float32 (no TF32: one
+rounding can move a token to another expert); ties in the top-k go to the
+lowest expert index, as ``lax.top_k`` breaks them (``torch.topk`` does not);
+an expert's slots fill in flat (token, k) order over the whole batch, and
+assignments past its capacity fall into a sentinel cell that is cut away and
+weigh nothing in the combine.  The combine sums each token's K rows in
+float32, k = 0 first, with no atomics, so it is the same from run to run.
+
+On one device the dispatch is "local": every expert runs over the tokens
+routed to it.  The reference's "rpc", "onesided" and "replicated" modes
+shard the experts over a ``model`` axis larger than 1, which waits for the
+mesh slice (ROADMAP.md, item 12); at ``tp == 1`` they are the local path, as
+in the reference.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cost_model
+
+MODES = ("auto", "local", "rpc", "onesided", "replicated")
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    m = torch.backends.cuda.matmul
+    old, m.allow_tf32 = m.allow_tf32, False
+    try:
+        yield
+    finally:
+        m.allow_tf32 = old
+
+
+def _top_k(x, k: int):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (``lax.top_k``'s order)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _router(cfg: ModelConfig, xt, router_w):
+    """xt (T, d), router_w (d, E) -> (topv (T, K) float32, topi (T, K))."""
+    with _no_tf32():
+        logits = xt.float() @ router_w.float()
+    if cfg.router_renorm:   # deepseek: softmax-all -> top-k -> renormalize
+        topv, topi = _top_k(torch.softmax(logits, dim=-1), cfg.top_k)
+        topv = topv / topv.sum(-1, keepdim=True)
+    else:                   # granite: top-k logits -> softmax over them
+        tlog, topi = _top_k(logits, cfg.top_k)
+        topv = torch.softmax(tlog, dim=-1)
+    return topv, topi
+
+
+def _route(xt, topv, topi, n_experts_local: int, e_offset: int,
+           capacity: int):
+    """Capacity-routed dispatch of one device's tokens xt (T, d) by topv /
+    topi (T, K).  Returns (buf (E_l, C, d) in xt's dtype, meta), meta =
+    (dst_e, dst_c, tok, w, keep) over the T*K assignments in flat order."""
+    T, K = topi.shape
+    E = n_experts_local
+    dev = xt.device
+    flat_e = topi.reshape(-1).to(torch.int64) - e_offset
+    w = topv.reshape(-1)
+    local = (flat_e >= 0) & (flat_e < E)
+    slot = torch.where(local, flat_e, torch.full_like(flat_e, E))
+    # position within destination: an assignment's rank among those to
+    # its expert, in flat order (a stable sort by destination keeps it;
+    # searchsorted finds each destination's first row without a host sync)
+    dest, order = torch.sort(slot, stable=True)
+    start = torch.searchsorted(dest, torch.arange(E + 1, device=dev))
+    pos = torch.empty_like(slot)
+    pos[order] = torch.arange(T * K, device=dev) - start[dest]
+    keep = local & (pos < capacity)
+    dst_e = torch.where(keep, slot, torch.full_like(slot, E))
+    dst_c = torch.where(keep, pos, torch.full_like(pos, capacity))
+    tok = torch.arange(T * K, device=dev) // K
+    buf = torch.zeros((E + 1, capacity + 1, xt.shape[-1]), dtype=xt.dtype,
+                      device=dev)
+    buf[dst_e, dst_c] = xt[tok]
+    return buf[:E, :capacity], (dst_e, dst_c, tok, w, keep)
+
+
+def _combine(outbuf, meta, T: int, d: int):
+    """Each token's kept rows of outbuf (E, C, d), weighted, summed in
+    float32 over k = 0, 1, ... and cast to outbuf's dtype -> (T, d)."""
+    dst_e, dst_c, _, w, keep = meta
+    padded = F.pad(outbuf, (0, 0, 0, 1, 0, 1))
+    rows = padded[dst_e, dst_c].float()                           # (T*K, d)
+    rows.mul_(torch.where(keep, w, torch.zeros_like(w))[:, None])
+    rows = rows.view(T, -1, d)
+    out = rows[:, 0].clone()
+    for k in range(1, rows.shape[1]):
+        out += rows[:, k]
+    return out.to(outbuf.dtype)
+
+
+def _expert_ffn(buf, wg, wu, wd):
+    """buf (E, C, d); wg/wu (E, d, f), wd (E, f, d): SwiGLU per expert."""
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    h = F.silu(g.float()).to(buf.dtype) * u
+    return torch.bmm(h, wd)
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens routed at once."""
+    return max(1, int(np.ceil(tokens * cfg.top_k / cfg.n_experts
+                              * cfg.capacity_factor)))
+
+
+def moe_dispatch_mode(cfg: ModelConfig, tp: int,
+                      tokens_per_device: int) -> str:
+    """The reference's choice for a ``model`` axis of ``tp`` devices: "local"
+    at tp 1 or where the experts do not divide over it, else the cost
+    model's."""
+    if tp == 1 or cfg.n_experts % tp != 0:
+        return "local"
+    choice = cost_model.moe_dispatch_choice(
+        tokens_per_shard=tokens_per_device, d_model=cfg.d_model,
+        d_ff=cfg.d_ff, n_experts=cfg.n_experts, top_k=cfg.top_k, shards=tp)
+    return choice.mode
+
+
+def route(cfg: ModelConfig, x, router_w):
+    """The local path's routing of x (B, S, d): (topi, buf, meta)."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    topv, topi = _router(cfg, xt, router_w)
+    buf, meta = _route(xt, topv, topi, cfg.n_experts, 0,
+                       capacity(cfg, B * S))
+    return topi, buf, meta
+
+
+def moe_ffn(cfg: ModelConfig, x, router_w, wg, wu, wd, mode: str = "auto",
+            tp: int = 1):
+    """x (B, S, d); router_w (d, E); wg/wu (E, d, f); wd (E, f, d) ->
+    (B, S, d) in x's dtype.  ``tp`` is the size of the ``model`` axis; the
+    port runs on one device, where it is 1."""
+    if mode not in MODES:
+        raise ValueError(f"unknown MoE dispatch mode {mode!r}")
+    B, S, d = x.shape
+    if mode == "auto":
+        mode = moe_dispatch_mode(cfg, tp, tokens_per_device=B * S)
+    if tp > 1 and mode != "local":
+        raise NotImplementedError(
+            f"MoE dispatch mode {mode!r} over a model axis of {tp} needs the "
+            "mesh slice (ROADMAP.md, item 12); on one device it is 'local'")
+    _, buf, meta = route(cfg, x, router_w)
+    out = _combine(_expert_ffn(buf, wg, wu, wd), meta, B * S, d)
+    return out.reshape(B, S, d)

@@ -1,13 +1,14 @@
-"""Decoder-only dense LM (the dense part of ``repro/models/transformer.py``):
+"""Decoder-only LM, dense and MoE (``repro/models/transformer.py``):
 parameter specs, the attention block (prefill attention through the
-``flash_attention`` kernel), the SwiGLU FFN block, the decoder layer and the
+``flash_attention`` kernel), the FFN block (SwiGLU, or the routed experts of
+``models/moe.py`` with their shared experts), the decoder layer and the
 forward pass, with gemma2's local/global alternation, GQA, qkv bias,
 post-norms and softcaps.  The zamba2 shared block is one such decoder layer.
-MoE, head padding and rematerialisation are not on the port's path, and
-neither is the reference's ``RunOptions``: its attention tiles are the
-kernel's own.  On one device every head is local (the reference's
-``head_tp``, ``tp == 1``), so the padded and sequence-parallel branches
-wait for the mesh slice."""
+Head padding and rematerialisation are not on the port's path, and neither
+is the reference's ``RunOptions``: its attention tiles are the kernel's own.
+On one device every head is local (the reference's ``head_tp``,
+``tp == 1``), so the padded and sequence-parallel branches wait for the mesh
+slice."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,13 +18,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.embedding import embed, logits_of
+from repro_torch.models.moe import moe_ffn
 from repro_torch.parallel.sharding import ParamSpec as PS
 
 
 def layer_param_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
                       stacked: bool = True):
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md)")
     d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     Ld = (n_layers if n_layers is not None else cfg.n_layers,) if stacked else ()
@@ -34,10 +34,23 @@ def layer_param_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
         "wv": PS(Ld + (d, kvd), "scaled"),
         "wo": PS(Ld + (qd, d), "scaled"),
         "mlp_norm": PS(Ld + (d,), "ones"),
-        "w_gate": PS(Ld + (d, cfg.d_ff), "scaled"),
-        "w_up": PS(Ld + (d, cfg.d_ff), "scaled"),
-        "w_down": PS(Ld + (cfg.d_ff, d), "scaled"),
     }
+    f = cfg.d_ff
+    if cfg.is_moe:
+        E = cfg.n_experts
+        p["router"] = PS(Ld + (d, E), "scaled")
+        p["we_gate"] = PS(Ld + (E, d, f), "scaled")
+        p["we_up"] = PS(Ld + (E, d, f), "scaled")
+        p["we_down"] = PS(Ld + (E, f, d), "scaled")
+        if cfg.n_shared_experts:
+            sf = cfg.n_shared_experts * f
+            p["ws_gate"] = PS(Ld + (d, sf), "scaled")
+            p["ws_up"] = PS(Ld + (d, sf), "scaled")
+            p["ws_down"] = PS(Ld + (sf, d), "scaled")
+    else:
+        p["w_gate"] = PS(Ld + (d, f), "scaled")
+        p["w_up"] = PS(Ld + (d, f), "scaled")
+        p["w_down"] = PS(Ld + (f, d), "scaled")
     if cfg.qkv_bias:
         p["bq"] = PS(Ld + (qd,), "zeros")
         p["bk"] = PS(Ld + (kvd,), "zeros")
@@ -103,8 +116,18 @@ def attention_block(cfg: ModelConfig, p, h, cos, sin, *,
 
 
 def ffn_block(cfg: ModelConfig, p, h):
-    out = L.swiglu(L.rms_norm(h, p["mlp_norm"]), p["w_gate"], p["w_up"],
-                   p["w_down"])
+    """h (B, S, d) plus the FFN of its norm: SwiGLU, or the routed experts
+    over the B x S tokens plus the shared experts' SwiGLU, added in h's
+    dtype.  The decode step calls it on (B, 1, d), so its B tokens are
+    routed together."""
+    hn = L.rms_norm(h, p["mlp_norm"])
+    if cfg.is_moe:
+        out = moe_ffn(cfg, hn, p["router"], p["we_gate"], p["we_up"],
+                      p["we_down"])
+        if cfg.n_shared_experts:
+            out = out + L.swiglu(hn, p["ws_gate"], p["ws_up"], p["ws_down"])
+    else:
+        out = L.swiglu(hn, p["w_gate"], p["w_up"], p["w_down"])
     if cfg.post_norms:
         out = L.rms_norm(out, p["mlp_post_norm"])
     return h + out

@@ -1,8 +1,8 @@
-"""Serving: the decode step and its cache (the dense, pure-SSM and hybrid
-parts of ``repro/serving/decode.py``).
+"""Serving: the decode step and its cache (the dense, MoE, pure-SSM and
+hybrid parts of ``repro/serving/decode.py``).
 
-The cache holds, per attention layer (dense) or per application of the
-shared block (hybrid), its K/V rows, and per Mamba layer the conv tails
+The cache holds, per attention layer (dense and MoE) or per application of
+the shared block (hybrid), its K/V rows, and per Mamba layer the conv tails
 (bf16) and the SSM state (f32).  On one device every head is local (the
 reference's "heads" mode); the sequence-sharded RPC mode
 (``_flash_decode_shardmap``) waits for the mesh slice.
@@ -35,7 +35,7 @@ def cache_specs(cfg: ModelConfig, B: int, S: int) -> Dict[str, Tuple]:
     """{name: (shape, dtype)} of the cache for B rows of S positions."""
     require_served(cfg)
     out: Dict[str, Tuple] = {"len": ((B,), torch.int32)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         kv = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
         out["k"] = (kv, torch.bfloat16)
         out["v"] = (kv, torch.bfloat16)
@@ -83,8 +83,9 @@ def decode_attention(cfg: ModelConfig, q, kc, vc, lens, *, window=None):
 
 
 def _tf_decode_layer(cfg, p, h, kc, vc, lens, *, local: bool):
-    """Dense decoder layer for one token.  h (B, d); the token's K/V go into
-    kc/vc at ``lens``."""
+    """Dense or MoE decoder layer for one token.  h (B, d); the token's K/V
+    go into kc/vc at ``lens``.  The FFN is the prefill's
+    (``transformer.ffn_block``) over the B tokens."""
     B = h.shape[0]
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     hn = L.rms_norm(h, p["attn_norm"])
@@ -99,12 +100,7 @@ def _tf_decode_layer(cfg, p, h, kc, vc, lens, *, local: bool):
     o = att.reshape(B, Hq * hd) @ p["wo"]
     if cfg.post_norms:
         o = L.rms_norm(o, p["attn_post_norm"])
-    h = h + o
-    out = L.swiglu(L.rms_norm(h, p["mlp_norm"]), p["w_gate"], p["w_up"],
-                   p["w_down"])
-    if cfg.post_norms:
-        out = L.rms_norm(out, p["mlp_post_norm"])
-    return h + out
+    return T.ffn_block(cfg, p, (h + o)[:, None])[:, 0]
 
 
 def _ssm_decode_layer(cfg, p, h, cache, i: int):
@@ -156,7 +152,8 @@ def _hybrid_decode(cfg: ModelConfig, params, cache, tokens):
     return logits_of(cfg, params, h), dict(cache, len=lens + 1)
 
 
-_DECODE = {"dense": _tf_decode, "ssm": _ssm_decode, "hybrid": _hybrid_decode}
+_DECODE = {"dense": _tf_decode, "moe": _tf_decode, "ssm": _ssm_decode,
+           "hybrid": _hybrid_decode}
 
 
 def make_decode_step(cfg: ModelConfig):

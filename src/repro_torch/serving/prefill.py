@@ -1,4 +1,4 @@
-"""Prefill (the dense, pure-SSM and hybrid parts of
+"""Prefill (the dense, MoE, pure-SSM and hybrid parts of
 ``repro/serving/prefill.py``): the forward pass over the prompt, emitting
 each attention layer's K/V rows and each Mamba layer's conv tails and final
 SSM state into the cache, with the LM head on the last position only.
@@ -105,7 +105,7 @@ def _hybrid_prefill(cfg: ModelConfig, S, room, params, batch):
     return logits_of(cfg, params, h[:, -1]), cache
 
 
-_PREFILL = {"dense": _tf_prefill, "ssm": _ssm_prefill,
+_PREFILL = {"dense": _tf_prefill, "moe": _tf_prefill, "ssm": _ssm_prefill,
             "hybrid": _hybrid_prefill}
 
 

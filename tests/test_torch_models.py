@@ -30,7 +30,7 @@ from repro.parallel.sharding import Topology, init_params as jinit  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.convert import (params_from_numpy, params_to_numpy,  # noqa: E402
                                  tensor_from_numpy)
-from repro_torch.models import api, zamba  # noqa: E402
+from repro_torch.models import api, moe, zamba  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.parallel.sharding import ParamSpec, init_params  # noqa: E402
@@ -82,9 +82,22 @@ UNPORTED = [("granite-moe-1b-a400m", "moe"), ("deepseek-moe-16b", "moe"),
 
 @pytest.mark.parametrize("name,family", UNPORTED)
 def test_registry_and_api_refuse_what_is_not_ported(name, family):
-    """The families still unported: the registry does not know their archs,
-    and the dispatcher refuses their family, naming ROADMAP.md."""
+    """What is still unported is refused, naming ROADMAP.md: the audio and
+    VLM archs by the registry and their families by the dispatcher; of the
+    MoE archs (served since their slice: test_torch_moe.py), the dispatch
+    modes that shard the experts over a model axis larger than 1."""
     assert JARCHS[name].family == family
+    if family == "moe":
+        cfg = get(name).smoke()
+        assert "router" in api.param_specs(cfg)["layers"]
+        d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+        w = [torch.zeros(s) for s in ((d, E), (E, d, f), (E, d, f),
+                                      (E, f, d))]
+        x = torch.ones((1, 4, d))
+        for mode in ("rpc", "onesided", "replicated"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                moe.moe_ffn(cfg, x, *w, mode=mode, tp=2)
+        return
     with pytest.raises(KeyError, match="ROADMAP"):
         get(name)
     other = dataclasses.replace(get(ARCH).smoke(), family=family)
