@@ -42,8 +42,8 @@ Phases (any failure exits non-zero):
      against the CPU's for information; then in bf16 one module at a time
      (a Mamba2 layer's prefill with its states, a decode step, the shared
      block), card against CPU within a few bf16 ulps;
-  5. the TATP main path: ``txloop.tx_loop`` at 32 simulated nodes and 2**15
-     subscribers per node (1,048,576 subscribers), with ``hash_probe``'s
+  5. the TATP main path: ``txloop.tx_loop`` at 32 simulated nodes and 2**13
+     subscribers per node (262,144 subscribers), with ``hash_probe``'s
      launch count read around that one run.  Before it, the kernel is timed
      against its plain version and its byte bound at the shape this run
      gives it and at a bandwidth shape (2**18 live lanes at widths 1 and 4
@@ -80,8 +80,8 @@ Phases (any failure exits non-zero):
      read back from it and from the old owner, now its backup; the stale
      batch again with the flight recorder, equal to it, its REFRESH row
      carrying wire in round 1 alone;
-  9. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**15
-     keys (1,048,576; both B-link trees of every node on the card), a
+  9. the ordered path: ``range_scan.build_tree`` scaled to 32 nodes x 2**13
+     keys (262,144; both B-link trees of every node on the card), a
      pure-scan batch against a numpy sorted-array reference, then
      ``scan_loop`` over the scan-heavy mix at f=0 and f=1 from clones of the
      one tree: equal round trips and commits, equal primary trees, no
@@ -127,7 +127,35 @@ Phases (any failure exits non-zero):
  16. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
      4096-token prompts, 32 greedy tokens) as in phase 10: 28 and 24
      ``flash_attention`` launches a prefill, the share of expert
-     assignments kept at each step, peak memory.
+     assignments kept at each step, peak memory;
+ 17. gradients through the kernels: ``ops.flash_attention``'s Function at
+     zamba2's training shape (B 8, S 2048, 32 heads of 64, causal, bf16)
+     and granite's (16 heads over 8), ``ops.ssd_scan``'s at zamba2's (B 8,
+     8 chunks of 256, H 64, P = N = 64, float32): the forward launches the
+     kernel once, every input gradient is nonzero and equals autograd
+     straight through the backward's function (``block_attention_jnp``,
+     ``ssd_scan_plain``) on the card within a stated limit, and a Function
+     whose backward returns zeros is rejected; the forward's and the
+     backward's times;
+ 18. training at smoke() size, every ported arch, float32 weights: the loss
+     and every gradient leaf, card against CPU, with the kernels' launches;
+     then one train step's master weights;
+ 19. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
+     trained at full size: 8 x 2048 tokens a step, seeded weights, AdamW
+     and remat at the reference's defaults, a warm-up step and 5 timed
+     ones: loss, grad norm, ms and tokens/s of each step, kernel launches
+     per step against the layer count and the remat (the recompute
+     launches every kernel again), peak memory, granite's kept share of
+     expert assignments, one step under torch.profiler;
+ 20. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
+     to the two inequalities of the reference's
+     ``test_loss_decreases_on_repetitive_stream``;
+ 21. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
+     2 steps, a save through ``CheckpointManager(device="cuda")`` (its
+     commit record an OCC transaction on the card, read back through
+     ``hybrid_lookup`` and the ``hash_probe`` kernel), every array read
+     back bit for bit, then a resumed third step equal to the
+     uninterrupted run's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
@@ -176,19 +204,40 @@ PARITY_LAYERS, PARITY_PROMPT, PARITY_DECODE = 7, 256, 4
 # on the card, 7 layers, float32: prefill 224 + 32 teacher-forced decode
 # steps against the forward over those 256 tokens (one SSD chunk)
 CHECK_PROMPT, CHECK_DECODE = 224, 32
-# the main path: fig6's TATP at the paper's 32 nodes, 2**15 subscribers each
+# the main path: fig6's TATP at the paper's 32 nodes, 2**13 subscribers each
+# in 2**16 buckets and 2**13 overflow slots a node (73,728 slots); cut from
+# 2**15 subscribers in 2**18 + 2**15 slots to keep the script inside its time
+# limit on a slow host (population and the membership sweeps are host-bound
+# and scale with the slots: 72-78 s and 267-303 s at 2**15, 46 s and 150 s
+# at 2**14)
 TATP_NODES, TATP_SUBSCRIBERS_PER_NODE, TATP_LANES, TATP_MAX_ROUNDS = \
-    32, 2**15, 512, 4
+    32, 2**13, 512, 4
+TATP_BUCKETS, TATP_OVERFLOW = 2**16, 2**13
 # hash_probe's bandwidth shape (over the TATP arenas) and its largest check
 PROBE_LANES = 2**18
 # replicated TATP: one backup copy per record on the node ring
 REP_F = 1
-# the ordered path: range_scan.build_tree at the paper's 32 nodes, 2**15 keys
-# each, the scan-heavy mix (90 % scans of 4 keys, gap-key upserts)
+# the ordered path: range_scan.build_tree at the paper's 32 nodes, 2**13 keys
+# each, the scan-heavy mix (90 % scans of 4 keys, gap-key upserts); cut from
+# 2**15 to make room for the training phases (its host-bound population took
+# 190-215 s at 2**15, 95 s at 2**14)
 ORDERED_NODES, ORDERED_KEYS_PER_NODE, ORDERED_LANES, ORDERED_MAX_ROUNDS = \
-    32, 2**15, 512, 4
+    32, 2**13, 512, 4
 ORDERED_BATCH = 1024              # inserts per node per population round
 ORDERED_SCAN_FRAC = 0.9
+# training: zamba2-1.2b and granite-moe-1b-a400m at full size, 8 x 2,048
+# tokens a step, one warm-up step and 5 timed; the learnability run at
+# qwen1.5-4b's smoke() size; the checkpoint at zamba2's full width cut to 2
+# layers (~1.9 GB of state on disk)
+TRAIN_ARCH, MOE_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
+    "zamba2-1.2b", "granite-moe-1b-a400m", 8, 2048, 5
+LEARN_ARCH, LEARN_STEPS, CKPT_LAYERS = "qwen1.5-4b", 100, 2
+# training limits: the CPU tests' (tests/test_torch_train.py) for float32
+# gradients per leaf (of the leaf's largest |grad|) and the float32 loss;
+# the kernels' gradients against autograd through the backward's own
+# function on the card, of each tensor's largest |grad|
+GRAD_REL, LOSS_REL = 5e-3, 1e-5
+KGRAD_BF16, KGRAD_F32 = 4 * 2.0 ** -8, 1e-3
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,8 +262,11 @@ def check(cond, msg):
         fail(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def time_cuda(fn, iters, flush=None):
@@ -690,8 +742,9 @@ def tatp_main_path(dev, rows):
 
     n_nodes, subs = TATP_NODES, TATP_SUBSCRIBERS_PER_NODE
     lanes, max_rounds = TATP_LANES, TATP_MAX_ROUNDS
-    cfg = ht.HashTableConfig(n_nodes=n_nodes, n_buckets=2**18, bucket_width=1,
-                             n_overflow=2**15, max_chain=12)
+    cfg = ht.HashTableConfig(n_nodes=n_nodes, n_buckets=TATP_BUCKETS,
+                             bucket_width=1, n_overflow=TATP_OVERFLOW,
+                             max_chain=12)
     layout = ht.build_layout(cfg)
     t = SimTransport(n_nodes)
     state = ht.init_cluster_state(cfg, device=dev)
@@ -2608,6 +2661,464 @@ def moe_served(dev):
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training: gradients through the kernels, the train step with AdamW, and the
+# checkpoint whose commit record is a Storm transaction
+# ---------------------------------------------------------------------------
+def _grad_excess(got, want, limit):
+    """Tensor by tensor, max |got - want| over limit x max |want| (> 1
+    fails)."""
+    return max(float((g.float() - w.float()).abs().max())
+               / (limit * float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def _grads_of(fn, inputs, loss):
+    """Gradients of loss(fn(*inputs)) with respect to fresh leaves copied from
+    ``inputs``."""
+    import torch
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(loss(fn(*leaves)), leaves)
+
+
+def _zero_backward(fn):
+    """``fn`` as an autograd Function whose backward returns zeros: the
+    negative control of the gradient checks."""
+    import torch
+
+    class ZeroBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(*xs):
+            return fn(*xs)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.inputs = inputs
+
+        @staticmethod
+        def backward(ctx, *grads):
+            return tuple(torch.zeros_like(t) for t in ctx.inputs)
+    return ZeroBackward.apply
+
+
+def flash_grad_check(dev, label, B, S, Hq, Hkv, D):
+    """The flash_attention Function at a training shape (bf16, causal): its
+    forward launches the kernel once; its dq/dk/dv are nonzero and equal
+    autograd straight through ``layers.block_attention_jnp`` (the
+    reference's differentiated function, 512 x 512 tiles) on the card within
+    KGRAD_BF16 of each tensor's largest |grad|; a Function whose backward
+    returns zeros is rejected by the same check.  The loss is
+    sum(w * out^2) / 2, so the kernel's forward values enter the gradient."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(11)
+    mk = lambda H, a: (torch.randn((B, S, H, D), generator=g, device=dev)
+                       * a).to(torch.bfloat16)
+    qkv = (mk(Hq, 0.5), mk(Hkv, 0.5), mk(Hkv, 0.5))
+    w = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    loss = lambda out: (w * out.float().square()).sum() / 2
+    n0 = fa.launches
+    got = _grads_of(ops.flash_attention, qkv, loss)
+    launched = fa.launches - n0
+    want = _grads_of(L.block_attention_jnp, qkv, loss)
+    bad = _grads_of(_zero_backward(
+        lambda q, k, v: ops._flash(q, k, v, True, None, None)), qkv, loss)
+    excess, bad_excess = (_grad_excess(x, want, KGRAD_BF16)
+                          for x in (got, bad))
+    with torch.no_grad():
+        fwd = _mean(time_cuda(lambda: ops.flash_attention(*qkv), 3))
+    both = _mean(time_cuda(lambda: _grads_of(ops.flash_attention, qkv, loss),
+                           2))
+    print(f"flash_attention gradients at {label} (B {B}, S {S}, {Hq} heads "
+          f"over {Hkv}, D {D}, causal, bf16): " + json.dumps({
+              "kernel_launches_in_forward": launched,
+              "max_abs_grad": [float(x.float().abs().max()) for x in got],
+              "excess_over_limit": excess,
+              "negative_control_excess": bad_excess,
+              "forward_kernel_ms": fwd, "forward_and_backward_ms": both,
+              "card": card()}), flush=True)
+    check(launched == 1, f"flash_attention at {label}: the forward launched "
+          f"{launched} kernels, expected 1")
+    check(all(float(x.abs().max()) > 0 for x in got),
+          f"flash_attention at {label}: a zero gradient")
+    check(excess <= 1, f"flash_attention at {label}: gradients differ from "
+          f"the backward's function ({excess:.3f} of the limit)")
+    check(bad_excess > 1, f"flash_attention at {label}: the negative control "
+          "(a zero backward) passed the check")
+
+
+def ssd_grad_check(dev):
+    """The ssd_scan Function at zamba2's training shape (float32): its forward
+    launches the kernels once; the four input gradients are nonzero and
+    equal autograd straight through ``ssd_scan.ssd_scan_plain`` (the
+    reference's chunk step) on the card within KGRAD_F32 of each tensor's
+    largest |grad|; a zero backward is rejected."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ss
+    B, nc, Q, H, P, N = ssd_shape(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ)
+    ins = ssd_inputs(B, nc, Q, H, P, N, dev, 12)
+    g = torch.Generator(device=dev).manual_seed(13)
+    wy = torch.randn(ins[0].shape, generator=g, device=dev)
+    ws = torch.randn((B, H, N, P), generator=g, device=dev)
+    loss = lambda out: ((wy * out[0].square()).sum() / 2
+                        + (ws * out[1]).sum())
+    fn = lambda *xs: ops.ssd_scan(*xs, h_tile=1)
+    n0 = ss.launches
+    got = _grads_of(fn, ins, loss)
+    launched = ss.launches - n0
+    want = _grads_of(ss.ssd_scan_plain, ins, loss)
+    bad = _grads_of(_zero_backward(lambda *xs: ss.ssd_scan(*xs, h_tile=1)),
+                    ins, loss)
+    excess, bad_excess = (_grad_excess(x, want, KGRAD_F32) for x in (got, bad))
+    with torch.no_grad():
+        fwd = _mean(time_cuda(lambda: fn(*ins), 3))
+    both = _mean(time_cuda(lambda: _grads_of(fn, ins, loss), 2))
+    print(f"ssd_scan gradients at {TRAIN_ARCH}'s training shape (B {B}, {nc} "
+          f"chunks of {Q}, H {H}, P {P}, N {N}, float32): " + json.dumps({
+              "kernel_launches_in_forward": launched,
+              "max_abs_grad": [float(x.abs().max()) for x in got],
+              "excess_over_limit": excess,
+              "negative_control_excess": bad_excess,
+              "forward_kernel_ms": fwd, "forward_and_backward_ms": both,
+              "card": card()}), flush=True)
+    check(launched == 1, f"ssd_scan: the forward launched {launched} calls")
+    check(all(float(x.abs().max()) > 0 for x in got), "ssd_scan: a zero "
+          "gradient")
+    check(excess <= 1, f"ssd_scan: gradients differ from the backward's "
+          f"function ({excess:.3f} of the limit)")
+    check(bad_excess > 1, "ssd_scan: the negative control passed the check")
+
+
+def kernel_gradients(dev):
+    """Gradients through the kernels at zamba2's and granite's training
+    shapes (flash_grad_check, ssd_grad_check)."""
+    from repro_torch.configs.registry import get
+    z, gr = get(TRAIN_ARCH), get(MOE_TRAIN_ARCH)
+    flash_grad_check(dev, TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, z.n_heads,
+                     z.n_kv_heads, z.head_dim)
+    flash_grad_check(dev, MOE_TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, gr.n_heads,
+                     gr.n_kv_heads, gr.head_dim)
+    ssd_grad_check(dev)
+
+
+def _named_grads(cfg, params, batch, opts):
+    """(loss, {path: gradient}) of the float32 loss of one batch."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.loss import lm_loss
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = lm_loss(api.forward(cfg, live, batch, opts=opts),
+                      batch["labels"])
+    return loss.detach(), dict(zip(_flat(live), torch.autograd.grad(
+        loss, tree_leaves(live))))
+
+
+def _flat(tree, pre=""):
+    """{path: leaf} in sorted key order (``optim.adamw.tree_leaves``'s)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        out.update(_flat(v, f"{pre}{k}/") if isinstance(v, dict)
+                   else {pre + k: v})
+    return out
+
+
+def train_card_vs_cpu(dev):
+    """Every ported arch at smoke() size in float32 weights, B 2 x 96 tokens:
+    the loss within LOSS_REL and every gradient leaf within GRAD_REL of the
+    leaf's largest |grad|, card (the kernels forward, their Functions
+    backward) against CPU (the plain versions), with the kernels' launches
+    on the card; then one train step from the same state on each: the
+    master weights' update within GRAD_REL of its leaf's largest update plus
+    two float32 spacings of the leaf's largest weight (AdamW with eps 1, lr
+    0.1, no decay, as the CPU tests hold the JAX package)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, get
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import api
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.parallel.sharding import init_params
+    from repro_torch.train.step import TrainHparams, make_train_step
+    opts = RunOptions(q_block=32, kv_block=32, remat=False)
+    hp = TrainHparams(opts=opts, optimizer=AdamWConfig(
+        lr=0.1, eps=1.0, warmup_steps=1, weight_decay=0.0))
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        cfg = get(arch).smoke()
+        p32 = _map_tree(init_params(api.param_specs(cfg),
+                                    torch.Generator().manual_seed(0), "cpu"),
+                        lambda t: t.float())
+        batch = synthetic_batch(cfg, ShapeConfig("t", 96, 2, "train"),
+                                DataConfig(), 0, "cpu")
+        # copies: a train step writes its parameters in place
+        on = lambda d: ({k: v.to(d) for k, v in batch.items()},
+                        _map_tree(p32, lambda t: t.to(d, copy=True)))
+        l_cpu, g_cpu = _named_grads(cfg, p32, batch, opts)
+        fa.launches = ss.launches = 0
+        b_dev, p_dev = on(dev)
+        l_dev, g_dev = _named_grads(cfg, p_dev, b_dev, opts)
+        launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+        loss_rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+        worst = max((float((g_dev[n].cpu() - g_cpu[n]).abs().max())
+                     / float(g_cpu[n].abs().max()), n) for n in g_cpu)
+        # one train step from the same state on each device
+        master = {}
+        for d in ("cpu", dev):
+            bd, pd = on(d)
+            st = {"params": pd, "opt": init_opt_state(pd)}
+            make_train_step(cfg, hp)(st, bd)
+            master[d] = {n: t.cpu() for n, t in _flat(st["opt"]["master"]).items()}
+        w0 = _flat(p32)
+        upd = 0.0
+        for n, w in master["cpu"].items():
+            u_cpu, u_dev = w - w0[n], master[dev][n] - w0[n]
+            floor = 2 * float(np.spacing(np.float32(w.abs().max())))
+            lim = GRAD_REL * float(u_cpu.abs().max()) + floor
+            upd = max(upd, float((u_dev - u_cpu).abs().max()) / lim)
+        expect = ({"flash_attention": 1, "ssd_scan": cfg.n_layers}
+                  if cfg.family == "hybrid" else _family_launches(cfg))
+        print(f"{arch} smoke training, card vs cpu, float32: " + json.dumps({
+            "loss": float(l_cpu), "loss_rel": loss_rel,
+            "worst_leaf": worst[1], "worst_leaf_rel": worst[0],
+            "master_update_excess_over_limit": upd,
+            "launches_forward_and_backward": launches,
+            "seconds": time.perf_counter() - t0}), flush=True)
+        check(loss_rel <= LOSS_REL, f"{arch}: losses differ")
+        check(worst[0] <= GRAD_REL, f"{arch}: gradient {worst[1]} differs")
+        check(upd <= 1, f"{arch}: master weights after a step differ")
+        check(launches == expect, f"{arch}: launches {launches}, expected "
+              f"{expect} (one forward, no remat)")
+
+
+# the profile spans of a train step (train/step.py, kernels/ops.py); the
+# backward is the rest of the step's device time
+TRAIN_SPANS = ("train forward", "adamw", "flash_attention backward",
+               "ssd_scan backward")
+
+
+def _train_launches(cfg):
+    """Kernel launches of one train step at the default RunOptions: every
+    layer body runs twice, in the forward and in its remat recompute (the
+    backward launches no kernel)."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid":
+        return {"flash_attention": 2 * (n // cfg.shared_attn_every),
+                "ssd_scan": 2 * n}
+    return {k: 2 * v for k, v in _family_launches(cfg).items()}
+
+
+def train_full_size(dev, arch):
+    """``arch`` trained at full size on the synthetic stream: TRAIN_BATCH x
+    TRAIN_SEQ tokens a step, seeded weights, AdamW and RunOptions at the
+    reference's defaults (remat of each layer body, saving the weight
+    products); one warm-up step, then TRAIN_STEPS timed steps (host clock
+    ending in a synchronise), each with its kernel launches set to 0 just
+    before it and read just after, checked against _train_launches; finite
+    losses, grad norms > 0; peak memory; for MoE the kept share of expert
+    assignments in each step's forward; one more step under torch.profiler."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.train.step import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = get(arch)
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(state)) / 1e9
+    print(f"train: {arch}, {cfg.n_layers} layers, {n_params} parameters, "
+          f"state {state_gb:.3f} GB, drawn in {time.perf_counter() - t0:.2f} "
+          f"s; card {card()}", flush=True)
+    step = make_train_step(cfg)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = lambda s: synthetic_batch(cfg, shape, DataConfig(), s, dev)
+    step(state, batch(0))                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = _train_launches(cfg)
+    rows = []
+    for s in range(1, TRAIN_STEPS + 1):
+        b = batch(s)
+        fa.launches = ss.launches = 0
+        with (routed(logits=False) if cfg.is_moe
+              else contextlib.nullcontext()) as calls:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, m = step(state, b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        row = {"step": s, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "ms": ms,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+               "launches": {"flash_attention": fa.launches,
+                            "ssd_scan": ss.launches}}
+        if cfg.is_moe:      # the forward's calls (the recompute's follow)
+            row["kept_share"] = kept_shares(calls[:cfg.n_layers],
+                                            cfg.n_layers)[0]
+        rows.append(row)
+        print(f"train {arch}: " + json.dumps(row), flush=True)
+        check(row["launches"] == expect, f"{arch}: launches per train step "
+              f"{row['launches']}, expected {expect}")
+        check(all(map(lambda x: x == x and abs(x) != float("inf"),
+                      (row["loss"], row["grad_norm"]))),
+              f"{arch}: non-finite loss or grad norm")
+        check(row["grad_norm"] > 0, f"{arch}: zero gradient")
+    ms = sorted(r["ms"] for r in rows)
+    stats = {"arch": arch, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "n_params": n_params, "state_gb": state_gb,
+             "ms_per_step_median": ms[len(ms) // 2],
+             "tokens_per_s_median": TRAIN_BATCH * TRAIN_SEQ / ms[len(ms) // 2]
+             * 1e3,
+             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches_per_step": expect, "card": card()}
+    print(f"train {arch}: " + json.dumps(stats), flush=True)
+    check(stats["max_memory_allocated_gb"] * 1e9
+          < torch.cuda.get_device_properties(0).total_memory,
+          f"{arch}: peak memory above the card's")
+    b = batch(TRAIN_STEPS + 1)
+    prof = profile_round(lambda: step(state, b), label=f"{arch} train step",
+                         spans=TRAIN_SPANS)
+    span = {k: v["device_s"] for k, v in prof["spans"].items()}
+    fwd, opt = span.get("train forward", 0.0), span.get("adamw", 0.0)
+    back = prof["device_busy_s"] - fwd - opt
+    kern = sum(span.get(k, 0.0) for k in TRAIN_SPANS[2:])
+    print(f"train {arch}, where a step's device time goes: " + json.dumps({
+        "forward_s": fwd, "backward_s": back, "adamw_s": opt,
+        "kernels_backward_s": kern,
+        "kernels_backward_share_of_step": (
+            kern / prof["device_busy_s"] if prof["device_busy_s"]
+            else "not measured"),
+        "card": card()}), flush=True)
+    print(f"{arch} trained: {time.perf_counter() - t0:.1f} s of phase",
+          flush=True)
+    del state
+    return stats
+
+
+def learn_on_card(dev):
+    """tests/test_smoke_archs.py's learnability test on the card:
+    qwen1.5-4b at smoke() size, LEARN_STEPS steps of the repetitive stream
+    through the kernels, held to its two inequalities."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (TrainHparams, init_train_state,
+                                        make_train_step)
+    t0 = time.perf_counter()
+    cfg = get(LEARN_ARCH).smoke()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(2),
+                             dev)
+    hp = TrainHparams(opts=RunOptions(q_block=32, kv_block=32, remat=False),
+                      optimizer=AdamWConfig(lr=5e-3, warmup_steps=10,
+                                            weight_decay=0.0))
+    step = make_train_step(cfg, hp)
+    shape = ShapeConfig("smoke", 64, 2, "train")
+    fa.launches = 0
+    losses = [step(state, synthetic_batch(cfg, shape, DataConfig(), s, dev))[1]
+              ["loss"] for s in range(LEARN_STEPS)]
+    losses = torch.stack(losses).tolist()
+    print(f"learnability ({LEARN_ARCH} smoke, {LEARN_STEPS} steps on the "
+          f"card): " + json.dumps({
+              "first": losses[:5], "last": losses[-10:],
+              "flash_attention_launches": fa.launches,
+              "seconds": time.perf_counter() - t0}), flush=True)
+    check(bool(np.isfinite(losses).all()), "learnability: non-finite loss")
+    check(min(losses[-10:]) < losses[0] * 0.99, "learnability: the loss did "
+          "not fall by 1 %")
+    check(min(losses[-10:]) < min(losses[:5]), "learnability: the last ten "
+          "losses are not below the first five")
+    check(fa.launches == LEARN_STEPS * cfg.n_layers,
+          f"learnability: {fa.launches} flash_attention launches")
+
+
+def checkpoint_on_card(dev):
+    """zamba2-1.2b at full width cut to CKPT_LAYERS layers: two train steps,
+    a save through ``CheckpointManager(device="cuda")`` (the commit record
+    an OCC transaction on the card, read back by ``latest_committed_step``
+    through ``hybrid_lookup``), every array read back bit for bit, the
+    committed step, hash_probe's launches in the commit's rounds, then a
+    resumed third step equal to the uninterrupted run's (loss and grad
+    norm, bit for bit)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.train.step import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get(TRAIN_ARCH), n_layers=CKPT_LAYERS)
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    step = make_train_step(cfg)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = lambda s: synthetic_batch(cfg, shape, DataConfig(), s, dev)
+    for s in range(2):
+        step(state, batch(s))
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    mgr = CheckpointManager(d, device=dev)
+    hp.launches = 0
+    t1 = time.perf_counter()
+    path = mgr.save(2, state)
+    save_s = time.perf_counter() - t1
+    in_commit = hp.launches
+    latest = mgr.latest_committed_step()
+    in_lookup = hp.launches - in_commit
+    disk_gb = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+    t1 = time.perf_counter()
+    at, restored = mgr.restore()
+    restore_s = time.perf_counter() - t1
+    flat_a, flat_b = _flat(state), _flat(restored)
+    same = (set(flat_a) == set(flat_b) and all(
+        flat_a[k].dtype == flat_b[k].dtype
+        and flat_b[k].device == flat_a[k].device
+        and torch.equal(flat_a[k], flat_b[k]) for k in flat_a))
+    _, m_whole = step(state, batch(2))
+    _, m_resumed = step(restored, batch(2))
+    pair = {k: (float(m_whole[k]), float(m_resumed[k]))
+            for k in ("loss", "grad_norm")}
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"checkpoint ({TRAIN_ARCH} at full width, {CKPT_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): " + json.dumps({
+              "saved_step": 2, "latest_committed_step": latest,
+              "restored_step": at, "arrays": len(flat_a), "disk_gb": disk_gb,
+              "save_s": save_s, "restore_s": restore_s,
+              "hash_probe_launches_commit_tx": in_commit,
+              "hash_probe_launches_read_back": in_lookup,
+              "bit_for_bit": same, "third_step_whole_vs_resumed": pair,
+              "seconds": time.perf_counter() - t0, "card": card()}),
+          flush=True)
+    check(latest == 2 and at == 2, f"checkpoint: latest {latest}, restored "
+          f"{at}, expected 2")
+    check(same, "checkpoint: an array did not come back bit for bit")
+    check(in_commit + in_lookup >= 1 and in_lookup >= 1,
+          "checkpoint: the commit record's rounds launched no hash_probe")
+    check(all(a == b for a, b in pair.values()), f"checkpoint: the resumed "
+          f"step differs from the uninterrupted one {pair}")
+
+
 def _tensors(x):
     """Every tensor of a tensor, a dict or a dataclass of them, in order."""
     import dataclasses
@@ -2628,32 +3139,48 @@ def _leaves(tree):
             yield v
 
 
-def profile_round(fn, label="tatp"):
-    """Run ``fn`` once under torch.profiler and print its wall time, the
-    summed device time of its kernels (the device's busy share; one stream,
-    so kernels do not overlap) and the kernels that took the most of it."""
+def profile_round(fn, label="tatp", spans=()):
+    """Run ``fn`` once under torch.profiler and print (and return) its wall
+    time, the summed device time of its kernels (the device's busy share;
+    one stream, so kernels do not overlap), the kernels that took the most
+    of it and, for each named span in ``spans``
+    (``torch.profiler.record_function``, launched from the thread that
+    records it), the device time of the kernels launched inside it.  The
+    host's operators are recorded only where a span needs them: turning the
+    recorded events into rows takes host time that grows with their number
+    (printed as ``processing_s``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if spans else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
+    on_card = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    processing = time.perf_counter() - t0 - wall
+    # a span's own row on the card is its annotation, not a kernel
+    kernels = [e for e in on_card if e.key not in spans]
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     busy = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    print(f"{label} profile: " + json.dumps({
-        "wall_s": wall, "device_busy_s": busy,
-        "device_busy_share": busy / wall if busy else "not measured",
-        "kernel_launches": sum(e.count for e in kernels),
-        "top_kernels": [{"name": e.key[:60], "count": e.count,
-                         "device_s": dev_us(e) / 1e6} for e in top]}),
-        flush=True)
+    span_us = lambda e: getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0))
+    out = {"wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall if busy else "not measured",
+           "kernel_launches": sum(e.count for e in kernels),
+           "top_kernels": [{"name": e.key[:60], "count": e.count,
+                            "device_s": dev_us(e) / 1e6} for e in top],
+           "host_operators_recorded": bool(spans), "processing_s": processing}
+    if spans:
+        out["spans"] = {e.key: {"count": e.count,
+                                "device_s": span_us(e) / 1e6}
+                        for e in on_card if e.key in spans}
+    print(f"{label} profile: " + json.dumps(out), flush=True)
+    return out
 
 
 KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
@@ -2814,6 +3341,22 @@ def main():
     print(f"the MoE family's phases: {time.perf_counter() - t_moe:.1f} s",
           flush=True)
 
+    t_train = time.perf_counter()
+    phase("gradients through the kernels at the training shapes")
+    kernel_gradients(dev)
+    phase("training at smoke() size, every ported arch: card against CPU")
+    train_card_vs_cpu(dev)
+    phase("training zamba2-1.2b and granite-moe-1b-a400m at full size")
+    train_full_size(dev, TRAIN_ARCH)
+    train_full_size(dev, MOE_TRAIN_ARCH)
+    phase("learnability through the kernels")
+    learn_on_card(dev)
+    phase("the Storm-committed checkpoint on the card")
+    checkpoint_on_card(dev)
+    print(f"the training phases: {time.perf_counter() - t_train:.1f} s",
+          flush=True)
+
+    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s in all", flush=True)
     print(card())                   # name, power limit as nvidia-smi gives them
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

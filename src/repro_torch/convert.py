@@ -8,7 +8,9 @@ uint32}``, e.g. ``jax.device_get(state)``) and returns the port's tensors on
 
 Model parameters: ``params_from_numpy`` takes the reference's parameter tree
 as numpy arrays (nested dicts) and returns the port's tree on ``device``;
-``params_to_numpy`` is the inverse.  JAX's bf16 arrays come out of
+``params_to_numpy`` is the inverse.  A train state (``{"params", "opt":
+{"master", "m", "v", "step"}}``) crosses in with ``train_state_from_numpy``
+and back with ``params_to_numpy``.  JAX's bf16 arrays come out of
 ``np.asarray`` as ``ml_dtypes.bfloat16``, which torch cannot read, so they
 cross as 16-bit integer images.  Nothing changes but the type label, so
 round trips are bit-exact.
@@ -71,3 +73,13 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """The reference's train state (``jax.device_get`` of it) as the port's:
+    bf16 parameters, float32 master/m/v, the int32 step."""
+    if set(state) != {"params", "opt"} or \
+            set(state["opt"]) != {"master", "m", "v", "step"}:
+        raise ValueError("a train state is {'params', 'opt': {'master', 'm', "
+                         "'v', 'step'}}")
+    return params_from_numpy(state, device)

@@ -24,9 +24,9 @@ which the data structures' handlers consult for their owner check.
 **One-issuer sweeps.**  Re-replication and migration read a whole slot or
 leaf region of one node with ONE one-sided read round and send its records
 in ONE RPC round, issued by one node to one node.  The cluster rounds are
-dense in (node, source, cell), so at the TATP size (294,912 slots a node)
-one such round would hold a 38.6 GB reply block that is dead but for one
-row.  The port runs each sweep as slices of at most ``SWEEP_LANES`` lanes,
+dense in (node, source, cell), so at 294,912 slots a node (2^18 buckets
+and 2^15 overflow slots) one such round would hold a 38.6 GB reply block
+that is dead but for one row.  The port runs each sweep as slices of at most ``SWEEP_LANES`` lanes,
 in lane order, and bills the ONE round the unsplit call would: the owner's
 fold sees the same records in the same order, the issuer gets the same
 replies, and the WireStats count every lane once and the one (source,

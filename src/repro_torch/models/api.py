@@ -26,7 +26,10 @@ def param_specs(cfg: ModelConfig):
     return FAMILIES[cfg.family].param_specs(cfg)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, Any]):
-    """batch {"tokens": (B, S)} -> logits (B, S, V_padded) float32."""
+def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None):
+    """batch {"tokens": (B, S)} -> logits (B, S, V_padded) float32.
+    ``opts``: ``transformer.RunOptions`` (tiles of the attention's backward,
+    remat), the reference's default when None."""
     require_served(cfg)
-    return FAMILIES[cfg.family].forward(cfg, params, batch["tokens"])
+    return FAMILIES[cfg.family].forward(cfg, params, batch["tokens"],
+                                        opts=opts)

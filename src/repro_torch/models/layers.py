@@ -2,10 +2,12 @@
 
 Arithmetic follows the JAX package step for step, including where it rounds
 to bf16: norms and RoPE compute in float32 and cast back; products of bf16
-tensors return bf16.  ``block_attention`` is the prefill attention and goes
-through the ``flash_attention`` kernel (``kernels/ops.py``); ``attention_ref``
-is its materialising plain version, and ``decode_attention`` the one-token
-path, both plain PyTorch.
+tensors return bf16.  ``block_attention`` is the prefill and training
+attention and goes through the ``flash_attention`` kernel
+(``kernels/ops.py``), whose gradient is that of ``block_attention_jnp``, the
+reference's pair-scheduled jnp attention (the function its train step
+differentiates); ``attention_ref`` is the materialising plain version, and
+``decode_attention`` the one-token path, both plain PyTorch.
 """
 from __future__ import annotations
 
@@ -22,6 +24,15 @@ NEG = -1e30
 def layer(stack, i: int):
     """Layer ``i`` of a stacked parameter dict (views, no copies)."""
     return {k: v[i] for k, v in stack.items()}
+
+
+def layers(stack):
+    """Every layer of a stacked parameter dict, as views.  One ``unbind`` a
+    leaf, so a backward writes each stacked leaf's gradient once, not once a
+    layer."""
+    parts = {k: v.unbind(0) for k, v in stack.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
@@ -72,11 +83,95 @@ def mask_pad_logits(logits, vocab_real: int):
 
 def block_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    attn_softcap: Optional[float] = None):
+                    attn_softcap: Optional[float] = None,
+                    q_block: int = 512, kv_block: int = 512):
     """q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D), Hq % Hkv == 0 -> (B, Sq, Hq, D)
-    in q's dtype, through the flash_attention kernel."""
+    in q's dtype, through the flash_attention kernel.  ``q_block`` and
+    ``kv_block`` tile the backward (``block_attention_jnp``); the kernel
+    keeps its own tiles."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=attn_softcap)
+                               softcap=attn_softcap, q_block=q_block,
+                               kv_block=kv_block)
+
+
+def pair_schedule(n_q: int, n_k: int, q_block: int, kv_block: int,
+                  causal: bool, window: Optional[int]):
+    """The (q block, kv block) pairs that intersect the mask, in the
+    reference's order (``_pair_schedule``, q positions from 0)."""
+    pairs = []
+    for i in range(n_q):
+        q_lo, q_hi = i * q_block, (i + 1) * q_block - 1
+        for j in range(n_k):
+            k_lo, k_hi = j * kv_block, (j + 1) * kv_block - 1
+            if causal and k_lo > q_hi:
+                continue
+            if window is not None and k_hi < q_lo - (window - 1):
+                continue
+            pairs.append((i, j))
+    return pairs
+
+
+def block_attention_jnp(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        attn_softcap: Optional[float] = None,
+                        q_block: int = 512, kv_block: int = 512):
+    """The reference's pair-scheduled blockwise attention
+    (``repro/models/layers.py::block_attention``) in PyTorch: an online
+    softmax over the needed (q block, kv block) pairs in the reference's
+    order, products in float32 from the inputs' values (its
+    ``preferred_element_type``), ``p`` rounded to v's dtype before the PV
+    product, GQA by grouped einsums.  Differentiable; the backward of the
+    ``flash_attention`` kernel.  Shapes as :func:`block_attention`."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qb, kb = min(q_block, Sq), min(kv_block, Sk)
+    pad_q, pad_k = (-Sq) % qb, (-Sk) % kb
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    n_q, n_k = (Sq + pad_q) // qb, (Sk + pad_k) // kb
+    qg = q.reshape(B, Sq + pad_q, Hkv, G, D)
+    dev = q.device
+    # one (acc, m, l) per q block, replaced pair by pair (the reference's
+    # dynamic_update_slice into one carry)
+    acc = [torch.zeros((B, Hkv, G, qb, D), dtype=torch.float32, device=dev)
+           for _ in range(n_q)]
+    m = [torch.full((B, Hkv, G, qb), NEG, dtype=torch.float32, device=dev)
+         for _ in range(n_q)]
+    l = [torch.zeros((B, Hkv, G, qb), dtype=torch.float32, device=dev)
+         for _ in range(n_q)]
+    for i, j in pair_schedule(n_q, n_k, qb, kb, causal, window):
+        qs = qg[:, i * qb:(i + 1) * qb].float()
+        ks = k[:, j * kb:(j + 1) * kb].float()
+        vs = v[:, j * kb:(j + 1) * kb]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ks) * scale
+        s = softcap(s, attn_softcap)
+        qpos = i * qb + torch.arange(qb, device=dev)
+        kpos = j * kb + torch.arange(kb, device=dev)
+        mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        if pad_k:
+            mask &= kpos[None, :] < Sk
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m[i], s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m[i] - m_new)
+        l[i] = corr * l[i] + p.sum(-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(),
+                          vs.float())
+        acc[i] = corr[..., None] * acc[i] + pv
+        m[i] = m_new
+    out = torch.cat([a / torch.clamp(x, min=1e-30)[..., None]
+                     for a, x in zip(acc, l)], dim=3)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq + pad_q, Hq, D)
+    return out[:, :Sq].to(q.dtype)
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, attn_softcap=None):

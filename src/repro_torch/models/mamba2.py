@@ -144,10 +144,13 @@ def mamba_block(cfg: ModelConfig, p, h, *, conv_state=None, ssm_state=None,
     return h, None
 
 
-def forward(cfg: ModelConfig, params, tokens):
+def forward(cfg: ModelConfig, params, tokens, opts=None):
     """tokens (B, S) -> logits (B, S, V_padded) float32 (tied head, no
-    softcap)."""
+    softcap); each layer rematerialised as ``opts`` says."""
+    from repro_torch.models.transformer import RunOptions, maybe_remat
+    body = maybe_remat(lambda hh, p: mamba_block(cfg, p, hh)[0],
+                       opts or RunOptions())
     h = embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        h, _ = mamba_block(cfg, L.layer(params["layers"], i), h)
+    for p in L.layers(params["layers"]):
+        h = body(h, p)
     return logits_of(cfg, params, h)

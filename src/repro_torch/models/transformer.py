@@ -4,16 +4,21 @@ parameter specs, the attention block (prefill attention through the
 ``models/moe.py`` with their shared experts), the decoder layer and the
 forward pass, with gemma2's local/global alternation, GQA, qkv bias,
 post-norms and softcaps.  The zamba2 shared block is one such decoder layer.
-Head padding and rematerialisation are not on the port's path, and neither
-is the reference's ``RunOptions``: its attention tiles are the kernel's own.
-On one device every head is local (the reference's ``head_tp``,
-``tp == 1``), so the padded and sequence-parallel branches wait for the mesh
-slice."""
+``RunOptions`` carries the reference's attention tiles (they tile the
+attention's backward; the kernel keeps its own) and its rematerialisation:
+with ``remat`` each scanned layer body runs under
+``torch.utils.checkpoint``, saving the weight products (``"dots"``) or
+nothing (``"full"``).  Head padding is not on the port's path.  On one
+device every head is local (the reference's ``head_tp``, ``tp == 1``), so
+the padded and sequence-parallel branches wait for the mesh slice."""
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint as C
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -105,12 +110,14 @@ def attention_out(cfg: ModelConfig, p, h, att):
 
 
 def attention_block(cfg: ModelConfig, p, h, cos, sin, *,
-                    window: Optional[int], return_kv: bool = False):
+                    window: Optional[int], return_kv: bool = False,
+                    q_block: int = 512, kv_block: int = 512):
     """Causal self-attention block; with ``return_kv`` also the (B, S, Hkv,
     hd) K and V rows for the serving cache."""
     q, k, v = qkv(cfg, p, h, cos, sin)
     att = L.block_attention(q, k, v, causal=True, window=window,
-                            attn_softcap=cfg.attn_softcap)
+                            attn_softcap=cfg.attn_softcap, q_block=q_block,
+                            kv_block=kv_block)
     h = attention_out(cfg, p, h, att)
     return (h, k, v) if return_kv else h
 
@@ -133,14 +140,60 @@ def ffn_block(cfg: ModelConfig, p, h):
     return h + out
 
 
-def decoder_layer(cfg: ModelConfig, p, h, cos, sin, *, local: bool):
+def decoder_layer(cfg: ModelConfig, p, h, cos, sin, *, local: bool,
+                  q_block: int = 512, kv_block: int = 512):
     window = cfg.sliding_window if local else None
-    h = attention_block(cfg, p, h, cos, sin, window=window)
+    h = attention_block(cfg, p, h, cos, sin, window=window, q_block=q_block,
+                        kv_block=kv_block)
     return ffn_block(cfg, p, h)
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """tokens (B, S) -> logits (B, S, V_padded) float32."""
+@dataclasses.dataclass(frozen=True)
+class RunOptions:
+    """The reference's ``RunOptions``, its one-device fields: attention tiles
+    and rematerialisation.  ``pad_heads`` and ``moe_mode`` wait for the mesh
+    slice (ROADMAP.md, item 12)."""
+    q_block: int = 512
+    kv_block: int = 512
+    remat: bool = True
+    remat_policy: Optional[str] = "dots"   # None | "dots" | "full"
+
+
+# the products the "dots" policy keeps: those without batch dimensions (the
+# reference's dots_with_no_batch_dims_saveable), i.e. activations x weights
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (C.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else C.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, opts: RunOptions):
+    """``fn`` under ``torch.utils.checkpoint`` when ``opts.remat`` and the
+    body's input carries a gradient (a forward without one saves nothing
+    anyway): policy ``"dots"`` saves the weight products, ``"full"`` (or
+    None) nothing, and the backward reruns the rest, the kernels
+    included.  ``fn(h, *rest)``: ``h`` the hidden state."""
+    if not opts.remat:
+        return fn
+    ctx_fn = (functools.partial(C.create_selective_checkpoint_contexts,
+                                _save_dots)
+              if opts.remat_policy == "dots" else C.noop_context_fn)
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and args[0].requires_grad):
+            return fn(*args)
+        return C.checkpoint(fn, *args, use_reentrant=False,
+                            context_fn=ctx_fn)
+    return wrapped
+
+
+def forward(cfg: ModelConfig, params, tokens, opts: Optional[RunOptions] = None):
+    """tokens (B, S) -> logits (B, S, V_padded) float32.  The layers run in
+    groups of ``local_global_pattern`` (the reference's scanned body), each
+    group rematerialised as ``opts`` says."""
+    opts = opts or RunOptions()
     g = max(1, cfg.local_global_pattern)
     if cfg.n_layers % g:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
@@ -148,7 +201,15 @@ def forward(cfg: ModelConfig, params, tokens):
     h = embed(cfg, params["embed"], tokens)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        h = decoder_layer(cfg, L.layer(params["layers"], i), h, cos, sin,
-                          local=is_local(cfg, i))
+    per_layer = L.layers(params["layers"])
+
+    def group(hh, first):
+        for i in range(first, first + g):
+            hh = decoder_layer(cfg, per_layer[i], hh, cos, sin,
+                               local=is_local(cfg, i), q_block=opts.q_block,
+                               kv_block=opts.kv_block)
+        return hh
+    body = maybe_remat(group, opts)
+    for first in range(0, cfg.n_layers, g):
+        h = body(h, first)
     return logits_of(cfg, params, h)

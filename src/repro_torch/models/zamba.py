@@ -48,22 +48,34 @@ def param_specs(cfg: ModelConfig):
     return tree
 
 
-def shared_block(cfg: ModelConfig, p, h, cos, sin):
-    return T.decoder_layer(_shared_cfg(cfg), p, h, cos, sin, local=False)
+def shared_block(cfg: ModelConfig, p, h, cos, sin, opts=None):
+    opts = opts or T.RunOptions()
+    return T.decoder_layer(_shared_cfg(cfg), p, h, cos, sin, local=False,
+                           q_block=opts.q_block, kv_block=opts.kv_block)
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """tokens (B, S) -> logits (B, S, V_padded) float32."""
+def forward(cfg: ModelConfig, params, tokens, opts=None):
+    """tokens (B, S) -> logits (B, S, V_padded) float32.  As in the
+    reference, a group of ``shared_attn_every`` Mamba layers and the shared
+    block is one rematerialised body, and each tail layer another."""
+    opts = opts or T.RunOptions()
     S = tokens.shape[1]
     k = cfg.shared_attn_every
     h = embed_lookup(params["embed"], tokens)
     pos = torch.arange(S, device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    for i in range(n_scan_layers(cfg)):
-        h, _ = M.mamba_block(cfg, L.layer(params["layers"], i), h)
-        if i % k == k - 1:
-            h = shared_block(cfg, params["shared"], h, cos, sin)
-    for i in range(cfg.n_layers - n_scan_layers(cfg)):
-        h, _ = M.mamba_block(cfg, L.layer(params["tail_layers"], i), h)
+    scan = L.layers(params["layers"])
+
+    def group(hh, first):
+        for p in scan[first:first + k]:
+            hh, _ = M.mamba_block(cfg, p, hh)
+        return shared_block(cfg, params["shared"], hh, cos, sin, opts)
+    body = T.maybe_remat(group, opts)
+    for first in range(0, n_scan_layers(cfg), k):
+        h = body(h, first)
+    if "tail_layers" in params:
+        tail = T.maybe_remat(lambda hh, p: M.mamba_block(cfg, p, hh)[0], opts)
+        for p in L.layers(params["tail_layers"]):
+            h = tail(h, p)
     return logits_of(cfg, params, h)
 
