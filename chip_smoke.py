@@ -104,8 +104,11 @@ Phases (any failure exits non-zero):
      global), float32, card against CPU after its conditioning is measured;
  12. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
      D 128, group 2, causal, softcap 50, with and without its 4096-token
-     window) and at the MoE family's (BH 128, S 4096: D 128 for
-     deepseek-moe-16b, D 64 and group 2 for granite-moe-1b-a400m), and
+     window), at the MoE family's (BH 128, S 4096: D 128 for
+     deepseek-moe-16b, D 64 and group 2 for granite-moe-1b-a400m), at
+     whisper-medium's (BH 128, D 64: the encoder's 1,500 x 1,500 and the
+     cross-attention's 416 x 1,500, non-causal; the decoder's causal 416)
+     and at llava-next-mistral-7b's (BH 128, S 4096, D 128, group 4), and
      ``ssd_scan`` at mamba2-780m's (B 8, 8 chunks of 256, H 48, P 64, N 128)
      against their plain versions, with the negative control, timed beside
      their bounds, the plain versions and, for attention,
@@ -128,7 +131,28 @@ Phases (any failure exits non-zero):
      4096-token prompts, 32 greedy tokens) as in phase 10: 28 and 24
      ``flash_attention`` launches a prefill, the share of expert
      assignments kept at each step, peak memory;
- 17. gradients through the kernels: ``ops.flash_attention``'s Function at
+ 17. the audio and VLM families (whisper-medium, llava-next-mistral-7b) at
+     smoke() size with their frames or patch embeddings, float32, prefill
+     and 4 decode steps on the card against the CPU, with the launches of
+     each prefill;
+ 18. whisper-medium at full width cut to 2 encoder and 2 decoder layers
+     (all 1,500 frames, a 416-token prompt) and llava-next-mistral-7b cut
+     to 2 layers (2,880 patch positions and 192 text tokens), at the full
+     models' init scale, B 1, 4 decode steps, float32, card against CPU
+     after each one's conditioning is measured: llava's logits within
+     ``LLAVA_F32_REL``, each float32 run printed beside its distance from
+     a plain float64 forward on the card (``plain_dense_logits``, within
+     ``F64_WITNESS_REL``); whisper's encoder output within
+     ``WHISPER_ENC_REL`` of its largest value, and its decoder path with
+     the CPU's encoder output held on the card within ``WHISPER_F32_REL``
+     (the encoder's bf16 roundings make the whole run discontinuous; the
+     unheld logits are printed);
+ 19. whisper-medium (8 x 1,500 frames, 416-token prompts) and then
+     llava-next-mistral-7b (4 x 4,096 positions, the first 2,880 patch
+     embeddings) served at full size with 32 greedy tokens, as in phase
+     10: 72 and 32 ``flash_attention`` launches a prefill, every cache
+     entry (whisper's cross K/V included) finite, peak memory;
+ 20. gradients through the kernels: ``ops.flash_attention``'s Function at
      zamba2's training shape (B 8, S 2048, 32 heads of 64, causal, bf16)
      and granite's (16 heads over 8), ``ops.ssd_scan``'s at zamba2's (B 8,
      8 chunks of 256, H 64, P = N = 64, float32): the forward launches the
@@ -137,20 +161,20 @@ Phases (any failure exits non-zero):
      ``ssd_scan_plain``) on the card within a stated limit, and a Function
      whose backward returns zeros is rejected; the forward's and the
      backward's times;
- 18. training at smoke() size, every ported arch, float32 weights: the loss
+ 21. training at smoke() size, every arch, float32 weights: the loss
      and every gradient leaf, card against CPU, with the kernels' launches;
      then one train step's master weights;
- 19. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
+ 22. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
      trained at full size: 8 x 2048 tokens a step, seeded weights, AdamW
      and remat at the reference's defaults, a warm-up step and 5 timed
      ones: loss, grad norm, ms and tokens/s of each step, kernel launches
      per step against the layer count and the remat (the recompute
      launches every kernel again), peak memory, granite's kept share of
      expert assignments, one step under torch.profiler;
- 20. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
+ 23. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
      to the two inequalities of the reference's
      ``test_loss_decreases_on_repetitive_stream``;
- 21. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
+ 24. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
      2 steps, a save through ``CheckpointManager(device="cuda")`` (its
      commit record an OCC transaction on the card, read back through
      ``hybrid_lookup`` and the ``hash_probe`` kernel), every array read
@@ -198,6 +222,19 @@ GEMMA_LAYERS, GEMMA_PROMPT, GEMMA_DECODE = 2, 4608, 4
 MOE_ARCHS = ("deepseek-moe-16b", "granite-moe-1b-a400m")
 MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 4096, 32
 MOE_LAYERS, MOE_CHECK_PROMPT, MOE_CHECK_DECODE = 2, 512, 4
+# the audio and VLM families at full size: whisper-medium, 8 requests x
+# 1,500 frames, a 416-token prompt and 32 greedy tokens (448 positions in
+# all, its published decoder context n_text_ctx); llava-next-mistral-7b, 4
+# requests x 4,096 positions (its 2,880 patch positions, anyres 5 x 576,
+# then 1,216 text tokens) and 32 greedy tokens.  Card against CPU at smoke()
+# size (both), and each at full width cut to 2 layers (whisper: 2 encoder
+# and 2 decoder layers, all 1,500 frames, a 416-token prompt; llava: 2,880
+# patch positions and 192 text tokens), B 1, 4 decode steps
+AUDIO_VLM_ARCHS = ("whisper-medium", "llava-next-mistral-7b")
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = 8, 416, 32
+LLAVA_BATCH, LLAVA_PROMPT, LLAVA_DECODE = 4, 4096, 32
+CUT_LAYERS, CUT_DECODE = 2, 4
+WHISPER_CUT_PROMPT, LLAVA_CUT_TEXT = 416, 192
 # card against CPU: zamba2-1.2b at full width cut to 7 layers (one shared
 # block application and one tail layer), B 1, 256-token prompt, 4 decode steps
 PARITY_LAYERS, PARITY_PROMPT, PARITY_DECODE = 7, 256, 4
@@ -1697,18 +1734,24 @@ def flash_checks(dev, rows):
 
 def flash_path_shapes():
     """(label, B, S, Hq, Hkv, D, window, softcap, sharp scores held to,
-    seed of the inputs) of
+    seed of the inputs[, causal, kv length]) of
     flash_attention in the main paths' prefills: zamba2's shared block,
-    gemma2-27b's global and local layers, and the MoE family's layers
-    (deepseek-moe-16b at D 128, granite-moe-1b-a400m at D 64, group 2).  At
-    the D 128 shapes' 67M outputs one p that rounds to the other bf16
-    neighbour, in the kernel or in the plain version, can put them 2 ulps
-    apart with both as far from the exact answer, so there sharp scores are
-    held to the float64 answer."""
+    gemma2-27b's global and local layers, the MoE family's layers
+    (deepseek-moe-16b at D 128, granite-moe-1b-a400m at D 64, group 2),
+    whisper-medium's encoder (non-causal over the 1,500 frames, which are
+    not whole 128-row tiles), decoder self-attention and cross-attention
+    (the prompt's 416 queries over the 1,500 frames), and
+    llava-next-mistral-7b's layers (D 128, group 4).  At the D 128 shapes'
+    67M outputs one p that rounds to the other bf16 neighbour, in the
+    kernel or in the plain version, can put them 2 ulps apart with both as
+    far from the exact answer, so there sharp scores are held to the
+    float64 answer."""
     from repro_torch.configs.registry import get
     z, g = get(SERVE_ARCH), get(DENSE_ARCH)
     dense = (DENSE_BATCH, DENSE_PROMPT, g.n_heads, g.n_kv_heads, g.head_dim)
     ds, gr = (get(a) for a in MOE_ARCHS)
+    w, lv = (get(a) for a in AUDIO_VLM_ARCHS)
+    wh = (w.n_heads, w.n_kv_heads, w.head_dim, None, None, "plain")
     return [("zamba2's shared block", SERVE_BATCH, SERVE_PROMPT, z.n_heads,
              z.n_kv_heads, z.head_dim, None, None, "plain", 99),
             ("gemma2's global layers", *dense, None, g.attn_softcap,
@@ -1718,28 +1761,40 @@ def flash_path_shapes():
             ("deepseek-moe-16b's layers", MOE_BATCH, MOE_PROMPT, ds.n_heads,
              ds.n_kv_heads, ds.head_dim, None, None, "float64", 97),
             ("granite-moe-1b-a400m's layers", MOE_BATCH, MOE_PROMPT,
-             gr.n_heads, gr.n_kv_heads, gr.head_dim, None, None, "plain", 96)]
+             gr.n_heads, gr.n_kv_heads, gr.head_dim, None, None, "plain", 96),
+            ("whisper-medium's encoder", WHISPER_BATCH, w.encoder_seq, *wh,
+             95, False),
+            ("whisper-medium's decoder self-attention", WHISPER_BATCH,
+             WHISPER_PROMPT, *wh, 94),
+            ("whisper-medium's cross-attention", WHISPER_BATCH,
+             WHISPER_PROMPT, *wh, 93, False, w.encoder_seq),
+            ("llava-next-mistral-7b's layers", LLAVA_BATCH, LLAVA_PROMPT,
+             lv.n_heads, lv.n_kv_heads, lv.head_dim, None, None, "float64",
+             92)]
 
 
 def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
-                   seed):
-    """flash_attention (bf16, causal) at one main-path shape: with sharp
-    scores (std 2.25) against its plain version element by element, or
-    against the float64 answer on the rows where kernel and plain differ
-    most and as many at random; with diffuse scores (std 0.25) against its
-    plain version element by element, with the dropped-kv-block negative
-    control; then timed beside its plain version, its bound over the
-    unmasked pairs and scaled_dot_product_attention.  Returns the largest
-    |kernel - plain| and the kernels row's timing keys."""
+                   seed, causal=True, Sk=None):
+    """flash_attention (bf16) at one main-path shape, S queries over Sk keys
+    (S when None), causal or not: with sharp scores (std 2.25) against its
+    plain version element by element, or against the float64 answer on the
+    rows where kernel and plain differ most and as many at random; with
+    diffuse scores (std 0.25) against its plain version element by
+    element, with the dropped-kv-block negative control; then timed beside
+    its plain version, its bound over the unmasked pairs and
+    scaled_dot_product_attention.  Returns the largest |kernel - plain|
+    and the kernels row's timing keys."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
+    Sk = S if Sk is None else Sk
     group, BH = Hq // Hkv, B * Hq
-    kw = dict(causal=True, window=window, softcap=cap, group=group)
-    tag = (f"flash_attention at {label} (BH={BH}, S={S}, D={D}, group "
-           f"{group}, causal, window={window}, softcap={cap}, bf16, "
+    kw = dict(causal=causal, window=window, softcap=cap, group=group)
+    mask = "causal" if causal else "non-causal"
+    tag = (f"flash_attention at {label} (BH={BH}, Sq={S}, Sk={Sk}, D={D}, "
+           f"group {group}, {mask}, window={window}, softcap={cap}, bf16, "
            f"{FLASH_KERNEL['bfloat16']}")
-    q, k, v = flash_inputs(B, S, S, Hq, Hkv, D, "bfloat16", dev, seed,
+    q, k, v = flash_inputs(B, S, Sk, Hq, Hkv, D, "bfloat16", dev, seed,
                            qk_scale=1.5)
     got = fa.flash_attention_bhsd(q, k, v, **kw)
     want = fa.flash_attention_plain(q, k, v, **kw)
@@ -1754,7 +1809,7 @@ def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
             0, BH * S, (EXACT_ROWS,), device=dev, generator=g)])
         heads, rows = pick // S, pick % S
         exact = exact_rows(q, k, v, heads, rows, window=window, softcap=cap,
-                           group=group)
+                           group=group, causal=causal)
         k_over = float(flash_excess(got[heads, rows], exact,
                                     "bfloat16")[0].max())
         p_over = float(flash_excess(want[heads, rows], exact,
@@ -1767,7 +1822,7 @@ def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
               f"kernel {k_over:.3f}, plain {p_over:.3f} of the same limit "
               f"around it", flush=True)
         check(k_over <= 1, f"{tag}, sharp scores): kernel != float64 answer")
-    q, k, v = flash_inputs(B, S, S, Hq, Hkv, D, "bfloat16", dev, seed,
+    q, k, v = flash_inputs(B, S, Sk, Hq, Hkv, D, "bfloat16", dev, seed,
                            qk_scale=0.5)
     got = fa.flash_attention_bhsd(q, k, v, **kw)
     want = fa.flash_attention_plain(q, k, v, **kw)
@@ -1792,19 +1847,19 @@ def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
           "block")
     del got, want, bad, v0, over
     q4 = q.reshape(B, Hq, S, D)
-    k4, v4 = (t.reshape(B, Hkv, S, D) for t in (k, v))
+    k4, v4 = (t.reshape(B, Hkv, Sk, D) for t in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ks = _mean(time_cuda(lambda: fa.flash_attention_bhsd(q, k, v, **kw), 20))
     ps = _mean(time_cuda(lambda: fa.flash_attention_plain(q, k, v, **kw), 3))
-    ls = _mean(time_cuda(lambda: sdpa(q4, k4, v4, is_causal=True,
+    ls = _mean(time_cuda(lambda: sdpa(q4, k4, v4, is_causal=causal,
                                       enable_gqa=group > 1), 20))
-    bound_ms, bound_by = flash_bound(BH, S, S, D, True, 2, window, group)
-    tflop = flash_flops(BH, S, S, D, True, window) / 1e12
+    bound_ms, bound_by = flash_bound(BH, S, Sk, D, causal, 2, window, group)
+    tflop = flash_flops(BH, S, Sk, D, causal, window) / 1e12
     same = (" (the same function)" if window is None and cap is None else
             " (no softcap, no window: not the same function)")
     print(f"{tag}): kernel {ks:.4f} ms ({tflop / ks * 1e3:.1f} TFLOP/s of "
           f"the unmasked pairs), plain {ps:.4f} ms, "
-          f"scaled_dot_product_attention(is_causal=True, enable_gqa="
+          f"scaled_dot_product_attention(is_causal={causal}, enable_gqa="
           f"{group > 1}) {ls:.4f} ms "
           f"({tflop / ls * 1e3:.1f} TFLOP/s){same}, bound {bound_ms:.5f} ms "
           f"({bound_by}, {tflop * 1e3:.1f} GFLOP at "
@@ -1815,9 +1870,10 @@ def flash_at_shape(dev, label, B, S, Hq, Hkv, D, window, cap, sharp_vs,
                      bound_by=bound_by)
 
 
-def exact_rows(q, k, v, heads, rows, *, window, softcap, group):
+def exact_rows(q, k, v, heads, rows, *, window, softcap, group,
+               causal=True):
     """float64 attention of the (head, row) pairs from the same bf16 inputs
-    (causal, optional window and softcap): the exact answer."""
+    (causal or not, optional window and softcap): the exact answer."""
     import torch
     D, Sk = q.shape[-1], k.shape[1]
     kpos = torch.arange(Sk, device=q.device)
@@ -1827,7 +1883,9 @@ def exact_rows(q, k, v, heads, rows, *, window, softcap, group):
                          k[h // group].double()) * D ** -0.5
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
-        keep = kpos[None] <= r[:, None]
+        keep = (kpos[None] <= r[:, None] if causal
+                else torch.ones((len(r), Sk), dtype=torch.bool,
+                                device=q.device))
         if window is not None:
             keep &= kpos[None] > r[:, None] - window
         p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
@@ -1960,13 +2018,14 @@ def _mean(ms):
 # ---------------------------------------------------------------------------
 # the serving path: card against CPU at full width, then the main path
 # ---------------------------------------------------------------------------
-def teacher_forced(cfg, params, tokens, prompt, decode):
+def teacher_forced(cfg, params, tokens, prompt, decode, extra=None):
     """Prefill logits, then the logits of ``decode`` steps fed the next
     tokens of ``tokens`` (not the argmax, so two runs see the same
-    inputs), and the final cache."""
+    inputs), and the final cache.  ``extra``: the audio family's frames or
+    the VLM family's patch embeddings, {name: tensor}, for the prefill."""
     from repro_torch.serving.decode import make_decode_step, make_prefill
     logits, cache = make_prefill(cfg, prompt, room=decode)(
-        params, {"tokens": tokens[:, :prompt]})
+        params, dict(extra or {}, tokens=tokens[:, :prompt]))
     out = [logits]
     step = make_decode_step(cfg)
     for t in range(prompt, prompt + decode):
@@ -2003,6 +2062,48 @@ F32_REL_FAMILY = 3e-4
 # conditioning, and its run fails if the conditioning passes a quarter of
 # the limit.  Its modules, one at a time, stay within F32_REL_FAMILY.
 MOE_F32_REL = 1e-3
+# whisper-medium at full width cut to 2 + 2 layers (at the 24-layer init
+# scale) is not either.  Its encoder rounds its input to bf16 (the
+# reference's astype), so its first layer's norm returns bf16: one float32
+# ulp between card and CPU before that rounding flips bf16 roundings (on
+# the CPU another rounding of that norm moved the encoder output by 1.7e-3
+# of its largest value, and a 1e-7 relative change of the frames moved the
+# logits by 5.0e-2 of their range).  So the decoder path is compared with
+# the CPU's encoder output held on the card (held_encoder): its
+# conditioning there, 1e-7 on the embeddings and the encoder output, read
+# 2.6e-5 to 3.8e-5 of the logit range on the CPU, near a tenth of
+# F32_REL_FAMILY;
+# by MOE_F32_REL's rule its limit sits several times above it and the run
+# fails if the card's reading passes a quarter of it (the card read 7.1e-6,
+# and held card and CPU 1.3e-5 to 6.1e-5 apart, unheld up to 2.3e-3).
+WHISPER_F32_REL = 3e-4
+# whisper's encoder output over all 1,500 frames, card against CPU, as a
+# share of its largest value: two bf16 roundings (2^-8 each) of it, above
+# what one flipped bf16 rounding of the first norm moves it (1.7e-3 on the
+# CPU; the card read 1.179e-3, NVIDIA H100 80GB HBM3, 700.00 W).
+WHISPER_ENC_REL = 2 * 2.0 ** -8
+# llava-next-mistral-7b at full width cut to 2 layers (at the 32-layer init
+# scale), 2,880 patch positions and 192 text tokens, is ill-conditioned
+# too: a 1e-7 relative change of its embeddings and patch embeddings moved
+# its float32 logits by 3.616e-5 of their range on the card (the CPU read
+# 2.72e-5), above the tenth of F32_REL_FAMILY that gemma2's rule asks
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6); its random
+# attention scores are sharp (std ~128 at that scale, no softcap), and a
+# float32 run of it on the CPU was 1.3e-3 to 1.7e-3 of the logit range
+# from a float64 run on the same weights (two draws).  A first limit of
+# 3e-4 failed: card and CPU came 2.2e-5 to 3.484e-4 apart, while each
+# prefill module alone is held to F32_REL_FAMILY (dense_layers_card_vs_cpu).
+# This limit was chosen after that reading: 5.7x the largest card-vs-CPU
+# reading and above the float32 runs' distance from float64, which every
+# run measures again and prints beside it (plain_dense_logits, a plain
+# float64 forward on the card); the run fails if the 1e-7 conditioning
+# passes a quarter of the limit.
+LLAVA_F32_REL = 2e-3
+# Each float32 run of llava's cut (card, CPU) against that float64 forward:
+# the model's float32 uncertainty read 1.3e-3 to 1.7e-3 of the logit range;
+# a fault in either forward (a rotation, a kv group, a norm) moves the
+# logits by a share of their range, far above this.
+F64_WITNESS_REL = 1e-2
 
 
 def _compare(tag, got, ref, V, rel):
@@ -2043,7 +2144,8 @@ def card_vs_cpu(dev):
     V = cfg.vocab_size
     params = init_params(api.param_specs(cfg),
                          torch.Generator().manual_seed(1), "cpu")
-    tokens = serve.prompt_batch(cfg, 1, PARITY_PROMPT, PARITY_DECODE, "cpu")
+    tokens = serve.prompt_batch(cfg, 1, PARITY_PROMPT, PARITY_DECODE,
+                                "cpu")["tokens"]
     run = lambda p, toks: teacher_forced(cfg, p, toks, PARITY_PROMPT,
                                          PARITY_DECODE)[0]
 
@@ -2065,7 +2167,8 @@ def card_vs_cpu(dev):
 
     # on the card: prefill CHECK_PROMPT + CHECK_DECODE teacher-forced decode
     # steps against the forward over those tokens (one SSD chunk)
-    seq = serve.prompt_batch(cfg, 1, CHECK_PROMPT, CHECK_DECODE, dev)
+    seq = serve.prompt_batch(cfg, 1, CHECK_PROMPT, CHECK_DECODE,
+                             dev)["tokens"]
     steps, _ = teacher_forced(cfg, p_dev, seq, CHECK_PROMPT, CHECK_DECODE)
     fwd = zamba.forward(cfg, p_dev, seq)[:, CHECK_PROMPT - 1:]
     _compare(f"card, float32, serving vs forward ({CHECK_PROMPT} + "
@@ -2155,22 +2258,26 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
 
     t0 = time.perf_counter()
     cfg, params = serve.build(arch, seed=0, device=dev)
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"serve: {cfg.name}, {cfg.n_layers} layers, {n_params} parameters "
-          f"(the config's formula {cfg.n_params()}: no padded vocab rows), "
-          f"weights {sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f}"
-          f" GB, drawn in {time.perf_counter() - t0:.2f} s; card {card()}",
+    leaves = list(_leaves(params))
+    print(f"serve: {cfg.name}, {cfg.n_layers} layers, {len(leaves)} leaves "
+          f"of {sum(t.numel() for t in leaves)} parameters (the config's "
+          f"approximate formula: {cfg.n_params()}), weights "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB,"
+          f" drawn in {time.perf_counter() - t0:.2f} s; card {card()}",
           flush=True)
-    tokens = serve.prompt_batch(cfg, batch, prompt, decode, dev)
+    del leaves
+    inputs = serve.prompt_batch(cfg, batch, prompt, decode, dev)
+    tokens = inputs["tokens"]
     # warm-up (cuBLAS handles, allocator) at a small size, outside the count
     w = prompt // 8
-    serve.serve(cfg, params, tokens[:1, :w], w, 2)
+    serve.serve(cfg, params, {k: v[:1] for k, v in
+                              serve.prompt_inputs(inputs, w).items()}, w, 2)
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = ss.launches = 0
     with (routed(logits=False) if cfg.is_moe
           else contextlib.nullcontext()) as calls:
-        ids, st = serve.serve(cfg, params, tokens, prompt, decode)
+        ids, st = serve.serve(cfg, params, inputs, prompt, decode)
     launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
     stats = {
         "arch": arch, "batch": batch, "prompt": prompt, "decode": decode,
@@ -2211,7 +2318,7 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
     del cache, st
     # --- and one more prefill, to show where its time goes ---------------------
     prefill = make_prefill(cfg, prompt)
-    profile_round(lambda: prefill(params, {"tokens": tokens[:, :prompt]}),
+    profile_round(lambda: prefill(params, serve.prompt_inputs(inputs, prompt)),
                   label=f"{arch} prefill")
     return stats
 
@@ -2234,19 +2341,29 @@ def serving_main_path(dev, rows):
 # the dense and pure-SSM families: gemma2-27b and mamba2-780m
 # ---------------------------------------------------------------------------
 def _family_launches(cfg):
-    """Kernel launches of one prefill: a flash_attention per dense or MoE
-    layer, an ssd_scan per Mamba layer."""
+    """Kernel launches of one prefill: a flash_attention per dense, MoE or
+    VLM layer, three per whisper layer pair (encoder self, decoder self,
+    cross), an ssd_scan per Mamba layer."""
     n = cfg.n_layers
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.encoder_layers + 2 * n, "ssd_scan": 0}
     return ({"flash_attention": n, "ssd_scan": 0}
-            if cfg.family in ("dense", "moe")
+            if cfg.family in ("dense", "moe", "vlm")
             else {"flash_attention": 0, "ssd_scan": n})
 
 
-def family_smoke(dev):
-    """Every arch of the dense and SSM families at its smoke() size, from the
-    same float32 weights and tokens: prefill and SMOKE_DECODE teacher-forced
-    steps on the card (the kernels) against the CPU (their plain
-    versions), within F32_REL_FAMILY of the logit range."""
+def _stub_inputs(batch):
+    """The frames or patch embeddings of a prompt_batch, {} for the other
+    families."""
+    return {k: v for k, v in batch.items() if k in ("frames", "patch_embeds")}
+
+
+def family_smoke(dev, archs=FAMILY_ARCHS):
+    """Every arch of ``archs`` (the dense and SSM families; the audio and
+    VLM ones with their frames or patch embeddings) at its smoke() size,
+    from the same float32 weights and inputs: prefill and SMOKE_DECODE
+    teacher-forced steps on the card (the kernels) against the CPU (their
+    plain versions), within F32_REL_FAMILY of the logit range."""
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.kernels import flash_attention as fa
@@ -2254,18 +2371,19 @@ def family_smoke(dev):
     from repro_torch.launch import serve
     from repro_torch.models import api
     from repro_torch.parallel.sharding import init_params
-    for arch in FAMILY_ARCHS:
+    for arch in archs:
         t0 = time.perf_counter()
         cfg = get(arch).smoke()
         p32 = _map_tree(init_params(api.param_specs(cfg),
                                     torch.Generator().manual_seed(0), "cpu"),
                         lambda t: t.float())
-        tokens = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE, "cpu")
-        run = lambda p, toks: teacher_forced(cfg, p, toks, SMOKE_PROMPT,
-                                             SMOKE_DECODE)[0]
-        ref = run(p32, tokens)
+        batch = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE, "cpu")
+        run = lambda p, b: teacher_forced(cfg, p, b["tokens"], SMOKE_PROMPT,
+                                          SMOKE_DECODE, _stub_inputs(b))[0]
+        ref = run(p32, batch)
         fa.launches = ss.launches = 0
-        got = run(_map_tree(p32, lambda t: t.to(dev)), tokens.to(dev))
+        got = run(_map_tree(p32, lambda t: t.to(dev)), _map_tree(
+            batch, lambda t: t.to(dev)))
         launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
         check(launches == _family_launches(cfg),
               f"{arch} smoke: launches {launches}")
@@ -2292,7 +2410,8 @@ def gemma_card_vs_cpu(dev):
     p_dev = _map_tree(init_params(api.param_specs(cfg),
                                   torch.Generator(device=dev).manual_seed(1),
                                   dev), lambda t: t.float())
-    tokens = serve.prompt_batch(cfg, 1, GEMMA_PROMPT, GEMMA_DECODE, "cpu")
+    tokens = serve.prompt_batch(cfg, 1, GEMMA_PROMPT, GEMMA_DECODE,
+                                "cpu")["tokens"]
     run = lambda p, toks: teacher_forced(cfg, p, toks, GEMMA_PROMPT,
                                          GEMMA_DECODE)[0]
     got = run(p_dev, tokens.to(dev))
@@ -2461,7 +2580,8 @@ def moe_smoke(dev):
         p32 = _map_tree(init_params(api.param_specs(cfg),
                                     torch.Generator().manual_seed(0), "cpu"),
                         lambda t: t.float())
-        tokens = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE, "cpu")
+        tokens = serve.prompt_batch(cfg, 2, SMOKE_PROMPT, SMOKE_DECODE,
+                                    "cpu")["tokens"]
         run = lambda p, toks: teacher_forced(cfg, p, toks, SMOKE_PROMPT,
                                              SMOKE_DECODE)[0]
         with routed() as r_cpu:
@@ -2516,7 +2636,7 @@ def moe_card_vs_cpu(dev):
     the same seeded weights and tokens: prefill and decode on the card
     against the CPU.  The reference's init scales a stacked leaf by
     1/sqrt(its layer count), so the cut's layers are rescaled to the full
-    model's (full_scale_layers): the served model's layers, not sharper
+    model's (full_scale_stacks): the served model's layers, not sharper
     ones.  Routing is compared call by call under the flip rule
     (routing_agrees), and the logits of the steps before the first flip
     within MOE_F32_REL; the card run again with the CPU's routing choices
@@ -2538,9 +2658,9 @@ def moe_card_vs_cpu(dev):
     p_dev = _map_tree(init_params(api.param_specs(cfg),
                                   torch.Generator(device=dev).manual_seed(1),
                                   dev), lambda t: t.float())
-    full_scale_layers(cfg, get(MOE_ARCHS[0]).n_layers, p_dev)
+    full_scale_stacks(cfg, get(MOE_ARCHS[0]), p_dev)
     tokens = serve.prompt_batch(cfg, 1, MOE_CHECK_PROMPT, MOE_CHECK_DECODE,
-                                "cpu")
+                                "cpu")["tokens"]
     run = lambda p, toks: teacher_forced(cfg, p, toks, MOE_CHECK_PROMPT,
                                          MOE_CHECK_DECODE)[0]
     p_cpu = _map_tree(p_dev, lambda t: t.cpu())
@@ -2585,18 +2705,6 @@ def moe_card_vs_cpu(dev):
              ref, V, MOE_F32_REL)
     moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu,
                            tokens[:, :MOE_CHECK_PROMPT], dev)
-
-
-def full_scale_layers(cfg, n_full, params):
-    """Multiply the stacked "scaled" leaves of a cut to cfg.n_layers layers
-    by sqrt(cfg.n_layers / n_full), in place: the init scale they have in
-    the n_full-layer model (ParamSpec's fan-in is the stacked axis)."""
-    import math
-    from repro_torch.models import transformer
-    f = math.sqrt(cfg.n_layers / n_full)
-    for k, spec in transformer.layer_param_specs(cfg).items():
-        if spec.init == "scaled":
-            params["layers"][k].mul_(f)
 
 
 def moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, dev):
@@ -2653,6 +2761,282 @@ def moe_served(dev):
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         stats = serve_full_size(dev, arch, MOE_BATCH, MOE_PROMPT, MOE_DECODE,
+                                _family_launches(get(arch)))
+        check(stats["max_memory_allocated_gb"] * 1e9
+              < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch}: peak memory above the card's")
+        print(f"{arch} served: {time.perf_counter() - t0:.1f} s of phase",
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the audio and VLM families: whisper-medium and llava-next-mistral-7b
+# ---------------------------------------------------------------------------
+def audio_vlm_smoke(dev):
+    """Both archs at smoke() size, card against CPU (family_smoke)."""
+    family_smoke(dev, AUDIO_VLM_ARCHS)
+
+
+def full_scale_stacks(cfg, full, params):
+    """Multiply every stacked "scaled" leaf of ``cfg``, a cut of ``full`` to
+    fewer layers, by sqrt(its layers in the cut / in ``full``), in place:
+    the init scale it has in the full model (ParamSpec's fan-in is the
+    stacked axis), so the cut's layers are the served model's."""
+    import math
+    from repro_torch.models import api
+    specs = api.param_specs(full)
+    for name, stack in api.param_specs(cfg).items():
+        for k, spec in (stack.items() if isinstance(stack, dict) else ()):
+            if spec.init == "scaled":
+                params[name][k].mul_(math.sqrt(spec.shape[0]
+                                               / specs[name][k].shape[0]))
+
+
+@contextlib.contextmanager
+def held_encoder(enc):
+    """whisper's ``encode`` returning ``enc`` (the CPU's encoder output),
+    so the decoder path is compared with the encoder's bf16 rounding
+    points held, as ``forced_routing`` holds the MoE routing."""
+    from repro_torch.models import whisper
+    saved = whisper.encode
+    whisper.encode = lambda *args, **kw: enc
+    try:
+        yield
+    finally:
+        whisper.encode = saved
+
+
+def plain_dense_logits(cfg, params, tokens, patch_embeds, dtype):
+    """A plain forward of the dense transformer with the VLM's patch
+    embeddings in the first positions, written apart from the port's, in
+    ``dtype`` throughout (float64: the witness of llava's float32 runs):
+    RMSNorm scaled by 1 + w, half-split RoPE, causal GQA softmax attention,
+    SwiGLU, the tied head.  Only what llava's config uses: no softcap,
+    window, biases, post norms or embedding scale.  tokens (B, S) ->
+    logits (B, S, vocab_size)."""
+    import math
+    import torch
+    assert not (cfg.attn_softcap or cfg.logit_softcap or cfg.qkv_bias
+                or cfg.post_norms or cfg.embed_scale or cfg.is_moe
+                or cfg.local_global_pattern == 2), cfg.name
+    f = lambda t: t.to(dtype)
+    B, S = tokens.shape
+    hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h = f(params["embed"])[tokens.long()]
+    h[:, :patch_embeds.shape[1]] = f(patch_embeds)
+    half = hd // 2
+    ang = (torch.arange(S, dtype=dtype, device=h.device)[:, None]
+           * cfg.rope_theta ** (-torch.arange(half, dtype=dtype,
+                                              device=h.device) / half))
+    cos, sin = ang.cos()[:, None], ang.sin()[:, None]
+
+    def norm(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * (1 + f(w))
+
+    def rope(x):
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    future = torch.ones(S, S, dtype=torch.bool, device=h.device).triu(1)
+    for i in range(cfg.n_layers):
+        p = {k: f(v[i]) for k, v in params["layers"].items()}
+        x = norm(h, p["attn_norm"])
+        q = rope((x @ p["wq"]).view(B, S, Hq, hd)).transpose(1, 2)
+        k = rope((x @ p["wk"]).view(B, S, Hkv, hd)).transpose(1, 2)
+        v = (x @ p["wv"]).view(B, S, Hkv, hd).transpose(1, 2)
+        k = k.repeat_interleave(Hq // Hkv, dim=1)
+        v = v.repeat_interleave(Hq // Hkv, dim=1)
+        a = (q @ k.transpose(-1, -2) / math.sqrt(hd)).masked_fill(
+            future, float("-inf")).softmax(-1) @ v
+        h = h + a.transpose(1, 2).reshape(B, S, Hq * hd) @ p["wo"]
+        x = norm(h, p["mlp_norm"])
+        h = h + (torch.nn.functional.silu(x @ p["w_gate"])
+                 * (x @ p["w_up"])) @ p["w_down"]
+    table = params.get("lm_head", params["embed"])[:cfg.vocab_size]
+    return norm(h, params["final_norm"]) @ f(table).T
+
+
+def cut_card_vs_cpu(dev, arch):
+    """``arch`` at full width cut to CUT_LAYERS layers (whisper: as many
+    encoder layers), its stacked leaves at the full model's init scale
+    (full_scale_stacks), float32, B 1, from the same seeded weights and
+    inputs (all 1,500 frames and a WHISPER_CUT_PROMPT-token prompt;
+    llava's patch positions and LLAVA_CUT_TEXT text tokens): prefill and
+    CUT_DECODE teacher-forced steps on the card against the CPU.  First
+    its conditioning on the card: a 1e-7 relative change of the embeddings
+    and of the frames or patch embeddings (in float32).  llava: within a
+    quarter of LLAVA_F32_REL, its limit, and each prefill module from the
+    CPU's input within F32_REL_FAMILY (dense_layers_card_vs_cpu); each
+    float32 run within F64_WITNESS_REL of a plain float64 forward on the
+    card (plain_dense_logits), printed beside the card-vs-CPU distance.
+    whisper: that change crosses the encoder's bf16 roundings (its input,
+    and its first layer's norm, in the bf16 stream's dtype), so it is
+    printed only; the encoder's output, card against CPU, within
+    WHISPER_ENC_REL of its largest value; the decoder path is held with the
+    CPU's encoder output (held_encoder) within WHISPER_F32_REL, after its
+    own conditioning (1e-7 on the embeddings and the encoder output) is
+    found within a quarter of it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.models import api, whisper
+    from repro_torch.parallel.sharding import init_params
+    full = get(arch)
+    audio = full.family == "audio"
+    cfg = dataclasses.replace(full, n_layers=CUT_LAYERS, **(
+        {"encoder_layers": CUT_LAYERS} if audio else {}))
+    prompt = (WHISPER_CUT_PROMPT if audio
+              else full.n_patches + LLAVA_CUT_TEXT)
+    V = cfg.vocab_size
+    tag = (f"{arch} {CUT_LAYERS}{' + ' + str(CUT_LAYERS) if audio else ''} "
+           f"layers (the {full.n_layers}-layer init scale), {prompt} + "
+           f"{CUT_DECODE} tokens")
+    t0 = time.perf_counter()
+    p_dev = _map_tree(init_params(api.param_specs(cfg),
+                                  torch.Generator(device=dev).manual_seed(1),
+                                  dev), lambda t: t.float())
+    full_scale_stacks(cfg, full, p_dev)
+    batch = serve.prompt_batch(cfg, 1, prompt, CUT_DECODE, "cpu")
+    extra = _stub_inputs(batch)
+    run = lambda p, x, d: teacher_forced(
+        cfg, p, batch["tokens"].to(d), prompt, CUT_DECODE,
+        {k: v.to(d) for k, v in x.items()})[0]
+    g = torch.Generator(device=dev).manual_seed(2)
+    shake = lambda t: t.to(dev).float() * (1 + 1e-7 * torch.randn(
+        t.shape, generator=g, device=dev))
+    moved = lambda out, ref: max(
+        float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
+        for a, b in zip(out, ref))
+    got = run(p_dev, extra, dev)
+    m = moved(run(dict(p_dev, embed=shake(p_dev["embed"])),
+                  {k: shake(v) for k, v in extra.items()}, dev), got)
+    print(f"{tag} sensitivity: a 1e-7 relative change of the embeddings and "
+          f"the {' and '.join(extra)} moves the float32 logits (card) by "
+          f"{m:.3e} of their range; card runs and draws "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not audio:
+        print(f"{tag}: {m / LLAVA_F32_REL:.3f} of the card-vs-CPU limit "
+              f"{LLAVA_F32_REL}, at most a quarter of it", flush=True)
+        check(m <= LLAVA_F32_REL / 4, f"{tag}: conditioned worse than the "
+              "card-vs-CPU limit assumes")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            wit = plain_dense_logits(
+                cfg, p_dev, batch["tokens"][:, :prompt + CUT_DECODE].to(dev),
+                extra["patch_embeds"].to(dev), torch.float64)[0, prompt - 1:]
+        wit = [r[None].cpu() for r in wit]
+        torch.cuda.synchronize()
+        print(f"{tag}: plain float64 forward on the card "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        p_cpu = _map_tree(p_dev, lambda t: t.cpu())
+        del p_dev
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = run(p_cpu, extra, "cpu")
+        print(f"{tag}: CPU run {time.perf_counter() - t0:.1f} s", flush=True)
+        dense_layers_card_vs_cpu(tag, cfg, _map_tree(p_cpu, lambda t: t.to(
+            dev)), p_cpu, batch["tokens"][:, :prompt], extra, dev)
+        far = {w: max(float((a.float().cpu()[:, :V] - r).abs().max()
+                            / r.abs().max()) for a, r in zip(x, wit))
+               for w, x in (("card", got), ("cpu", ref))}
+        print(f"{tag}: float32 logits from the float64 forward's, worst "
+              f"step: card {far['card']:.3e}, cpu {far['cpu']:.3e} of the "
+              f"range (limit {F64_WITNESS_REL}); the card-vs-CPU limit is "
+              f"{LLAVA_F32_REL}", flush=True)
+        check(max(far.values()) <= F64_WITNESS_REL,
+              f"{tag}: a float32 run is far from the float64 forward")
+        _compare(f"{tag}, card vs cpu, float32", got, ref, V, LLAVA_F32_REL)
+        return
+    p_cpu = _map_tree(p_dev, lambda t: t.cpu())
+    t0 = time.perf_counter()
+    enc_cpu = whisper.encode(cfg, p_cpu, extra["frames"])
+    enc_dev = whisper.encode(cfg, p_dev, extra["frames"].to(dev)).cpu()
+    check(bool(torch.isfinite(enc_dev).all()), f"{tag}: non-finite encoder")
+    e = float((enc_dev - enc_cpu).abs().max() / enc_cpu.abs().max())
+    print(f"{tag}: encoder output card vs cpu, float32: max |diff| {e:.3e} "
+          f"of its largest |value| (limit {WHISPER_ENC_REL:.4e}, two bf16 "
+          "roundings)", flush=True)
+    check(e <= WHISPER_ENC_REL, f"{tag}: encoder output differs")
+    with held_encoder(enc_cpu.to(dev)):
+        held = run(p_dev, extra, dev)
+    with held_encoder(shake(enc_cpu)):
+        m = moved(run(dict(p_dev, embed=shake(p_dev["embed"])), extra, dev),
+                  held)
+    print(f"{tag} sensitivity, the encoder held: a 1e-7 relative change of "
+          f"the embeddings and the encoder output moves the float32 logits "
+          f"(card) by {m:.3e} of their range ({m / WHISPER_F32_REL:.3f} of "
+          f"the limit {WHISPER_F32_REL}, at most a quarter of it)",
+          flush=True)
+    check(m <= WHISPER_F32_REL / 4, f"{tag}: conditioned worse than the "
+          "card-vs-CPU limit assumes")
+    del p_dev
+    torch.cuda.empty_cache()
+    with held_encoder(enc_cpu):
+        ref = run(p_cpu, extra, "cpu")
+    print(f"{tag}: CPU runs {time.perf_counter() - t0:.1f} s", flush=True)
+    _compare(f"{tag}, card with the CPU's encoder output vs cpu, float32",
+             held, ref, V, WHISPER_F32_REL)
+    _compare(f"{tag}, card vs cpu, float32 (information)", got, ref, V, None)
+
+
+def dense_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, extra, dev):
+    """Each layer of a dense (or VLM) prefill one module at a time, on the
+    card and on the CPU from the same input: the attention block from the
+    CPU's input to the layer and the SwiGLU FFN block from the CPU's
+    attention output, each within F32_REL_FAMILY of its largest value."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.embedding import embed
+    S = tokens.shape[1]
+    h = T.with_patches(embed(cfg, p_cpu["embed"], tokens),
+                       extra.get("patch_embeds"))
+    cos, sin = L.rope_tables(torch.arange(S), cfg.head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        out = []
+        for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+            lp = L.layer(p["layers"], i)
+            a = T.attention_block(cfg, lp, h.to(d), cos.to(d), sin.to(d),
+                                  window=None)
+            a_in = a if not out else out[0][0].to(d)
+            out.append((a.cpu(), (T.ffn_block(cfg, lp, a_in) - a_in).cpu()))
+        (a_c, f_c), (a_g, f_g) = out
+        for name, x, ref in (("attention block", a_g, a_c),
+                             ("FFN block", f_g, f_c)):
+            diff = float((x - ref).abs().max())
+            scale = float(ref.abs().max())
+            print(f"{tag}, prefill layer {i}, {name}: card vs cpu max |diff| "
+                  f"{diff:.4e} = {diff / scale:.3e} of its largest value "
+                  f"{scale:.4e} (limit {F32_REL_FAMILY})", flush=True)
+            check(diff <= F32_REL_FAMILY * scale, f"{tag}, prefill layer {i}: "
+                  f"{name} differs")
+        h = a_c + f_c
+
+
+def whisper_card_vs_cpu(dev):
+    cut_card_vs_cpu(dev, AUDIO_VLM_ARCHS[0])
+
+
+def llava_card_vs_cpu(dev):
+    cut_card_vs_cpu(dev, AUDIO_VLM_ARCHS[1])
+
+
+def audio_vlm_served(dev):
+    """whisper-medium (8 x 1,500 frames, 416 + 32 tokens), then
+    llava-next-mistral-7b (4 x 4,096 positions, 2,880 of them patches, + 32
+    tokens) at full size (serve_full_size), each with its launch counts
+    (72 and 32 flash_attention a prefill); the card's memory freed between
+    them."""
+    import torch
+    from repro_torch.configs.registry import get
+    for arch, batch, prompt, decode in (
+            (AUDIO_VLM_ARCHS[0], WHISPER_BATCH, WHISPER_PROMPT,
+             WHISPER_DECODE),
+            (AUDIO_VLM_ARCHS[1], LLAVA_BATCH, LLAVA_PROMPT, LLAVA_DECODE)):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        stats = serve_full_size(dev, arch, batch, prompt, decode,
                                 _family_launches(get(arch)))
         check(stats["max_memory_allocated_gb"] * 1e9
               < torch.cuda.get_device_properties(0).total_memory,
@@ -3341,10 +3725,27 @@ def main():
     print(f"the MoE family's phases: {time.perf_counter() - t_moe:.1f} s",
           flush=True)
 
+    t_av = time.perf_counter()
+    for title, fn in (
+            ("the audio and VLM families at smoke() size: card against CPU",
+             audio_vlm_smoke),
+            ("whisper-medium at full width, 2 + 2 layers: card against CPU",
+             whisper_card_vs_cpu),
+            ("llava-next-mistral-7b at full width, 2 layers: card against "
+             "CPU", llava_card_vs_cpu),
+            ("serving whisper-medium and llava-next-mistral-7b at full size",
+             audio_vlm_served)):
+        phase(title)
+        t0 = time.perf_counter()
+        fn(dev)
+        print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"the audio and VLM families' phases: "
+          f"{time.perf_counter() - t_av:.1f} s", flush=True)
+
     t_train = time.perf_counter()
     phase("gradients through the kernels at the training shapes")
     kernel_gradients(dev)
-    phase("training at smoke() size, every ported arch: card against CPU")
+    phase("training at smoke() size, every arch: card against CPU")
     train_card_vs_cpu(dev)
     phase("training zamba2-1.2b and granite-moe-1b-a400m at full size")
     train_full_size(dev, TRAIN_ARCH)

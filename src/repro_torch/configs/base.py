@@ -70,28 +70,35 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim
 
     def n_params(self) -> int:
-        """Parameter count of a dense, MoE, pure-SSM or hybrid model, the
-        families the port serves (the JAX package's formula, those branches:
-        no norm weights, no qkv bias, the unpadded vocab)."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(self.family)
+        """Total parameter count by the JAX package's formula, which is an
+        approximation (its use is the roofline's MODEL_FLOPS): it leaves out
+        norm weights, biases and the padded vocab rows, and prices every
+        non-SSM FFN as a SwiGLU (3 d f), whisper's two-matrix GELU MLPs
+        included.  ``param_specs`` gives the exact tree."""
         d, L, hd = self.d_model, self.n_layers, self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
         if self.is_moe:     # router, routed experts, shared experts
             per = attn + d * self.n_experts + (
                 self.n_experts + self.n_shared_experts) * 3 * d * self.d_ff
-        elif self.family == "dense":
-            per = attn + 3 * d * self.d_ff
-        else:
+        elif self.family in ("ssm", "hybrid"):
             di, H, G, N = (self.d_inner, self.ssm_heads, self.ssm_groups,
                            self.ssm_state)
             per = (2 * d * di + 2 * d * G * N + d * H
                    + self.conv_width * (di + 2 * G * N) + di * d + di + 3 * H)
+        else:               # dense, vlm, audio (its decoder)
+            per = attn + 3 * d * self.d_ff
         shared = (attn + 3 * d * self.shared_d_ff
                   if self.family == "hybrid" and self.shared_attn_every else 0)
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return int(emb + L * per + shared)
+        total = emb + L * per + shared
+        if self.encoder_layers:     # encoder layers, decoder cross-attention
+            total += (self.encoder_layers * (2 * d * self.n_heads * hd
+                                             + 2 * d * self.n_kv_heads * hd
+                                             + 2 * d * self.d_ff)
+                      + L * (2 * d * self.n_heads * hd
+                             + 2 * d * self.n_kv_heads * hd))
+        return int(total)
 
     def n_active_params(self) -> int:
         """Parameters a token passes through (MoE: only its top-k routed

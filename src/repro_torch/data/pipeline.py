@@ -1,6 +1,7 @@
-"""Deterministic synthetic token stream (counterpart of
-``repro/data/pipeline.py``, token-only families): batches are a pure function
-of (seed, step), made with numpy exactly as the JAX package makes them."""
+"""Deterministic synthetic batches (counterpart of ``repro/data/pipeline.py``):
+a pure function of (seed, step), made with numpy exactly as the JAX package
+makes them, the audio family's frames and the VLM family's patch
+embeddings included."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,14 +37,29 @@ def synthetic_tokens(dc: DataConfig, step: int, batch: int, seq: int,
     return tok.astype(np.int32) + 1          # avoid 0 (pad id)
 
 
+def _stub_embeds(seed: int, rows: int, n: int, d: int) -> torch.Tensor:
+    """randn (rows, n, d) x 0.02 from RandomState(seed) in float32, rounded
+    to bf16 (the reference's stub frontends)."""
+    x = np.random.RandomState(seed).randn(rows, n, d).astype(np.float32)
+    return torch.from_numpy(x * 0.02).to(torch.bfloat16)
+
+
 def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, dc: DataConfig,
                     step: int, device="cuda") -> Dict[str, torch.Tensor]:
-    """{"tokens", "labels"}: (B, S) int64 on ``device``.  Only token-only
-    families (the port serves no audio or VLM model)."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"{cfg.family}: not ported yet (ROADMAP.md)")
+    """{"tokens", "labels"}: (B, S) int64 on ``device``; for the audio family
+    also "frames" (B, encoder_seq, d), for the VLM family "patch_embeds"
+    (B, min(n_patches, S), d), both bf16."""
     toks = synthetic_tokens(dc, step, shape.global_batch, shape.seq_len + 1,
                             cfg.vocab_size)
     dev = resolve_device(device)
     t = torch.from_numpy(toks.astype(np.int64)).to(dev)
-    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    batch = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    B, d = shape.global_batch, cfg.d_model
+    if cfg.family == "audio":
+        batch["frames"] = _stub_embeds(dc.seed * 7919 + step, B,
+                                       cfg.encoder_seq, d).to(dev)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = _stub_embeds(
+            dc.seed * 104729 + step, B, min(cfg.n_patches, shape.seq_len),
+            d).to(dev)
+    return batch

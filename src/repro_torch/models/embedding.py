@@ -31,13 +31,12 @@ def embed(cfg, table, tokens):
     return h
 
 
-def logits_of(cfg, params, h):
-    """Final norm, then the LM head in float32 (the untied ``lm_head`` where
-    the config has one, else the embedding), ``logit_softcap``, and the
-    padded vocab tail masked.  h (..., d) -> (..., V_padded) float32.  The
-    table goes to float32 LM_HEAD_ELEMS at a time."""
-    h = L.rms_norm(h, params["final_norm"]).float()
-    table = params.get("lm_head", params["embed"])
+def lm_head(cfg, table, h):
+    """The LM head of normed h (..., d) over ``table`` (V_padded, d) in
+    float32, ``logit_softcap``, and the padded vocab tail masked ->
+    (..., V_padded) float32.  The table goes to float32 LM_HEAD_ELEMS at a
+    time."""
+    h = h.float()
     V, d = table.shape
     out = torch.empty(h.shape[:-1] + (V,), dtype=torch.float32,
                       device=h.device)
@@ -45,3 +44,11 @@ def logits_of(cfg, params, h):
     for i in range(0, V, rows):
         out[..., i:i + rows] = h @ table[i:i + rows].float().T
     return L.mask_pad_logits(L.softcap(out, cfg.logit_softcap), cfg.vocab_size)
+
+
+def logits_of(cfg, params, h):
+    """Final norm, then :func:`lm_head` over the untied ``lm_head`` where the
+    config has one, else the embedding.  h (..., d) -> (..., V_padded)
+    float32."""
+    return lm_head(cfg, params.get("lm_head", params["embed"]),
+                   L.rms_norm(h, params["final_norm"]))

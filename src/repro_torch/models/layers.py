@@ -44,6 +44,16 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm in float32 with the population variance, returned in x's
+    dtype (whisper's norms)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def rope_tables(positions, head_dim: int, theta: float):
     """positions (..., S) int -> (cos, sin) of shape (..., S, head_dim // 2),
     float32."""
@@ -224,3 +234,11 @@ def swiglu(x, w_gate, w_up, w_down):
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """Whisper's MLP: ``jax.nn.gelu``'s default, the tanh approximation (not
+    torch's default erf), in float32 and rounded to x's dtype."""
+    h = x @ w_in + b_in
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ w_out + b_out

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense and MoE (``repro/models/transformer.py``):
+"""Decoder-only LM, dense, MoE and the VLM backbone
+(``repro/models/transformer.py``):
 parameter specs, the attention block (prefill attention through the
 ``flash_attention`` kernel), the FFN block (SwiGLU, or the routed experts of
 ``models/moe.py`` with their shared experts), the decoder layer and the
@@ -189,16 +190,27 @@ def maybe_remat(fn, opts: RunOptions):
     return wrapped
 
 
-def forward(cfg: ModelConfig, params, tokens, opts: Optional[RunOptions] = None):
-    """tokens (B, S) -> logits (B, S, V_padded) float32.  The layers run in
-    groups of ``local_global_pattern`` (the reference's scanned body), each
-    group rematerialised as ``opts`` says."""
+def with_patches(h, patch_embeds):
+    """The VLM stub's precomputed patch embeddings (B, P, d), P <= S, in the
+    first P positions of the embeddings h (B, S, d)."""
+    if patch_embeds is None:
+        return h
+    P = patch_embeds.shape[1]
+    return torch.cat([patch_embeds.to(h.dtype), h[:, P:]], dim=1)
+
+
+def forward(cfg: ModelConfig, params, tokens, opts: Optional[RunOptions] = None,
+            *, extra_embeds=None):
+    """tokens (B, S) -> logits (B, S, V_padded) float32; ``extra_embeds``
+    (B, P, d), the VLM's patch embeddings, take the first P positions.  The
+    layers run in groups of ``local_global_pattern`` (the reference's
+    scanned body), each group rematerialised as ``opts`` says."""
     opts = opts or RunOptions()
     g = max(1, cfg.local_global_pattern)
     if cfg.n_layers % g:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
                          f"groups of {g}")
-    h = embed(cfg, params["embed"], tokens)
+    h = with_patches(embed(cfg, params["embed"], tokens), extra_embeds)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     per_layer = L.layers(params["layers"])

@@ -1,11 +1,14 @@
-"""Serving: the decode step and its cache (the dense, MoE, pure-SSM and
-hybrid parts of ``repro/serving/decode.py``).
+"""Serving: the decode step and its cache (counterpart of
+``repro/serving/decode.py``).
 
-The cache holds, per attention layer (dense and MoE) or per application of
-the shared block (hybrid), its K/V rows, and per Mamba layer the conv tails
-(bf16) and the SSM state (f32).  On one device every head is local (the
-reference's "heads" mode); the sequence-sharded RPC mode
-(``_flash_decode_shardmap``) waits for the mesh slice.
+The cache holds, per attention layer (dense, MoE, VLM and the audio
+decoder) or per application of the shared block (hybrid), its K/V rows, per
+Mamba layer the conv tails (bf16) and the SSM state (f32), and per audio
+decoder layer the cross K/V over the encoder's frames, which decode only
+reads.  On one device every head is local (the reference's "heads" mode);
+the sequence-sharded RPC mode (``_flash_decode_shardmap``, the reference's
+choice where the kv heads do not split over the model axis) waits for the
+mesh slice.
 
 A decode step writes into the cache it is given, in place, as XLA does the
 reference's ``.at[].set``: the new token's K/V at offset ``len`` of each row,
@@ -24,7 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
-from repro_torch.models.api import require_served
+from repro_torch.models import whisper as W
 from repro_torch.models.embedding import embed, embed_lookup, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
 
@@ -33,12 +36,15 @@ SSM_CACHE = ("conv_x", "conv_B", "conv_C", "ssm")
 
 def cache_specs(cfg: ModelConfig, B: int, S: int) -> Dict[str, Tuple]:
     """{name: (shape, dtype)} of the cache for B rows of S positions."""
-    require_served(cfg)
     out: Dict[str, Tuple] = {"len": ((B,), torch.int32)}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         kv = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
         out["k"] = (kv, torch.bfloat16)
         out["v"] = (kv, torch.bfloat16)
+        if cfg.family == "audio":
+            x = (cfg.n_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+            out["xk"] = (x, torch.bfloat16)
+            out["xv"] = (x, torch.bfloat16)
         return out
     nl, K = cfg.n_layers, cfg.conv_width
     GN = cfg.ssm_groups * cfg.ssm_state
@@ -152,14 +158,48 @@ def _hybrid_decode(cfg: ModelConfig, params, cache, tokens):
     return logits_of(cfg, params, h), dict(cache, len=lens + 1)
 
 
-_DECODE = {"dense": _tf_decode, "moe": _tf_decode, "ssm": _ssm_decode,
-           "hybrid": _hybrid_decode}
+def _wh_decode_layer(cfg, p, h, kc, vc, xk, xv, lens, xlen):
+    """Whisper decoder layer for one token: self-attention over its cache
+    (the token's K/V go in at ``lens``), cross-attention over all the
+    frames' K/V, MLP.  h (B, d).  The residual adds run as the reference's
+    decode writes them, ``(h + o) + b``."""
+    B = h.shape[0]
+    hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hn = L.layer_norm(h, p["s_ln_w"], p["s_ln_b"])
+    q = (W.dot(hn, p["s_wq"]) + p["s_bq"]).reshape(B, Hq, hd)
+    k = W.dot(hn, p["s_wk"]).reshape(B, Hkv, hd)
+    v = (W.dot(hn, p["s_wv"]) + p["s_bv"]).reshape(B, Hkv, hd)
+    append_kv(kc, vc, k, v, lens)
+    att = decode_attention(cfg, q, kc, vc, lens + 1)
+    h = h + W.dot(att.reshape(B, Hq * hd), p["s_wo"]) + p["s_bo"]
+    hn = L.layer_norm(h, p["x_ln_w"], p["x_ln_b"])
+    q = (W.dot(hn, p["x_wq"]) + p["x_bq"]).reshape(B, Hq, hd)
+    att = decode_attention(cfg, q, xk, xv, xlen)
+    h = h + W.dot(att.reshape(B, Hq * hd), p["x_wo"]) + p["x_bo"]
+    hn = L.layer_norm(h, p["m_ln_w"], p["m_ln_b"])
+    return h + L.gelu_mlp(hn, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+
+
+def _wh_decode(cfg: ModelConfig, params, cache, tokens):
+    """The token's position is row ``len`` of the sinusoid table."""
+    lens = cache["len"]
+    pos = W.sinusoid(cache["k"].shape[2], cfg.d_model, tokens.device)
+    h = embed_lookup(params["embed"], tokens[:, None])[:, 0] + pos[lens.long()]
+    xlen = torch.full_like(lens, cache["xk"].shape[2])     # every frame
+    for i in range(cfg.n_layers):
+        h = _wh_decode_layer(cfg, L.layer(params["dec_layers"], i), h,
+                             cache["k"][i], cache["v"][i], cache["xk"][i],
+                             cache["xv"][i], lens, xlen)
+    return W.head(cfg, params, h), dict(cache, len=lens + 1)
+
+
+_DECODE = {"dense": _tf_decode, "moe": _tf_decode, "vlm": _tf_decode,
+           "ssm": _ssm_decode, "hybrid": _hybrid_decode, "audio": _wh_decode}
 
 
 def make_decode_step(cfg: ModelConfig):
     """decode_step(params, cache, tokens (B,)) -> (logits (B, V_padded) f32,
     the cache, written in place, with ``len`` advanced)."""
-    require_served(cfg)
     return partial(_DECODE[cfg.family], cfg)
 
 

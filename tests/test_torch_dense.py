@@ -88,7 +88,7 @@ def test_cache_matches_reference(runs, when):
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_bf16_prefill_decode_matches_forward(arch):
-    P.assert_bf16_serving_matches_forward(arch, transformer.forward)
+    P.assert_bf16_serving_matches_forward(arch)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -113,7 +113,7 @@ def test_gemma2_window_bites_at_the_test_prompt():
     cfg, params = serve.build("gemma2-27b", smoke=True, device=P.CPU)
     assert [transformer.is_local(cfg, i) for i in range(4)] == \
         [True, False, True, False]
-    tokens = serve.prompt_batch(cfg, 1, P.PROMPT, 0, P.CPU)
+    tokens = serve.prompt_batch(cfg, 1, P.PROMPT, 0, P.CPU)["tokens"]
     local = transformer.forward(cfg, params, tokens)
     glob = transformer.forward(dataclasses.replace(cfg, sliding_window=None),
                                params, tokens)

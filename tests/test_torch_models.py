@@ -81,12 +81,18 @@ UNPORTED = [("granite-moe-1b-a400m", "moe"), ("deepseek-moe-16b", "moe"),
 
 
 @pytest.mark.parametrize("name,family", UNPORTED)
-def test_registry_and_api_refuse_what_is_not_ported(name, family):
-    """What is still unported is refused, naming ROADMAP.md: the audio and
-    VLM archs by the registry and their families by the dispatcher; of the
-    MoE archs (served since their slice: test_torch_moe.py), the dispatch
-    modes that shard the experts over a model axis larger than 1."""
-    assert JARCHS[name].family == family
+def test_registry_and_api_refuse_what_is_not_ported(name, family, topo):
+    """What is still unported is refused, naming ROADMAP.md.  The MoE, audio
+    and VLM archs are registered and served (test_torch_moe.py,
+    test_torch_audio_vlm.py); of the MoE archs the dispatch modes that
+    shard the experts over a model axis larger than 1 are refused.  The
+    audio and VLM archs have nothing refused on one device: their parameter
+    trees and caches are the reference's and their decode step is made (the
+    sequence-sharded decode attention of a larger model axis has no entry
+    point before the mesh slice, ROADMAP.md item 12)."""
+    from repro.serving import decode as jD
+    from repro_torch.serving import decode as D
+    assert JARCHS[name].family == family == get(name).family
     if family == "moe":
         cfg = get(name).smoke()
         assert "router" in api.param_specs(cfg)["layers"]
@@ -98,13 +104,16 @@ def test_registry_and_api_refuse_what_is_not_ported(name, family):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 moe.moe_ffn(cfg, x, *w, mode=mode, tp=2)
         return
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get(name)
-    other = dataclasses.replace(get(ARCH).smoke(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.param_specs(other)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.forward(other, {}, {"tokens": torch.ones((1, 4), dtype=torch.long)})
+    cfg = get(name)
+    assert set(api.param_specs(cfg)) == set(japi.param_specs(JARCHS[name]))
+    small = cfg.smoke()
+    ours = {k: (tuple(shp), str(dt).removeprefix("torch."))
+            for k, (shp, dt) in D.cache_specs(small, 2, 8).items()}
+    ref = {k: (tuple(shp), jnp.dtype(dt).name)
+           for k, (shp, _, dt) in jD.cache_specs(JARCHS[name].smoke(), topo,
+                                                 2, 8).items()}
+    assert ours == ref
+    assert callable(D.make_decode_step(small))
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])

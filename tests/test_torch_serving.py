@@ -117,7 +117,7 @@ def test_bf16_prefill_decode_matches_forward():
     (tests/test_serving.py's check, with its prompt of 24 and tolerances)."""
     cfg, params = serve.build(ARCH, smoke=True, device=CPU)
     prompt, decode = 24, 4
-    tokens = serve.prompt_batch(cfg, B, prompt, decode, CPU)
+    tokens = serve.prompt_batch(cfg, B, prompt, decode, CPU)["tokens"]
     ref = zamba.forward(cfg, params, tokens)
     logits, cache = D.make_prefill(cfg, prompt, room=decode)(
         params, {"tokens": tokens[:, :prompt]})
@@ -163,11 +163,15 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
 def test_other_families_are_refused(family):
-    """The families still unported are refused, naming ROADMAP.md (the
-    dense, MoE and SSM ones are served: see test_torch_dense.py,
-    test_torch_moe.py and test_torch_ssm.py).  Of MoE, what stays unported
-    is the sharded dispatch: its cache is the dense one, and the decode
-    step's expert layer refuses a model axis larger than 1."""
+    """What stays unported of the other families is refused, naming
+    ROADMAP.md (the dense, MoE, SSM, audio and VLM families are served: see
+    test_torch_dense.py, test_torch_moe.py, test_torch_ssm.py and
+    test_torch_audio_vlm.py).  Of MoE, the sharded dispatch: its cache is
+    the dense one, and the decode step's expert layer refuses a model axis
+    larger than 1.  VLM and audio have nothing refused on one device: the
+    VLM cache is the dense one, the audio cache adds the cross K/V over the
+    frames, and the decode step is made (the sequence-sharded decode
+    attention of a larger model axis waits for ROADMAP.md item 12)."""
     import dataclasses
     if family == "moe":
         from repro_torch.models import moe
@@ -181,14 +185,16 @@ def test_other_families_are_refused(family):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             moe.moe_ffn(cfg, torch.ones((2, 1, d)), *w, mode="rpc", tp=4)
         return
-    other = dataclasses.replace(get(ARCH).smoke(), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.cache_specs(other, 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.make_decode_step(other)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.make_prefill(other, 4)({}, {"tokens": torch.ones((1, 4),
-                                                           dtype=torch.long)})
+    arch = {"vlm": "llava-next-mistral-7b", "audio": "whisper-medium"}[family]
+    cfg = get(arch).smoke()
+    dense = dataclasses.replace(cfg, family="dense")
+    specs = D.cache_specs(cfg, 1, 4)
+    extra = set(specs) - set(D.cache_specs(dense, 1, 4))
+    assert extra == (set() if family == "vlm" else {"xk", "xv"})
+    if family == "audio":
+        assert specs["xk"][0] == (cfg.n_layers, 1, cfg.encoder_seq,
+                                  cfg.n_kv_heads, cfg.head_dim)
+    assert callable(D.make_decode_step(cfg))
 
 
 @pytest.mark.cuda
@@ -203,14 +209,15 @@ def test_cuda_slice_matches_cpu():
     params = {k: ({kk: vv.float() for kk, vv in v.items()}
                   if isinstance(v, dict) else v.float())
               for k, v in params.items()}
-    tokens = serve.prompt_batch(cfg, B, PROMPT, DECODE, CPU)
+    tokens = serve.prompt_batch(cfg, B, PROMPT, DECODE, CPU)["tokens"]
     runs = []
     for dev in (CPU, "cuda"):
         p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
                  if isinstance(v, dict) else v.to(dev))
              for k, v in params.items()}
         before = (fa.launches, ss.launches)
-        ids, st = serve.serve(cfg, p, tokens.to(dev), PROMPT, DECODE)
+        ids, st = serve.serve(cfg, p, {"tokens": tokens.to(dev)}, PROMPT,
+                              DECODE)
         runs.append((ids.cpu(), st["last_logits"].cpu()))
         if dev == "cuda":
             assert (fa.launches - before[0], ss.launches - before[1]) == \

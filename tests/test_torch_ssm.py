@@ -14,7 +14,7 @@ jax = pytest.importorskip("jax")
 import torch_parity as P  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api, mamba2  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import decode as D  # noqa: E402
 
 ARCH = "mamba2-780m"
@@ -82,7 +82,7 @@ def test_cache_specs_match_reference():
 
 
 def test_bf16_prefill_decode_matches_forward():
-    P.assert_bf16_serving_matches_forward(ARCH, mamba2.forward)
+    P.assert_bf16_serving_matches_forward(ARCH)
 
 
 def test_decode_from_empty_cache():
@@ -102,7 +102,7 @@ def test_prompt_must_be_whole_chunks():
     """As in the reference, a prompt longer than one SSD chunk is a multiple
     of it."""
     cfg, params = serve.build(ARCH, smoke=True, device=P.CPU)
-    tokens = serve.prompt_batch(cfg, 1, 40, 0, P.CPU)
+    tokens = serve.prompt_batch(cfg, 1, 40, 0, P.CPU)["tokens"]
     with pytest.raises(ValueError, match="multiple of the chunk"):
         D.make_prefill(cfg, 40)(params, {"tokens": tokens})
 

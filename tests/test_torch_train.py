@@ -11,7 +11,16 @@ loss only.
 
 Limits (the readings that set them are in CHANGES.md):
   * ``GRAD_REL`` = 5e-3 of each leaf's largest |grad| for whole-model float32
-    gradients; the eight archs read 3.1e-5 to 1.52e-3;
+    gradients; the eight archs read 3.1e-5 to 1.52e-3 (the audio and VLM
+    archs: tests/test_torch_audio_vlm.py);
+  * ``ILL_STEP_REL`` = 5e-2 for granite-moe-1b-a400m's second train step,
+    which is ill-conditioned in float32: a 1e-7 relative change of the
+    embeddings moves its gradients by up to 9.8e-3 of a leaf's largest
+    value (perturbation seeds 0-7 read 5.46e-3, 9.80e-3, 3.83e-3, 5.92e-3,
+    1.35e-3, 1.39e-3, 3.17e-3, 2.38e-3 at one microbatch; 5.55e-3,
+    9.59e-3, 3.44e-3, 5.28e-3, 1.22e-3, 1.69e-3, 3.12e-3, 2.61e-3 at two);
+    the test measures the worst of seeds 0-3 and fails above a quarter of
+    the limit;
   * ``LOSS_REL`` = 1e-5 for a float32 loss (read: at most 3.8e-7);
   * ``BF16_LOSS_REL`` = 3e-3 for the bf16 step's loss;
   * 1e-6 relative for ``lm_loss`` and for AdamW given the same gradients.
@@ -65,6 +74,17 @@ GRAD_REL = 5e-3
 LOSS_REL = 1e-5
 BF16_LOSS_REL = 3e-3
 OPT_REL = 1e-6
+# (arch, step) of test_train_step_matches_reference held to their own limit:
+# after one update at lr 0.1 granite's float32 gradients are ill-conditioned
+# (float64 runs of both packages agree to 5e-12, and each package's float32
+# run is 3.3e-3 (the port) and 9.8e-3 (the reference) of a leaf's largest
+# gradient away from them; at the first step both are 5e-3 away but round
+# alike).  The limit sits more than four times above the measured
+# conditioning (COND_REL's change of the embeddings, the worst of
+# COND_SEEDS), which must stay under a quarter of it.
+ILL_STEP_REL = {("granite-moe-1b-a400m", 1): 5e-2}
+COND_REL = 1e-7
+COND_SEEDS = range(4)
 SMOKE_SHAPE = ShapeConfig("smoke", seq_len=64, global_batch=2, kind="train")
 JOPTS = JOpts(q_block=TILE, kv_block=TILE, remat=False)
 OPTS = RunOptions(q_block=TILE, kv_block=TILE, remat=False)
@@ -111,6 +131,18 @@ def port_grads(cfg, params, batch, opts=OPTS):
     names = [n for n, _ in leaves_named(live)]
     return loss.detach(), dict(zip(names, torch.autograd.grad(
         loss, A.tree_leaves(live))))
+
+
+def conditioning(cfg, params, batch, seed=0):
+    """How far the port's float32 gradients move, as a share of each leaf's
+    largest |grad| (the worst leaf), for a COND_REL relative change of the
+    embeddings drawn from ``seed``."""
+    _, g = port_grads(cfg, params, batch)
+    e = params["embed"]
+    noise = torch.randn(e.shape, generator=torch.Generator().manual_seed(seed))
+    _, h = port_grads(cfg, dict(params, embed=e * (1 + COND_REL * noise)),
+                      batch)
+    return max(float((g[n] - h[n]).abs().max() / g[n].abs().max()) for n in g)
 
 
 # --- lm_loss --------------------------------------------------------------------
@@ -336,7 +368,8 @@ def test_functions_only_under_grad():
 
 
 # --- whole-model float32 gradients --------------------------------------------------
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", [a for a in sorted(ARCHS)
+                                  if get(a).family not in ("audio", "vlm")])
 def test_float32_gradients_match_reference(arch, topo):
     cfg_j, cfg, pj, pt = f32_weights(arch)
     jb, tb = batch_of(cfg)
@@ -393,11 +426,14 @@ def test_train_step_matches_reference(arch, micro, topo):
     and v per leaf within GRAD_REL of the leaf's largest value; the master
     weights' update (master - before) within GRAD_REL of the leaf's
     largest update plus two float32 spacings of its largest weight (the
-    master's own rounding).  AdamW here has eps 1 (at the default 1e-8 an
-    element whose gradient is within rounding of zero moves by +-lr either
-    way: the update is a sign, which no two implementations agree on), lr
-    0.1 from the first step and no weight decay, so the update is the
-    gradient's own arithmetic.  Then two bf16 steps at the defaults, each
+    master's own rounding).  granite's second step is ill-conditioned in
+    float32 (its routing has no near tie there: the 8th and 9th router
+    logits are 3.9e-3 apart at the least), so it is held to its
+    ILL_STEP_REL after its conditioning is measured over COND_SEEDS.
+    AdamW here has eps 1 (at the default 1e-8 an element whose gradient is
+    within rounding of zero moves by +-lr either way: the update is a sign,
+    which no two implementations agree on), lr 0.1 from the first step and
+    no weight decay, so the update is the gradient's own arithmetic.  Then two bf16 steps at the defaults, each
     package from its own state, held by their loss."""
     cfg_j, cfg, pj, _ = f32_weights(arch)
     adam = dict(lr=0.1, eps=1.0, warmup_steps=1, weight_decay=0.0)
@@ -412,6 +448,11 @@ def test_train_step_matches_reference(arch, micro, topo):
         jb, tb = batch_of(cfg, n=4, step=s)
         st = train_state_from_numpy(jax.device_get(sj), CPU)
         before = dict(leaves_named(jax.device_get(sj["opt"]["master"])))
+        limit = ILL_STEP_REL.get((arch, s), GRAD_REL)
+        if limit != GRAD_REL:
+            moved = [conditioning(cfg, st["opt"]["master"], tb, seed=k)
+                     for k in COND_SEEDS]
+            assert max(moved) <= limit / 4, (s, moved)
         embed = st["params"]["embed"]
         sj, mj = step_j(sj, jb)
         sj = _as_f32_params(sj)
@@ -421,7 +462,7 @@ def test_train_step_matches_reference(arch, micro, topo):
         for k in ("loss", "accuracy"):
             assert rel_err(float(mt[k]), float(mj[k])) <= LOSS_REL, (s, k)
         assert rel_err(float(mt["grad_norm"]), float(mj["grad_norm"])) \
-            <= GRAD_REL
+            <= limit
         assert st["params"]["embed"] is embed       # updated in place
         assert int(st["opt"]["step"]) == s + 1
         for part in ("master", "m", "v"):
@@ -433,7 +474,7 @@ def test_train_step_matches_reference(arch, micro, topo):
                     floor = 2 * np.spacing(np.abs(b).max())
                     a, b = a - before[n], b - before[n]
                 err = np.abs(a - b).max()
-                assert err <= GRAD_REL * np.abs(b).max() + floor, (s, part, n)
+                assert err <= limit * np.abs(b).max() + floor, (s, part, n)
                 assert np.abs(b).max() > 0, (s, part, n)
     # bf16: the reference's own parameters, its step's loss
     hpj = jS.TrainHparams(opts=JOPTS, microbatches=micro)

@@ -1,18 +1,31 @@
-"""Shared harness of tests/test_torch_dense.py and tests/test_torch_ssm.py:
-one arch of the port against the JAX package at its ``smoke()`` size.
+"""Shared harness of the family tests (tests/test_torch_dense.py,
+test_torch_ssm.py, test_torch_moe.py, test_torch_audio_vlm.py): one arch of
+the port against the JAX package at its ``smoke()`` size.
 
 ``family_runs(arch)`` runs both packages on the same float32 weights (the
 JAX package's ``init_params``, carried across by
-``convert.params_from_numpy``) and the same seeded tokens: the forward
-logits, the prefill's last-position logits and cache, ``DECODE`` decode
-steps and the final cache.  The JAX side is jitted (``make_prefill``,
+``convert.params_from_numpy``), the same seeded tokens and, for the audio
+and VLM families, the same frames or patch embeddings (the reference's
+``synthetic_batch``): the forward logits, the prefill's last-position
+logits and cache, ``DECODE`` decode steps and the final cache.  The
+reference's whisper encoder rounds its input to bf16, so with float32
+weights its scanned carry would turn float32 after the first layer, which
+``lax.scan`` refuses; ``reference_scan_as_loop`` runs that module's scans as
+Python loops (the same arithmetic; tested equal to the scan in bf16).  The
+JAX side is compiled with XLA's excess precision off (``jit``): by default
+XLA may skip a rounding to bf16 that the code writes (the encoder's
+``astype``, ``layer_norm``'s cast back), which moves whisper's smoke logits
+by ~0.1 from the eager reference's; with it off the jitted and eager
+reference agree to ~2e-6.  The JAX side is jitted (``make_prefill``,
 ``make_decode_step``, ``api.forward``) on a Topology built with
 ``repro.launch.mesh.make_smoke_mesh()`` (Auto axes; see ROADMAP.md section
 3).  In float32 weights only the order of sums differs; in bf16 one-ulp
 differences grow through chained random layers (see test_torch_models.py),
 so the bf16 path is held to the port's own teacher-forced forward.
 """
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -21,7 +34,8 @@ import jax
 import jax.numpy as jnp
 
 from repro.configs.registry import ARCHS as JARCHS
-from repro.data.pipeline import DataConfig, synthetic_tokens
+from repro.configs.base import ShapeConfig as JShape
+from repro.data.pipeline import DataConfig, synthetic_batch, synthetic_tokens
 from repro.launch.mesh import make_smoke_mesh
 from repro.models import api as japi
 from repro.models.transformer import RunOptions as JOpts
@@ -80,6 +94,46 @@ def assert_param_specs_match(arch, size):
 
 
 KV_CACHE = ("k", "v", "shared_k", "shared_v")
+STUB_INPUTS = ("frames", "patch_embeds")
+
+
+def jit(f):
+    """``jax.jit`` with every bf16 rounding the code writes kept."""
+    return jax.jit(f, compiler_options={"xla_allow_excess_precision": False})
+
+
+def loop_scan(f, init, xs):
+    """``lax.scan`` as a Python loop over the leading axis of xs: the same
+    steps, but the carry may change dtype."""
+    n = jax.tree.leaves(xs)[0].shape[0]
+    carry, ys = init, []
+    for i in range(n):
+        carry, y = f(carry, jax.tree.map(lambda a: a[i], xs))
+        ys.append(y)
+    if ys[0] is None:
+        return carry, None
+    return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+
+@contextlib.contextmanager
+def reference_scan_as_loop():
+    """While tracing, the reference's ``repro.models.whisper`` scans as
+    :func:`loop_scan`."""
+    from repro.models import whisper as jw
+    saved = jw.lax
+    jw.lax = types.SimpleNamespace(scan=loop_scan)
+    try:
+        yield
+    finally:
+        jw.lax = saved
+
+
+def stub_inputs(cfg_j, n=B, seq=FORWARD_LEN, step=0):
+    """The reference's frames (audio) or patch embeddings (VLM) of its
+    synthetic batch, as numpy (bf16), {} for the other families."""
+    b = synthetic_batch(cfg_j, JShape("t", seq, n, "train"), DataConfig(),
+                        step)
+    return {k: jax.device_get(b[k]) for k in STUB_INPUTS if k in b}
 
 
 def pad_kv(cache, extra):
@@ -100,20 +154,24 @@ def family_runs(arch):
     toks = synthetic_tokens(DataConfig(), 0, B, FORWARD_LEN, cfg.vocab_size)
     tt = torch.from_numpy(toks).long()
     opts = JOpts(q_block=16, kv_block=16, remat=False)
+    extra = stub_inputs(cfg_j)
+    xj = {k: jnp.asarray(v) for k, v in extra.items()}
+    xt = params_from_numpy(extra, CPU)
 
-    fj = jax.jit(lambda p, t: japi.forward(cfg_j, topo, p, {"tokens": t},
-                                           opts=opts))(pj, jnp.asarray(toks))
-    forward = (api.forward(cfg, pt, {"tokens": tt}).numpy(), np.asarray(fj))
-
-    lj, cj = jax.jit(jprefill(cfg_j, topo, PROMPT, opts))(
-        pj, {"tokens": jnp.asarray(toks[:, :PROMPT])})
+    with reference_scan_as_loop():
+        fj = jit(lambda p, b: japi.forward(cfg_j, topo, p, b, opts=opts))(
+            pj, dict(xj, tokens=jnp.asarray(toks)))
+        lj, cj = jit(jprefill(cfg_j, topo, PROMPT, opts))(
+            pj, dict(xj, tokens=jnp.asarray(toks[:, :PROMPT])))
+    forward = (api.forward(cfg, pt, dict(xt, tokens=tt)).numpy(),
+               np.asarray(fj))
     lt, ct = D.make_prefill(cfg, PROMPT, room=DECODE)(
-        pt, {"tokens": tt[:, :PROMPT]})
+        pt, dict(xt, tokens=tt[:, :PROMPT]))
     cj = pad_kv(cj, DECODE)
     prefill_cache = ({k: v.clone() for k, v in ct.items()},
                      jax.device_get(cj))
     steps = [(lt.numpy(), np.asarray(lj))]
-    sj, st = jax.jit(jstep(cfg_j, topo)), D.make_decode_step(cfg)
+    sj, st = jit(jstep(cfg_j, topo)), D.make_decode_step(cfg)
     for i in range(PROMPT, PROMPT + DECODE):
         lj, cj = sj(pj, cj, jnp.asarray(toks[:, i]))
         lt, ct = st(pt, ct, tt[:, i])
@@ -148,15 +206,16 @@ def assert_cache_matches(got, want, length):
         assert np.abs(g - w).max() <= CACHE_RTOL * np.abs(w).max(), name
 
 
-def assert_bf16_serving_matches_forward(arch, forward):
+def assert_bf16_serving_matches_forward(arch):
     """The port's bf16 prefill + decode against its own teacher-forced
-    ``forward`` over the same tokens (tests/test_torch_serving.py's check
-    and tolerances)."""
+    forward (``api.forward``) over the same batch
+    (tests/test_torch_serving.py's check and tolerances)."""
     cfg, params = serve.build(arch, smoke=True, device=CPU)
-    tokens = serve.prompt_batch(cfg, B, PROMPT, FORWARD_LEN - PROMPT, CPU)
-    ref = forward(cfg, params, tokens)
+    batch = serve.prompt_batch(cfg, B, PROMPT, FORWARD_LEN - PROMPT, CPU)
+    tokens = batch["tokens"]
+    ref = api.forward(cfg, params, batch)
     logits, cache = D.make_prefill(cfg, PROMPT, room=DECODE)(
-        params, {"tokens": tokens[:, :PROMPT]})
+        params, serve.prompt_inputs(batch, PROMPT))
     assert ref.shape == (B, FORWARD_LEN, cfg.vocab_padded)
     np.testing.assert_allclose(logits.numpy(), ref[:, PROMPT - 1].numpy(),
                                atol=0.3, rtol=0.1)
