@@ -91,18 +91,41 @@ Phases (any failure exits non-zero):
      recorder, with the directory given (equal to the untraced run) and
      fetched up front (a REFRESH row of round -1), every round's
      directory-refresh row checked; one round under torch.profiler;
- 10. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+ 10. the mesh dataplane (``mesh_dataplane``): ``MeshTransport`` over
+     ``torch.distributed``, one node a rank.  World size 1 over NCCL
+     (``make_smoke_mesh("cuda")``): a gate-sized insert, ``hybrid_lookup``
+     and one ``run_transactions`` batch equal to ``SimTransport(1)`` bit
+     for bit, ``hash_probe`` launched once per read round.  Then four
+     ranks sharing the card over gloo with CUDA tensors (NCCL refuses two
+     ranks on one device), with a deadline: TATP at 4 nodes x 2**13
+     subscribers, 512 lanes a node, the 80/16/4 mix, f=0 (population by
+     ``rpc_call``, one ``run_transactions`` batch, ``hybrid_lookup`` of
+     every populated key) equal bit for bit to ``SimTransport(4)`` run here
+     meanwhile (arenas, commits, reads, abort causes, lookups; the
+     additive WireStats summed over the ranks, round trips per rank with
+     the simulator's as their largest), ``hash_probe`` launched once per
+     read round per rank; one exchange timed; the sharded branches at full
+     width on a (1, 4) mesh: deepseek-moe-16b's MoE layer (float32, 512
+     tokens) in "rpc" and "replicated" against "local", and "onesided" at
+     capacity factor 16 against "local" at 16, routing equal and outputs
+     within ``F32_REL_FAMILY``, each mode with torch's sync debug mode set
+     to raise outside the collectives' own waits; ``embed_lookup`` "rpc"
+     and "onesided" at deepseek's vocab of 102,400 (bf16) equal to the
+     plain gather; llava-next-mistral-7b's sequence-sharded decode
+     attention (B 4, S 4,096, float32) against ``decode_attention``
+     within ``F32_REL_FAMILY``;
+ 11. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
      logits, ids in the vocabulary, the cache's length and dtypes; then one
      decode step and one prefill under torch.profiler;
- 11. the dense and pure-SSM families (gemma2-27b, qwen2.5-32b, qwen1.5-4b,
+ 12. the dense and pure-SSM families (gemma2-27b, qwen2.5-32b, qwen1.5-4b,
      glm4-9b, mamba2-780m) at their smoke() sizes, float32, prefill and 4
      decode steps on the card against the CPU, with the launches of each
      prefill; gemma2-27b at full width cut to 2 layers (one local, one
      global), float32, card against CPU after its conditioning is measured;
- 12. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
+ 13. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
      D 128, group 2, causal, softcap 50, with and without its 4096-token
      window), at the MoE family's (BH 128, S 4096: D 128 for
      deepseek-moe-16b, D 64 and group 2 for granite-moe-1b-a400m), at
@@ -114,28 +137,28 @@ Phases (any failure exits non-zero):
      their bounds, the plain versions and, for attention,
      ``scaled_dot_product_attention`` (the same function at the MoE shapes;
      at gemma2's, without softcap and window, not);
- 13. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
+ 14. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
      layers, 8 x 2048) served at full size through ``repro_torch.launch.serve``
-     with 32 greedy tokens each, as in phase 10, each with its own launch
+     with 32 greedy tokens each, as in phase 11, each with its own launch
      counts (46 ``flash_attention`` and 0 ``ssd_scan``; 0 and 48) and its
      peak memory.
- 14. the MoE family (deepseek-moe-16b, granite-moe-1b-a400m) at smoke()
+ 15. the MoE family (deepseek-moe-16b, granite-moe-1b-a400m) at smoke()
      size, float32, prefill and 4 decode steps on the card against the CPU:
      logits, greedy tokens and every layer's routing (experts and keep bits);
- 15. deepseek-moe-16b at full width cut to 2 layers, float32, card against
+ 16. deepseek-moe-16b at full width cut to 2 layers, float32, card against
      CPU after its conditioning is measured: routing call by call (a flip
      must lie within 4x the router-logit deviation of the CPU's margin),
      logits before any flip, then each prefill layer from the CPU's input
      (the MoE output compared on the tokens whose routing agrees);
- 16. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
-     4096-token prompts, 32 greedy tokens) as in phase 10: 28 and 24
+ 17. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
+     4096-token prompts, 32 greedy tokens) as in phase 11: 28 and 24
      ``flash_attention`` launches a prefill, the share of expert
      assignments kept at each step, peak memory;
- 17. the audio and VLM families (whisper-medium, llava-next-mistral-7b) at
+ 18. the audio and VLM families (whisper-medium, llava-next-mistral-7b) at
      smoke() size with their frames or patch embeddings, float32, prefill
      and 4 decode steps on the card against the CPU, with the launches of
      each prefill;
- 18. whisper-medium at full width cut to 2 encoder and 2 decoder layers
+ 19. whisper-medium at full width cut to 2 encoder and 2 decoder layers
      (all 1,500 frames, a 416-token prompt) and llava-next-mistral-7b cut
      to 2 layers (2,880 patch positions and 192 text tokens), at the full
      models' init scale, B 1, 4 decode steps, float32, card against CPU
@@ -147,12 +170,12 @@ Phases (any failure exits non-zero):
      the CPU's encoder output held on the card within ``WHISPER_F32_REL``
      (the encoder's bf16 roundings make the whole run discontinuous; the
      unheld logits are printed);
- 19. whisper-medium (8 x 1,500 frames, 416-token prompts) and then
+ 20. whisper-medium (8 x 1,500 frames, 416-token prompts) and then
      llava-next-mistral-7b (4 x 4,096 positions, the first 2,880 patch
      embeddings) served at full size with 32 greedy tokens, as in phase
-     10: 72 and 32 ``flash_attention`` launches a prefill, every cache
+     11: 72 and 32 ``flash_attention`` launches a prefill, every cache
      entry (whisper's cross K/V included) finite, peak memory;
- 20. gradients through the kernels: ``ops.flash_attention``'s Function at
+ 21. gradients through the kernels: ``ops.flash_attention``'s Function at
      zamba2's training shape (B 8, S 2048, 32 heads of 64, causal, bf16)
      and granite's (16 heads over 8), ``ops.ssd_scan``'s at zamba2's (B 8,
      8 chunks of 256, H 64, P = N = 64, float32): the forward launches the
@@ -161,20 +184,20 @@ Phases (any failure exits non-zero):
      ``ssd_scan_plain``) on the card within a stated limit, and a Function
      whose backward returns zeros is rejected; the forward's and the
      backward's times;
- 21. training at smoke() size, every arch, float32 weights: the loss
+ 22. training at smoke() size, every arch, float32 weights: the loss
      and every gradient leaf, card against CPU, with the kernels' launches;
      then one train step's master weights;
- 22. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
+ 23. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
      trained at full size: 8 x 2048 tokens a step, seeded weights, AdamW
      and remat at the reference's defaults, a warm-up step and 5 timed
      ones: loss, grad norm, ms and tokens/s of each step, kernel launches
      per step against the layer count and the remat (the recompute
      launches every kernel again), peak memory, granite's kept share of
      expert assignments, one step under torch.profiler;
- 23. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
+ 24. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
      to the two inequalities of the reference's
      ``test_loss_decreases_on_repetitive_stream``;
- 24. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
+ 25. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
      2 steps, a save through ``CheckpointManager(device="cuda")`` (its
      commit record an OCC transaction on the card, read back through
      ``hybrid_lookup`` and the ``hash_probe`` kernel), every array read
@@ -1614,6 +1637,421 @@ def ordered_path(dev):
 # ---------------------------------------------------------------------------
 # (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype): the TPU kernel's
 # contract (tests/test_kernels.py's cases and more) and the serving shape
+# ---------------------------------------------------------------------------
+# The mesh dataplane: MeshTransport over torch.distributed, one node a rank.
+# NCCL at world size 1 (the production backend), then four ranks sharing the
+# one card over gloo with CUDA tensors (NCCL refuses two ranks on one
+# device): TATP at MESH_NODES x TATP_SUBSCRIBERS_PER_NODE, then the sharded
+# model branches at full width.
+# ---------------------------------------------------------------------------
+MESH_NODES, MESH_LANES = 4, 512
+MESH_DEADLINE_S = 400          # every world of ranks
+MESH_MOE_TOKENS = 512          # deepseek-moe-16b's layer, B 1
+MESH_EMBED_BATCH, MESH_EMBED_SEQ = 4, 512
+# llava-next-mistral-7b's decode shape: B 4 over a 4,096-position cache
+MESH_DECODE_BATCH, MESH_DECODE_SEQ = 4, 4096
+MESH_ONESIDED_CAPACITY = 16.0  # no assignment drops at this factor
+WIRE_ADDITIVE = ("messages", "ops", "req_bytes", "reply_bytes",
+                 "nic_hit_ops", "nic_penalty_us")
+
+
+def _wire_of(w):
+    return {f: float(getattr(w, f)) for f in ("round_trips",) + WIRE_ADDITIVE}
+
+
+def mesh_tatp(t, dev, subs):
+    """TATP as tatp_main_path sets it up, at MESH_NODES nodes x ``subs``
+    subscribers, on transport ``t`` (a rank's node on a MeshTransport, the
+    whole cluster on SimTransport): population by rpc_call, one
+    run_transactions batch (fused, f=0), then hybrid_lookup of every
+    populated key of the local nodes.  Returns the local rows' results on
+    the CPU, the hash_probe launches of each read phase and wall times."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hybrid as hy
+    from repro_torch.core import tx as txm
+    from repro_torch.core.datastructs import hashtable as ht
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.testing import workloads as wl
+
+    cfg = ht.HashTableConfig(n_nodes=MESH_NODES, n_buckets=TATP_BUCKETS,
+                             bucket_width=1, n_overflow=TATP_OVERFLOW,
+                             max_chain=12)
+    layout = ht.build_layout(cfg)
+    state = {k: t.local(v).clone()
+             for k, v in ht.init_cluster_state(cfg, device=dev).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, (klo, khi) = wl.populate(cfg, layout, t, state, subs, seed=3,
+                                    device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    batch = wl.tatp_transactions(
+        klo, khi, n_nodes=MESH_NODES, lanes=MESH_LANES,
+        subscribers_per_node=subs, rng=np.random.RandomState(4), device=dev)
+    rk, wk, ren, wen, wv = (t.local(x) for x in batch)
+    hp.launches = 0
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, _, res = txm.run_transactions(
+        t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
+        read_enabled=ren, write_enabled=wen)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    tx_launches = hp.launches
+    state, _, found, value, version, _, slot, ovf, m = hy.hybrid_lookup(
+        t, state, t.local(klo), t.local(khi), cfg, layout)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    cpu = lambda x: x.cpu()
+    return dict(
+        arena=cpu(state["arena"]), committed=cpu(res.committed),
+        read_found=cpu(res.read_found), read_values=cpu(res.read_values),
+        aborted=cpu(torch.stack([res.aborted_lock, res.aborted_validate,
+                                 res.aborted_overflow, res.aborted_stale])),
+        tx_wire=_wire_of(res.metrics.wire),
+        tx_round_trips=float(res.round_trips),
+        found=cpu(found), value=cpu(value), version=cpu(version),
+        slot=cpu(slot), overflow=cpu(ovf), lookup_wire=_wire_of(m.wire),
+        tx_launches=tx_launches, lookup_launches=hp.launches - tx_launches,
+        population_s=t1 - t0, tx_s=t3 - t2, lookup_s=t4 - t3,
+        read_lanes=int(rk[..., 0].numel()))
+
+
+def mesh_world_of_one(rank, world):
+    """World size 1 over NCCL: a gate-sized insert and workload, its read
+    keys through hybrid_lookup, one run_transactions batch, on
+    MeshTransport(1) and on SimTransport(1) in the same process."""
+    import torch
+    from repro_torch.core import hybrid as hy
+    from repro_torch.core import tx as txm
+    from repro_torch.core.datastructs import hashtable as ht
+    from repro_torch.core.transport import MeshTransport, SimTransport
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.testing import workloads as wl
+    import torch.distributed as dist
+
+    mesh = make_smoke_mesh("cuda")
+    out = {"backend": dist.get_backend(), "device_mesh": str(mesh)}
+    for name, t in (("mesh", MeshTransport(1)), ("sim", SimTransport(1))):
+        cfg = ht.HashTableConfig(n_nodes=1, n_buckets=256, bucket_width=1,
+                                 n_overflow=64, max_chain=8)
+        layout = ht.build_layout(cfg)
+        state = ht.init_cluster_state(cfg, device="cuda")
+        state, rk, wk, wv = wl.make_tx_workload(
+            t, cfg, layout, state, lanes=64, n_keys=64, seed=5,
+            device="cuda")
+        hp.launches = 0
+        state, _, found, value, *_ = hy.hybrid_lookup(
+            t, state, rk[..., 0, 0], rk[..., 0, 1], cfg, layout)
+        state, _, res = txm.run_transactions(
+            t, state, cfg, layout, read_keys=rk, write_keys=wk,
+            write_values=wv)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            found=found.cpu(), value=value.cpu(), arena=state["arena"].cpu(),
+            committed=res.committed.cpu(), read_values=res.read_values.cpu(),
+            read_found=res.read_found.cpu(),
+            aborted=torch.stack([res.aborted_lock, res.aborted_validate,
+                                 res.aborted_overflow,
+                                 res.aborted_stale]).cpu(),
+            wire=_wire_of(res.metrics.wire), launches=hp.launches)
+    return out
+
+
+def _without_sync(fn):
+    """fn() with torch's sync debug mode set to raise on any call that
+    synchronises the host with the card, but for the collectives' own
+    waits: gloo stages a CUDA tensor through host memory and its wait
+    synchronises (NCCL's does not), so each collective runs with the mode
+    at its default and every other call of fn under "error"."""
+    import torch
+    import torch.distributed as dist
+
+    def unchecked(coll):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return coll(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+    saved = {n: getattr(dist, n) for n in ("all_reduce",
+                                           "all_gather_into_tensor")}
+    for n, coll in saved.items():
+        setattr(dist, n, unchecked(coll))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for n, coll in saved.items():
+            setattr(dist, n, coll)
+
+
+def _timed(fn, iters=3):
+    """Host wall seconds of each of ``iters`` synchronised calls (after a
+    warm-up call) and the last result."""
+    import torch
+    y = fn()
+    ts = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return ts, y
+
+
+def mesh_branches(topo):
+    """The sharded branches at full width on this rank: deepseek-moe-16b's
+    MoE layer in "rpc", "replicated" and "onesided" against "local" (every
+    mode under the sync debug mode set to raise), the vocab-sharded
+    embedding against the plain gather, and llava's sequence-sharded decode
+    attention against decode_attention over the whole cache.  Every rank
+    draws the same global tensors from one seed and cuts its blocks."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.models import embedding as E
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ONE_DEVICE
+    from repro_torch.serving import decode as D
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    out = {}
+
+    # --- MoE: routing recorded call by call --------------------------------
+    cfg = get(MOE_ARCHS[0])
+    d, E_, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    x = rnd(1, MESH_MOE_TOKENS, d)
+    router = rnd(d, E_) * d ** -0.5
+    wg, wu = rnd(E_, d, f) * d ** -0.5, rnd(E_, d, f) * d ** -0.5
+    wd = rnd(E_, f, d) * f ** -0.5
+    inner, calls = moe._router, []
+
+    def router_of(c, xt, rw):
+        v, i = inner(c, xt, rw)
+        calls.append(i)
+        return v, i
+    moe._router = router_of
+    blk = lambda w: topo.block(w, "expert", None, None)
+    res = {}
+    try:
+        for mode, factor in (("local", None), ("rpc", None),
+                             ("replicated", None), ("local", 16.0),
+                             ("onesided", 16.0)):
+            c = (cfg if factor is None
+                 else dataclasses.replace(cfg, capacity_factor=factor))
+            ws = ((wg, wu, wd) if mode in ("local", "replicated")
+                  else tuple(blk(w) for w in (wg, wu, wd)))
+            t_ = ONE_DEVICE if mode == "local" else topo
+            calls.clear()
+            # "onesided" gathers 2.2 GB of experts a call: one timed call
+            ts, y = _timed(lambda: _without_sync(
+                lambda: moe.moe_ffn(c, t_, x, router, *ws, mode=mode)),
+                iters=1 if mode == "onesided" else 3)
+            res[(mode, factor)] = (y, calls[-1])
+            out[f"moe_{mode}_{factor or 'default'}_s"] = min(ts)
+    finally:
+        moe._router = inner
+    m = topo.axis_index("model")
+    T_my = MESH_MOE_TOKENS // topo.axis_sizes["model"]
+    for mode, factor, ref in (("rpc", None, "local"),
+                              ("replicated", None, "local"),
+                              ("onesided", 16.0, "local")):
+        y, topi = res[(mode, factor)]
+        want, want_topi = res[(ref, factor)]
+        if mode == "onesided":          # the rank routes its slice
+            want_topi = want_topi[m * T_my:(m + 1) * T_my]
+        out[f"moe_{mode}_routing_equal"] = bool(torch.equal(topi, want_topi))
+        out[f"moe_{mode}_rel"] = float((y - want).abs().max()
+                                       / want.abs().max())
+
+    # --- embedding: deepseek's vocab, bf16 ------------------------------------
+    V = cfg.vocab_padded
+    table = rnd(V, d).to(torch.bfloat16)
+    tokens = torch.randint(0, V, (MESH_EMBED_BATCH, MESH_EMBED_SEQ),
+                           generator=g, device=dev)
+    plain = table[tokens]
+    out["embed_vocab"], out["embed_block_rows"] = V, V // 4
+    for mode in ("rpc", "onesided"):
+        ts, y = _timed(lambda: E.embed_lookup(
+            topo, topo.block(table, "vocab", None), tokens, mode=mode,
+            vocab=V))
+        out[f"embed_{mode}_equal"] = bool(torch.equal(y, plain))
+        out[f"embed_{mode}_s"] = min(ts)
+
+    # --- decode attention: llava's decode shape, float32 ----------------------
+    lc = get(AUDIO_VLM_ARCHS[1])
+    B, S = MESH_DECODE_BATCH, MESH_DECODE_SEQ
+    q = rnd(B, lc.n_heads, lc.head_dim)
+    kc, vc = (rnd(B, S, lc.n_kv_heads, lc.head_dim) for _ in range(2))
+    lens = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    want = D.decode_attention(lc, q, kc, vc, lens)
+    ts, y = _timed(lambda: D.hybrid_decode_attention(
+        lc, topo, q, topo.block(kc, "batch", "kv_seq", None, None),
+        topo.block(vc, "batch", "kv_seq", None, None), lens, mode="seq"))
+    out["decode_seq_rel"] = float((y - want).abs().max() / want.abs().max())
+    out["decode_seq_s"] = min(ts)
+    out["decode_lens"] = lens.tolist()
+    return out
+
+
+def mesh_rank(rank, world, subs):
+    """A rank of the four-rank world on the one card: TATP on
+    MeshTransport(world), the per-round exchange's time, then the sharded
+    branches on a (1, world) ("data", "model") mesh."""
+    import torch
+    from repro_torch.core.transport import MeshTransport
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import Topology
+    t = MeshTransport(world)
+    out = mesh_tatp(t, "cuda", subs)
+    # one exchange of the fused round's largest send buffer at this shape
+    # (2 read lanes a transaction, the 29-word lookup reply)
+    x = torch.zeros((1, world, 2 * MESH_LANES, 29), dtype=torch.int32,
+                    device="cuda")
+    ts, _ = _timed(lambda: t.exchange(x), iters=10)
+    out["exchange_s"] = sorted(ts)[len(ts) // 2]
+    topo = Topology(make_mesh((1, world), ("data", "model"), "cuda"))
+    out.update(mesh_branches(topo))
+    return out
+
+
+def mesh_dataplane(dev):
+    """Four ranks on the card over gloo and, started here while they run,
+    world size 1 over NCCL against SimTransport(1), bit for bit, then
+    SimTransport(4)'s run: the ranks' TATP against it bit for bit (arenas, commits, reads, abort causes, lookups; the additive
+    WireStats summed over the ranks, round_trips per rank with the
+    simulator's as their largest), hash_probe launched once per read round
+    per rank, and the sharded branches against their one-rank versions."""
+    import torch
+    from repro_torch.core import slots as sl
+    from repro_torch.core.transport import SimTransport
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.testing.ranks import run_ranks
+
+    subs = TATP_SUBSCRIBERS_PER_NODE
+    ones, sims = [], []       # run here while the four ranks run
+
+    def meanwhile():
+        t0 = time.perf_counter()
+        ones.append(run_ranks(mesh_world_of_one, 1, device=dev,
+                              deadline_s=MESH_DEADLINE_S)[0])
+        ones.append(time.perf_counter() - t0)
+        sims.append(mesh_tatp(SimTransport(MESH_NODES), dev, subs))
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH_NODES, device=dev, backend="gloo",
+                      args=(subs,), deadline_s=MESH_DEADLINE_S,
+                      meanwhile=meanwhile)
+    world_s = time.perf_counter() - t0
+    one, one_s = ones
+    sim = sims[0]
+    check(one["backend"] == "nccl", f"world of one on {one['backend']}")
+    for k, v in one["sim"].items():
+        same = v == one["mesh"][k] if isinstance(v, (int, dict)) \
+            else torch.equal(v, one["mesh"][k])
+        check(same, f"mesh at world size 1 (NCCL): {k} differs from "
+              "SimTransport(1)")
+    check(one["mesh"]["launches"] >= 2,
+          "world size 1: hash_probe not launched once per read round")
+    print(f"mesh at world size 1 over NCCL ({one['device_mesh']}): insert, "
+          f"hybrid_lookup and run_transactions equal to SimTransport(1) bit "
+          f"for bit, {one['mesh']['launches']} hash_probe launches; "
+          f"{one_s:.1f} s [{card()}]", flush=True)
+
+    cat = lambda k: torch.cat([r[k] for r in ranks])
+    for k in ("arena", "committed", "read_found", "read_values", "found",
+              "value", "version", "slot", "overflow"):
+        check(torch.equal(cat(k), sim[k]),
+              f"four ranks: {k} differs from SimTransport({MESH_NODES})")
+    check(torch.equal(torch.cat([r["aborted"] for r in ranks], dim=1),
+                      sim["aborted"]), "four ranks: abort causes differ")
+    for w in ("tx_wire", "lookup_wire"):
+        for f in WIRE_ADDITIVE:
+            check(sum(r[w][f] for r in ranks) == sim[w][f],
+                  f"four ranks: {w} {f} does not sum to the simulator's")
+        check(max(r[w]["round_trips"] for r in ranks)
+              == sim[w]["round_trips"],
+              f"four ranks: {w} round trips above the simulator's")
+    for r in ranks:
+        check(r["tx_launches"] >= 1 and r["lookup_launches"] >= 1,
+              "four ranks: a read round launched no hash_probe")
+    committed = int(sim["committed"].sum())
+    check(committed > 0, "four ranks: nothing committed")
+    print("mesh: four ranks on one card over gloo, TATP at "
+          f"{MESH_NODES} x {subs} subscribers, {MESH_LANES} lanes a node: "
+          "arenas, commits, reads, abort causes and lookups equal to "
+          f"SimTransport({MESH_NODES}) bit for bit; {committed} of "
+          f"{MESH_NODES * MESH_LANES} committed [{card()}]", flush=True)
+    print("mesh: " + json.dumps({
+        "world_s": world_s,
+        "rank_population_s": [r["population_s"] for r in ranks],
+        "rank_tx_s": [r["tx_s"] for r in ranks],
+        "rank_lookup_s": [r["lookup_s"] for r in ranks],
+        "sim_population_s": sim["population_s"], "sim_tx_s": sim["tx_s"],
+        "sim_lookup_s": sim["lookup_s"],
+        "tx_round_trips_by_rank": [r["tx_round_trips"] for r in ranks],
+        "sim_tx_round_trips": sim["tx_round_trips"],
+        "hash_probe_launches_by_rank": [
+            r["tx_launches"] + r["lookup_launches"] for r in ranks],
+        "exchange_ms_by_rank": [r["exchange_s"] * 1e3 for r in ranks]}),
+        flush=True)
+
+    # the per-round exchange on the simulator: the transpose, made dense
+    x = torch.zeros((MESH_NODES, MESH_NODES, 2 * MESH_LANES, 29),
+                    dtype=torch.int32, device=dev)
+    sim_ex = time_cuda(lambda: SimTransport(MESH_NODES).exchange(x)
+                       .contiguous(), 20)
+    # hash_probe at the mesh path's shape: one launch over a rank's
+    # returned probe words (one line a lane, off 0)
+    M = ranks[0]["read_lanes"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    lines = torch.randint(-2**31, 2**31 - 1, (M, sl.SLOT_WORDS),
+                          generator=g, device=dev, dtype=torch.int32)
+    lane = torch.arange(M, dtype=torch.int32, device=dev)
+    keys = lines[:, sl.KEY_LO].clone(), lines[:, sl.KEY_HI].clone()
+    on = torch.ones(M, dtype=torch.bool, device=dev)
+    args = (lines, lane, torch.zeros_like(lane), *keys, on, ~on)
+    hp.probe_lines(*args, width=1)
+    k_ms = time_cuda(lambda: hp.probe_lines(*args, width=1), 50)
+    p_ms = time_cuda(lambda: hp.probe_lines_plain(*args, width=1), 50)
+    check(all(torch.equal(a, b) for a, b in zip(
+        hp.probe_lines(*args, width=1),
+        hp.probe_lines_plain(*args, width=1))),
+          "hash_probe at the mesh shape differs from its plain version")
+    med = lambda ts: sorted(ts)[len(ts) // 2]
+    bound = probe_bound_bytes(M, M, 1) / HBM_BYTES_PER_S * 1e3
+    print(f"mesh: hash_probe over a rank's {M} returned lines: kernel "
+          f"{med(k_ms):.4f} ms, plain {med(p_ms):.4f} ms, bound "
+          f"{bound:.7f} ms (bytes); the simulator's exchange (transpose "
+          f"made dense) {med(sim_ex):.4f} ms [{card()}]", flush=True)
+
+    b = ranks[0]
+    for mode in ("rpc", "replicated", "onesided"):
+        for r in ranks:
+            check(r[f"moe_{mode}_routing_equal"],
+                  f"MoE {mode}: routing differs from the local path")
+            check(r[f"moe_{mode}_rel"] <= F32_REL_FAMILY,
+                  f"MoE {mode}: {r[f'moe_{mode}_rel']:.3g} of the largest "
+                  f"|value| from local, above {F32_REL_FAMILY}")
+    for mode in ("rpc", "onesided"):
+        check(all(r[f"embed_{mode}_equal"] for r in ranks),
+              f"embed_lookup {mode} differs from the plain gather")
+    check(all(r["decode_seq_rel"] <= F32_REL_FAMILY for r in ranks),
+          "sequence-sharded decode attention beyond F32_REL_FAMILY")
+    print("mesh branches on four ranks: " + json.dumps({
+        k: max(r[k] for r in ranks) for k in b
+        if k.endswith("_s") or k.endswith("_rel")} | {
+        "embed_vocab": b["embed_vocab"], "decode_lens": b["decode_lens"]})
+        + f" [{card()}]", flush=True)
+
+
 FLASH_CASES = [
     (1, 128, 128, 2, 2, 64, True, None, None, "bfloat16"),
     (2, 256, 256, 4, 2, 64, True, None, None, "bfloat16"),      # GQA 2
@@ -2304,7 +2742,8 @@ def serve_full_size(dev, arch, batch, prompt, decode, expect):
           f"{arch}: non-finite logits")
     check(bool((cache["len"] == prompt + decode - 1).all()),
           f"{arch}: cache length")
-    for n, (shape, dt) in cache_specs(cfg, batch, prompt + decode).items():
+    for n, (shape, _, dt) in cache_specs(cfg, batch,
+                                           prompt + decode).items():
         check(cache[n].dtype == dt and tuple(cache[n].shape) == shape,
               f"{arch}: cache {n}: {cache[n].dtype} {tuple(cache[n].shape)}, "
               f"expected {dt} {shape}")
@@ -2610,6 +3049,7 @@ def moe_without_sync(dev):
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.models import moe
+    from repro_torch.parallel.sharding import ONE_DEVICE
     cfg = get(MOE_ARCHS[0])
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
     g = torch.Generator(device=dev).manual_seed(4)
@@ -2620,7 +3060,7 @@ def moe_without_sync(dev):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [moe.moe_ffn(cfg, x, *w) for x in xs]
+        outs = [moe.moe_ffn(cfg, ONE_DEVICE, x, *w) for x in xs]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
@@ -3693,6 +4133,11 @@ def main():
 
     phase("ordered path: the B-link tree with range-scan transactions")
     ordered_path(dev)
+
+    phase("the mesh dataplane: NCCL at world size 1, four ranks on the card")
+    t0 = time.perf_counter()
+    mesh_dataplane(dev)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("serving main path: zamba2-1.2b")
     serving_main_path(dev, rows)

@@ -4,7 +4,9 @@
 #   wireproto  — opcodes and reply statuses
 #   regions    — contiguous arenas + flat/paged addressing
 #   nic        — connection-state model (QP modes, NIC-cache hit model)
-#   transport  — dest-major exchange on the one-device SimTransport
+#   transport  — dest-major exchange: SimTransport (the cluster on one
+#                device) and MeshTransport (one node a rank of a
+#                torch.distributed process group)
 #   roundsched — multi-class fused round scheduler
 #   onesided   — one-sided READ/WRITE (owner does address translation only)
 #   rpc        — write-based RPC: inbox + completion mask + handlers

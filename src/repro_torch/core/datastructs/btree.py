@@ -368,10 +368,12 @@ def parse_leaf(cfg: BTreeConfig, buf):
 
 
 def probe_end(cfg: BTreeConfig, layout: rg.RegionTable, buf, key_lo, key_hi,
-              off, hit):
+              off, hit, delivered=None):
     """Validate a one-sided leaf read (the ordered lookup_end).  ``resolved``
     = the read CONCLUSIVELY answered the probe: stable header whose fences
-    cover the key (then an absent key is a definitive miss)."""
+    cover the key (then an absent key is a definitive miss).  ``delivered``
+    is not needed: an undelivered lane's words are zeros, whose fences
+    cover no key."""
     p = parse_leaf(cfg, buf)
     key = sl.u32(key_lo)
     stable = ((p["version"] & 1) == 0) & (p["lock"] == 0)

@@ -190,16 +190,28 @@ def _probe_result(cfg, layout, found, value, version, local_idx, key_lo,
 
 
 def probe_end(cfg: HashTableConfig, layout: rg.RegionTable, buf, key_lo,
-              key_hi, off, hit):
-    """Decode a one-sided probe's words ``buf`` into (found, value, version,
-    slot_idx, resolved); ``resolved == found`` for the hash table (a miss may
-    sit on an unread overflow chain)."""
-    success, local_idx, slot = sl.window_match(
-        buf.reshape(buf.shape[:-1] + (cfg.bucket_width, sl.SLOT_WORDS)),
-        key_lo, key_hi, hit)
-    return _probe_result(cfg, layout, success, sl.slot_value(slot),
-                         sl.slot_version(slot), local_idx, key_lo, key_hi,
-                         off, hit)
+              key_hi, off, hit, delivered=None):
+    """Decode a one-sided probe's returned words ``buf`` (..., width * 32),
+    as ``onesided.remote_read`` hands them to the client, into (found,
+    value, version, slot_idx, resolved) with ONE ``hash_probe`` launch: the
+    lines are the arenas (lane i's is row i, read at word 0) and
+    ``delivered`` (all lanes where None) the live mask.  ``resolved ==
+    found`` for the hash table (a miss may sit on an unread overflow
+    chain)."""
+    shp = key_lo.shape
+    M = key_lo.numel()
+    flat = lambda x: x.reshape(-1)
+    lane = torch.arange(M, dtype=torch.int32, device=buf.device)
+    live = (torch.ones((M,), dtype=torch.bool, device=buf.device)
+            if delivered is None else flat(delivered))
+    if hit is None:
+        hit = torch.zeros(shp, dtype=torch.bool, device=buf.device)
+    found, version, value, local_idx = hp.probe_lines(
+        buf.reshape(M, -1).to(torch.int32), lane, torch.zeros_like(lane),
+        flat(key_lo), flat(key_hi), live, flat(hit), width=cfg.bucket_width)
+    return _probe_result(
+        cfg, layout, found.reshape(shp), value.reshape(shp + (sl.VALUE_WORDS,)),
+        version.reshape(shp), local_idx.reshape(shp), key_lo, key_hi, off, hit)
 
 
 def probe_read(cfg: HashTableConfig, layout: rg.RegionTable, arenas, dest,
@@ -208,10 +220,11 @@ def probe_read(cfg: HashTableConfig, layout: rg.RegionTable, arenas, dest,
     ONE ``hash_probe`` launch over all lanes, reading ``arenas[dest]`` at
     ``off`` for the ``delivered`` lanes (the others read zeros, as an
     undelivered read does).  Equal to ``probe_end`` over
-    ``onesided.remote_read``'s words on SimTransport, where the exchange is
-    a transpose and the read round runs no handler.  A transport with one
-    node per device (the reference's MeshTransport, a later slice) must run
-    this launch on the owner side."""
+    ``onesided.remote_read``'s words wherever the process holds every
+    owner's arena (SimTransport), since the read round runs no handler; on
+    a MeshTransport the owner's arena is another rank's, and
+    ``onesided.probe_round`` takes ``remote_read`` and ``probe_end``
+    instead."""
     shp = key_lo.shape
     flat = lambda x: x.reshape(-1)
     found, version, value, local_idx = hp.probe_lines(

@@ -13,9 +13,10 @@ bytes.
 
 The probe is data-structure-generic (Storm Table 3): every entry point takes
 ``ds=`` — a datastructs module exporting ``lookup_start`` / ``probe_read`` /
-``probe_words`` / ``lookup_records`` / ``uses_probe_cache`` /
-``cache_update`` and the handler constructors — defaulting to the hash
-table, whose ``probe_read`` is one ``hash_probe`` kernel launch.
+``probe_end`` / ``probe_words`` / ``lookup_records`` / ``uses_probe_cache``
+/ ``cache_update`` and the handler constructors — defaulting to the hash
+table, whose ``probe_read`` and ``probe_end`` are one ``hash_probe`` kernel
+launch each.
 """
 from __future__ import annotations
 
@@ -56,17 +57,16 @@ def onesided_probe(t: Transport, state, key_lo, key_hi, cfg, layout, *,
                    ds=ht, ptable=None, telemetry=None):
     """Phase 1 of Algorithm 1: lookup_start + one-sided read + lookup_end.
 
-    The read round routes and accounts exactly like ``onesided.remote_read``
-    (``onesided.read_round``: overflow, parking, WireStats); the owner-side
-    gather and the ``lookup_end`` check of the delivered lanes are ONE
-    ``ds.probe_read`` call, which for the hash table is one ``hash_probe``
-    kernel launch reading ``state["arena"][dest]`` directly.  That is exact
-    on SimTransport, where the exchange is a transpose and the read round
-    runs no handler; a transport with one node per device (the reference's
-    MeshTransport, a later slice) must move the launch to the owner side.
-    The read round's flight-recorder event (``telemetry``, phase READ) is
-    recorded by ``read_round`` from the round's own masks, as the
-    reference's ``remote_read`` records it.
+    The read round is ``onesided.probe_round``: on SimTransport the
+    owner-side gather and the ``lookup_end`` check of the delivered lanes
+    are ONE ``ds.probe_read`` call (for the hash table one ``hash_probe``
+    launch reading ``state["arena"][dest]`` directly), exact because the
+    read round runs no handler; on MeshTransport, where the owner's arena
+    is another rank's, the owner gathers the words in
+    ``onesided.remote_read``'s round and the client checks them with ONE
+    ``ds.probe_end`` call (one ``hash_probe`` launch over the returned
+    words).  Both route, drop and bill like ``onesided.remote_read``, and
+    record its flight-recorder event (``telemetry``, phase READ).
 
     Returns a dict with the per-lane probe outcome: node, cache `hit`,
     one-sided `success`, value/version/slot_idx of the hit, `need_rpc`,
@@ -80,11 +80,10 @@ def onesided_probe(t: Transport, state, key_lo, key_hi, cfg, layout, *,
                                      ptable=ptable)
 
     if use_onesided:
-        delivered, ovf, s_read = osd.read_round(
-            t, node, off, length=ds.probe_words(cfg), capacity=capacity,
-            enabled=enabled, nic=nic, telemetry=telemetry, phase=T.PH_READ)
-        pe = ds.probe_read(cfg, layout, state["arena"], node, off, key_lo,
-                           key_hi, hit, delivered)
+        pe, ovf, s_read = osd.probe_round(
+            t, state, ds, cfg, layout, node, off, key_lo, key_hi, hit,
+            capacity=capacity, enabled=enabled, nic=nic, telemetry=telemetry,
+            phase=T.PH_READ)
         success = pe["found"] & ~ovf & enabled
         resolved = pe["resolved"] & ~ovf & enabled
         value, version, slot_idx = pe["value"], pe["version"], pe["slot_idx"]

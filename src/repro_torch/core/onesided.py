@@ -56,6 +56,45 @@ def read_round(t: Transport, dest, offsets, *, length: int,
     return spec["pos"] < spec["cap"], spec["ovf"], stats
 
 
+def probe_round(t: Transport, state, ds, cfg, layout, dest, off, key_lo,
+                key_hi, hit, *, capacity: Optional[int] = None, enabled=None,
+                nic=None, telemetry=None, phase: int = 0):
+    """A one-sided probe round of a data structure ``ds`` (the datastructs
+    interface): ``ds.probe_words(cfg)`` words at ``(dest, off)`` for the
+    enabled lanes, checked by ``ds.probe_end``'s rule.  Returns (probe
+    outcome dict, overflow (N, B), WireStats).
+
+    The path follows the transport.  Where this process holds every owner's
+    arena (SimTransport), the owner's gather and the check are ONE
+    ``ds.probe_read`` call over ``state["arena"][dest]`` (for the hash table
+    one ``hash_probe`` launch), routed and accounted by :func:`read_round`;
+    that is exact because the read round runs no handler.  Where an owner's
+    arena is another rank's (MeshTransport), the round is the reference's
+    own data flow: :func:`remote_read`, whose owner gathers the words and
+    runs no application logic, then ``ds.probe_end`` over the returned words
+    on the client (for the hash table one ``hash_probe`` launch over them).
+    Both paths route, drop and bill alike."""
+    length = ds.probe_words(cfg)
+    if t.holds_all_arenas:
+        delivered, ovf, stats = read_round(
+            t, dest, off, length=length, capacity=capacity, enabled=enabled,
+            nic=nic, telemetry=telemetry, phase=phase)
+        pe = ds.probe_read(cfg, layout, state["arena"], dest, off, key_lo,
+                           key_hi, hit, delivered)
+        return pe, ovf, stats
+    buf, ovf, stats = remote_read(
+        t, state["arena"], dest, off, length=length, capacity=capacity,
+        enabled=enabled, nic=nic, telemetry=telemetry, phase=phase)
+    # route_by_dest's live cells: enabled lanes with a destination in range
+    # that did not overflow
+    delivered = (dest >= 0) & (dest < t.n_nodes) & ~ovf
+    if enabled is not None:
+        delivered &= enabled
+    pe = ds.probe_end(cfg, layout, buf, key_lo, key_hi, off, hit,
+                      delivered=delivered)
+    return pe, ovf, stats
+
+
 def remote_write(t: Transport, arenas, dest, offsets, values, *,
                  capacity: Optional[int] = None,
                  mode: rg.AddressMode | None = None, page_tables=None,

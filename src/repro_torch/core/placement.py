@@ -684,8 +684,9 @@ def failover_lookup(t: Transport, state, cfg, layout, table: PlacementTable,
     plus RPC fallback of the hybrid lookup, with the destination resolved
     through the placement table — what serves both the hash table and the
     B-tree's backup tree after a primary dies.  The probe's owner-side read
-    is ONE ``ds.probe_read`` call (for the hash table one ``hash_probe``
-    launch), routed and accounted like ``onesided.remote_read``.  Returns
+    and its check are ``onesided.probe_round`` (for the hash table one
+    ``hash_probe`` launch), routed and accounted like
+    ``onesided.remote_read``.  Returns
     dict(found, value, version, node, slot_idx, overflow, dead_route,
     wire)."""
     if ds is None:
@@ -698,11 +699,9 @@ def failover_lookup(t: Transport, state, cfg, layout, table: PlacementTable,
     en = enabled & reachable
     _, off, hit = ds.lookup_start(cfg, layout, key_lo, key_hi, None)
 
-    delivered, ovf1, s1 = osd.read_round(
-        t, dest, off, length=ds.probe_words(cfg), capacity=capacity,
-        enabled=en, nic=nic)
-    pe = ds.probe_read(cfg, layout, state["arena"], dest, off, key_lo,
-                       key_hi, hit, delivered)
+    pe, ovf1, s1 = osd.probe_round(t, state, ds, cfg, layout, dest, off,
+                                   key_lo, key_hi, hit, capacity=capacity,
+                                   enabled=en, nic=nic)
     success = pe["found"] & ~ovf1 & en
     resolved = pe["resolved"] & ~ovf1 & en
 

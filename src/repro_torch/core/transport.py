@@ -6,14 +6,28 @@ The single exchange primitive is dest-major -> source-major:
     exchange(x): x[dst, c, ...] (what THIS node wants delivered to `dst`)
              ->  y[src, c, ...] (what `src` delivered to THIS node)
 
-``SimTransport`` simulates an N-node cluster on one device: cluster tensors
-carry a leading node axis and exchange is a transpose.  The reference's
-``MeshTransport`` (one node per device, an all-to-all collective) belongs to
-a later slice of the port.
+Two implementations:
+
+  * ``SimTransport`` simulates an N-node cluster on one device: cluster
+    tensors carry a leading node axis and exchange is a transpose.
+  * ``MeshTransport`` runs one node per rank of a ``torch.distributed``
+    process group (NCCL on the card, gloo on the CPU): the local node axis
+    has length 1 and exchange is ``all_to_all_single``.
 
 Protocol code is written once at cluster level: node-state tensors have one
 leading node axis (N, ...), and where the reference ``vmap``s per-node code
-over it, the port writes the batch axis out.
+over it, the port writes the batch axis out.  On a mesh that axis is the
+rank's own node, so the same code serves both.
+
+The collective-order rule of a mesh: every rank enters every exchange of a
+round in the same order, so no exchange is skipped or added on a value only
+one rank sees (a host-side ``mask.any()``, a fold count of one rank's
+inbox).  Which exchanges a round makes depends only on static shapes and
+capacities, the same on every rank; local early exits that make no
+collective (the chain walk's, the serial fold's step count) stay local.
+Every rank bills ``WireStats`` from its own masks, as the reference's
+shard_map does: ``round_trips`` is per rank, the additive counts sum to the
+simulator's.
 """
 from __future__ import annotations
 
@@ -21,10 +35,14 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 
 class Transport:
     n_nodes: int  # global node count
+    # whether this process's state holds every owner's arena (so an owner's
+    # read can be served in the client's process, fused with its check)
+    holds_all_arenas: bool = False
 
     def exchange(self, x):
         raise NotImplementedError
@@ -37,11 +55,16 @@ class Transport:
     def n_local(self) -> int:
         raise NotImplementedError
 
+    def local(self, x):
+        """The rows of a cluster tensor (N, ...) that this shard holds."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(frozen=True)
 class SimTransport(Transport):
     """Whole cluster on one device; leading axis = node."""
     n_nodes: int
+    holds_all_arenas = True
 
     def exchange(self, x):
         # x: (N_this, N_dst, C, ...) -> (N_this, N_src, C, ...)
@@ -56,6 +79,51 @@ class SimTransport(Transport):
     @property
     def n_local(self) -> int:
         return self.n_nodes
+
+    def local(self, x):
+        return x
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshTransport(Transport):
+    """One node per rank of ``group`` (default: the whole world), n_local
+    == 1.  Local tensors are (1, N, C, ...)."""
+    n_nodes: int
+    group: object = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        size = dist.get_world_size(self.group)
+        if size != self.n_nodes:
+            raise ValueError(f"MeshTransport({self.n_nodes}) over a group of "
+                             f"{size} ranks")
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank(self.group)
+
+    def exchange(self, x):
+        # x: (1, N_dst, C, ...) dest-major.  Chunk i of x[0] goes to rank i;
+        # the chunks received, stacked in rank order, are (N_src, C, ...):
+        # the reference's tiled all_to_all plus swap.
+        if x.shape[0] != 1 or x.shape[1] != self.n_nodes:
+            raise ValueError(f"exchange expects (1, {self.n_nodes}, ...), got "
+                             f"{tuple(x.shape)}")
+        if x.numel() == 0:              # an empty capacity, on every rank
+            return x.clone()
+        send = x[0].contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        return recv[None]
+
+    def node_ids(self, device=None):
+        return torch.tensor([self.rank], dtype=torch.int32, device=device)
+
+    @property
+    def n_local(self) -> int:
+        return 1
+
+    def local(self, x):
+        return x[self.rank:self.rank + 1]
 
 
 # ---------------------------------------------------------------------------

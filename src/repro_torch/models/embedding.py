@@ -1,13 +1,32 @@
-"""The embedding table's two uses: the token lookup (the one-device branch
-of ``repro/models/embedding.py``: a row gather, with gemma's sqrt(d_model)
-scale) and the LM head.  The vocab-sharded one-sided and RPC branches wait
-for the mesh-transport slice."""
+"""The embedding table's two uses: the token lookup (a row gather, with
+gemma's sqrt(d_model) scale) and the LM head (counterpart of
+``repro/models/embedding.py``).
+
+The table is a remote data structure sharded over the ``model`` axis: each
+rank owns a contiguous vocab range (Storm's contiguous region).
+:func:`embed_lookup` takes a rank's vocab block and its batch block of
+tokens and has the reference's two sharded access modes:
+
+  * "rpc": every rank looks up the ids it owns (the handler), the others
+    give zeros, and an all-reduce (SUM) over the ``model`` group combines
+    them: compute at the data, one all-reduce of (B_loc, S, d).
+  * "onesided": all-gather the vocab blocks to the requester and gather
+    rows locally: data to compute.  Only wins for tiny tables (cost_model).
+
+One device, a vocab that the ``model`` axis does not divide, or rules that
+give the vocab no axis take the plain gather, as in the reference.
+"""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import cost_model
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import ONE_DEVICE, Topology
 
 # float32 elements of the LM head's table converted at once (512 MiB): the
 # head never holds a float32 copy of a whole table (gemma2-27b's would be
@@ -15,16 +34,51 @@ from repro_torch.models import layers as L
 LM_HEAD_ELEMS = 2**27
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table (V, d); tokens (B, S) int -> (B, S, d)."""
-    return table[tokens.long()]
+def embed_lookup(topo: Topology, table: torch.Tensor, tokens: torch.Tensor,
+                 mode: str = "auto", *, vocab: Optional[int] = None):
+    """table: this rank's block of a (vocab, d) table under
+    ``topo.spec_for((vocab, d), ("vocab", None))``; ``vocab`` is the whole
+    table's row count (None: ``table`` is the whole table).  tokens: this
+    rank's (B_loc, S) block of a batch split over every batch axis of the
+    mesh.  Returns (B_loc, S, d), the same on every rank of the ``model``
+    group."""
+    V = table.shape[0] if vocab is None else vocab
+    d = table.shape[1]
+    tp = topo.axis_sizes.get("model", 1)
+    if tp == 1 or V % tp != 0 or not topo._mesh_axes_for("vocab", V):
+        return table[tokens.long()]
+    if table.shape[0] != V // tp:
+        raise ValueError(f"a vocab block of {V} rows over {tp} ranks has "
+                         f"{V // tp} rows, got {table.shape[0]}")
+    if mode == "auto":
+        # the whole batch's tokens (the reference's size(tokens))
+        global_tokens = tokens.numel() * topo._prod(
+            a for a in topo.rules.get("batch", ()) if a in topo.axis_sizes)
+        mode = cost_model.embedding_lookup_choice(
+            tokens_per_shard=global_tokens // max(
+                topo.axis_sizes.get("data", 1), 1),
+            d_model=d, vocab=V, shards=tp).mode
+    group = topo.group("model")
+    ids = tokens.long()
+    if mode == "onesided":
+        full = table.new_empty((V, d))
+        dist.all_gather_into_tensor(full, table.contiguous(), group=group)
+        return full[ids]
+    vs = V // tp
+    ids = ids - topo.axis_index("model") * vs
+    ok = (ids >= 0) & (ids < vs)
+    rows = table[ids.clamp(0, vs - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    return rows
 
 
 def embed(cfg, table, tokens):
     """The lookup, times sqrt(d_model) where ``cfg.embed_scale``: the factor
     is rounded to the table's dtype first, as the reference rounds it
     (sqrt(4608) = 67.88 is 68.0 in bf16)."""
-    h = embed_lookup(table, tokens)
+    h = embed_lookup(ONE_DEVICE, table, tokens)
     if cfg.embed_scale:
         h = h * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=h.dtype,
                              device=h.device)

@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.embedding import embed_lookup, logits_of
-from repro_torch.parallel.sharding import ParamSpec as PS
+from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS
 
 
 def mamba_layer_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
@@ -24,31 +24,34 @@ def mamba_layer_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
     d, di = cfg.d_model, cfg.d_inner
     H, N, G, K = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups, cfg.conv_width
     Ld = (n_layers if n_layers is not None else cfg.n_layers,) if stacked else ()
+    La = (None,) if stacked else ()
     return {
-        "norm": PS(Ld + (d,), "ones"),
-        "wz": PS(Ld + (d, di), "scaled"),
-        "wx": PS(Ld + (d, di), "scaled"),
-        "wB": PS(Ld + (d, G * N), "scaled"),
-        "wC": PS(Ld + (d, G * N), "scaled"),
-        "wdt": PS(Ld + (d, H), "scaled"),
-        "conv_x_w": PS(Ld + (K, di), "normal", scale=0.1),
-        "conv_x_b": PS(Ld + (di,), "zeros"),
-        "conv_B_w": PS(Ld + (K, G * N), "normal", scale=0.1),
-        "conv_B_b": PS(Ld + (G * N,), "zeros"),
-        "conv_C_w": PS(Ld + (K, G * N), "normal", scale=0.1),
-        "conv_C_b": PS(Ld + (G * N,), "zeros"),
-        "A_log": PS(Ld + (H,), "zeros"),
-        "D": PS(Ld + (H,), "ones"),
-        "dt_bias": PS(Ld + (H,), "zeros"),
-        "gnorm": PS(Ld + (di,), "ones"),
-        "wo": PS(Ld + (di, d), "scaled"),
+        "norm": PS(Ld + (d,), La + (None,), "ones"),
+        "wz": PS(Ld + (d, di), La + ("fsdp", "ff"), "scaled"),
+        "wx": PS(Ld + (d, di), La + ("fsdp", "ff"), "scaled"),
+        "wB": PS(Ld + (d, G * N), La + ("fsdp", None), "scaled"),
+        "wC": PS(Ld + (d, G * N), La + ("fsdp", None), "scaled"),
+        "wdt": PS(Ld + (d, H), La + ("fsdp", "heads"), "scaled"),
+        "conv_x_w": PS(Ld + (K, di), La + (None, "ff"), "normal", scale=0.1),
+        "conv_x_b": PS(Ld + (di,), La + ("ff",), "zeros"),
+        "conv_B_w": PS(Ld + (K, G * N), La + (None, None), "normal",
+                       scale=0.1),
+        "conv_B_b": PS(Ld + (G * N,), La + (None,), "zeros"),
+        "conv_C_w": PS(Ld + (K, G * N), La + (None, None), "normal",
+                       scale=0.1),
+        "conv_C_b": PS(Ld + (G * N,), La + (None,), "zeros"),
+        "A_log": PS(Ld + (H,), La + ("heads",), "zeros"),
+        "D": PS(Ld + (H,), La + ("heads",), "ones"),
+        "dt_bias": PS(Ld + (H,), La + ("heads",), "zeros"),
+        "gnorm": PS(Ld + (di,), La + ("ff",), "ones"),
+        "wo": PS(Ld + (di, d), La + ("ff", "fsdp"), "scaled"),
     }
 
 
 def param_specs(cfg: ModelConfig):
     return {
-        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
-        "final_norm": PS((cfg.d_model,), "ones"),
+        "embed": PS((cfg.vocab_padded, cfg.d_model), ("vocab", None), "normal"),
+        "final_norm": PS((cfg.d_model,), (None,), "ones"),
         "layers": mamba_layer_specs(cfg),
     }
 
@@ -150,7 +153,7 @@ def forward(cfg: ModelConfig, params, tokens, opts=None):
     from repro_torch.models.transformer import RunOptions, maybe_remat
     body = maybe_remat(lambda hh, p: mamba_block(cfg, p, hh)[0],
                        opts or RunOptions())
-    h = embed_lookup(params["embed"], tokens)
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
     for p in L.layers(params["layers"]):
         h = body(h, p)
     return logits_of(cfg, params, h)

@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN, the one-device part of ``repro/models/moe.py``.
+"""Mixture-of-Experts FFN with Storm's one-two-sided dispatch (counterpart of
+``repro/models/moe.py``).
 
 Experts are a remote data structure: tokens are routed to them as requests
 are routed to their owners in ``transport.route_by_dest``, with the same
@@ -15,10 +16,21 @@ weigh nothing in the combine.  The combine sums each token's K rows in
 float32, k = 0 first, with no atomics, so it is the same from run to run.
 
 On one device the dispatch is "local": every expert runs over the tokens
-routed to it.  The reference's "rpc", "onesided" and "replicated" modes
-shard the experts over a ``model`` axis larger than 1, which waits for the
-mesh slice (ROADMAP.md, item 12); at ``tp == 1`` they are the local path, as
-in the reference.
+routed to it.  Over a ``model`` axis larger than 1 a rank holds its batch
+block of tokens (the same on every rank of its ``model`` group) and the
+reference's sharded modes run on it, chosen per shape by the cost model:
+
+  * "rpc" (compute at the data): the rank runs its E/tp local experts over
+    the tokens routed to them, and an all-reduce (SUM) over ``model``
+    combines the partial outputs;
+  * "onesided" (data to compute): the rank all-gathers the expert stacks
+    (the one-sided read of the remote region), routes its 1/tp slice of the
+    tokens through every expert at that slice's capacity, and all-gathers
+    the outputs; "rpc" where the tokens do not split over the axis;
+  * "replicated": where the rules give the experts no mesh axis (wide-DP),
+    every rank holds every expert and routes its own tokens.
+
+No mode reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -26,10 +38,12 @@ import contextlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cost_model
+from repro_torch.parallel.sharding import Topology
 
 MODES = ("auto", "local", "rpc", "onesided", "replicated")
 
@@ -121,11 +135,11 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
                               * cfg.capacity_factor)))
 
 
-def moe_dispatch_mode(cfg: ModelConfig, tp: int,
+def moe_dispatch_mode(cfg: ModelConfig, topo: Topology,
                       tokens_per_device: int) -> str:
-    """The reference's choice for a ``model`` axis of ``tp`` devices: "local"
-    at tp 1 or where the experts do not divide over it, else the cost
-    model's."""
+    """The reference's choice: "local" where the ``model`` axis is 1 or the
+    experts do not divide over it, else the cost model's."""
+    tp = topo.axis_sizes.get("model", 1)
     if tp == 1 or cfg.n_experts % tp != 0:
         return "local"
     choice = cost_model.moe_dispatch_choice(
@@ -144,20 +158,63 @@ def route(cfg: ModelConfig, x, router_w):
     return topi, buf, meta
 
 
-def moe_ffn(cfg: ModelConfig, x, router_w, wg, wu, wd, mode: str = "auto",
-            tp: int = 1):
-    """x (B, S, d); router_w (d, E); wg/wu (E, d, f); wd (E, f, d) ->
-    (B, S, d) in x's dtype.  ``tp`` is the size of the ``model`` axis; the
-    port runs on one device, where it is 1."""
+def _routed_ffn(cfg, xt, router_w, wg, wu, wd, e_offset: int, cap: int):
+    """Route xt (T, d) over every expert, keep the assignments to the
+    wg.shape[0] experts from ``e_offset`` at ``cap`` slots each, and combine
+    their outputs -> (T, d)."""
+    topv, topi = _router(cfg, xt, router_w)
+    buf, meta = _route(xt, topv, topi, wg.shape[0], e_offset, cap)
+    return _combine(_expert_ffn(buf, wg, wu, wd), meta, xt.shape[0],
+                    xt.shape[1])
+
+
+def _gather(x, group, tp: int):
+    """all_gather of x's blocks along its first axis over ``group``."""
+    out = x.new_empty((tp * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def moe_ffn(cfg: ModelConfig, topo: Topology, x, router_w, wg, wu, wd,
+            mode: str = "auto"):
+    """x (B_loc, S, d): this rank's block of a batch split over every batch
+    axis of the mesh; router_w (d, E); wg/wu (E_r, d, f), wd (E_r, f, d):
+    this rank's block of the expert stacks, E_r = E / tp where the rules
+    shard the experts over ``model`` and E where they do not.  Returns
+    (B_loc, S, d) in x's dtype."""
     if mode not in MODES:
         raise ValueError(f"unknown MoE dispatch mode {mode!r}")
     B, S, d = x.shape
+    E = cfg.n_experts
+    tp = topo.axis_sizes.get("model", 1)
+    T_loc = B * S
     if mode == "auto":
-        mode = moe_dispatch_mode(cfg, tp, tokens_per_device=B * S)
-    if tp > 1 and mode != "local":
-        raise NotImplementedError(
-            f"MoE dispatch mode {mode!r} over a model axis of {tp} needs the "
-            "mesh slice (ROADMAP.md, item 12); on one device it is 'local'")
-    _, buf, meta = route(cfg, x, router_w)
-    out = _combine(_expert_ffn(buf, wg, wu, wd), meta, B * S, d)
-    return out.reshape(B, S, d)
+        mode = moe_dispatch_mode(cfg, topo, tokens_per_device=T_loc)
+    if tp > 1 and not topo._mesh_axes_for("expert", E):
+        # wide-DP rules: every rank holds every expert and routes its own
+        # tokens, with no dispatch collective
+        mode = "replicated"
+    xt = x.reshape(T_loc, d)
+    if mode == "replicated" or mode == "local" or tp == 1 or E % tp != 0:
+        _, buf, meta = route(cfg, x, router_w)
+        out = _combine(_expert_ffn(buf, wg, wu, wd), meta, T_loc, d)
+        return out.reshape(B, S, d)
+    E_l = E // tp
+    if wg.shape[0] != E_l:
+        raise ValueError(f"expert blocks of {E} experts over {tp} ranks hold "
+                         f"{E_l}, got {wg.shape[0]}")
+    m = topo.axis_index("model")
+    group = topo.group("model")
+    if mode == "onesided" and T_loc % tp != 0:
+        mode = "rpc"      # decode-sized batches: too few tokens to split
+    if mode == "rpc":
+        out = _routed_ffn(cfg, xt, router_w, wg, wu, wd, m * E_l,
+                          capacity(cfg, T_loc))
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out.reshape(B, S, d)
+    # one-sided: all-gather the expert stacks, route 1/tp of the tokens
+    T_my = T_loc // tp
+    out_my = _routed_ffn(cfg, xt[m * T_my:(m + 1) * T_my], router_w,
+                         _gather(wg, group, tp), _gather(wu, group, tp),
+                         _gather(wd, group, tp), 0, capacity(cfg, T_my))
+    return _gather(out_my, group, tp).reshape(B, S, d)

@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.embedding import embed, logits_of
 from repro_torch.models.moe import moe_ffn
-from repro_torch.parallel.sharding import ParamSpec as PS
+from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS
 
 
 def layer_param_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
@@ -33,37 +33,41 @@ def layer_param_specs(cfg: ModelConfig, n_layers: Optional[int] = None,
     d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     Ld = (n_layers if n_layers is not None else cfg.n_layers,) if stacked else ()
+    La = (None,) if stacked else ()
     p = {
-        "attn_norm": PS(Ld + (d,), "ones"),
-        "wq": PS(Ld + (d, qd), "scaled"),
-        "wk": PS(Ld + (d, kvd), "scaled"),
-        "wv": PS(Ld + (d, kvd), "scaled"),
-        "wo": PS(Ld + (qd, d), "scaled"),
-        "mlp_norm": PS(Ld + (d,), "ones"),
+        "attn_norm": PS(Ld + (d,), La + (None,), "ones"),
+        "wq": PS(Ld + (d, qd), La + ("fsdp", "heads"), "scaled"),
+        "wk": PS(Ld + (d, kvd), La + ("fsdp", "kv_heads"), "scaled"),
+        "wv": PS(Ld + (d, kvd), La + ("fsdp", "kv_heads"), "scaled"),
+        "wo": PS(Ld + (qd, d), La + ("heads", "fsdp"), "scaled"),
+        "mlp_norm": PS(Ld + (d,), La + (None,), "ones"),
     }
     f = cfg.d_ff
     if cfg.is_moe:
         E = cfg.n_experts
-        p["router"] = PS(Ld + (d, E), "scaled")
-        p["we_gate"] = PS(Ld + (E, d, f), "scaled")
-        p["we_up"] = PS(Ld + (E, d, f), "scaled")
-        p["we_down"] = PS(Ld + (E, f, d), "scaled")
+        p["router"] = PS(Ld + (d, E), La + (None, None), "scaled")
+        p["we_gate"] = PS(Ld + (E, d, f), La + ("expert", "fsdp", None),
+                           "scaled")
+        p["we_up"] = PS(Ld + (E, d, f), La + ("expert", "fsdp", None),
+                         "scaled")
+        p["we_down"] = PS(Ld + (E, f, d), La + ("expert", None, "fsdp"),
+                           "scaled")
         if cfg.n_shared_experts:
             sf = cfg.n_shared_experts * f
-            p["ws_gate"] = PS(Ld + (d, sf), "scaled")
-            p["ws_up"] = PS(Ld + (d, sf), "scaled")
-            p["ws_down"] = PS(Ld + (sf, d), "scaled")
+            p["ws_gate"] = PS(Ld + (d, sf), La + ("fsdp", "ff"), "scaled")
+            p["ws_up"] = PS(Ld + (d, sf), La + ("fsdp", "ff"), "scaled")
+            p["ws_down"] = PS(Ld + (sf, d), La + ("ff", "fsdp"), "scaled")
     else:
-        p["w_gate"] = PS(Ld + (d, f), "scaled")
-        p["w_up"] = PS(Ld + (d, f), "scaled")
-        p["w_down"] = PS(Ld + (f, d), "scaled")
+        p["w_gate"] = PS(Ld + (d, f), La + ("fsdp", "ff"), "scaled")
+        p["w_up"] = PS(Ld + (d, f), La + ("fsdp", "ff"), "scaled")
+        p["w_down"] = PS(Ld + (f, d), La + ("ff", "fsdp"), "scaled")
     if cfg.qkv_bias:
-        p["bq"] = PS(Ld + (qd,), "zeros")
-        p["bk"] = PS(Ld + (kvd,), "zeros")
-        p["bv"] = PS(Ld + (kvd,), "zeros")
+        p["bq"] = PS(Ld + (qd,), La + ("heads",), "zeros")
+        p["bk"] = PS(Ld + (kvd,), La + ("kv_heads",), "zeros")
+        p["bv"] = PS(Ld + (kvd,), La + ("kv_heads",), "zeros")
     if cfg.post_norms:
-        p["attn_post_norm"] = PS(Ld + (d,), "ones")
-        p["mlp_post_norm"] = PS(Ld + (d,), "ones")
+        p["attn_post_norm"] = PS(Ld + (d,), La + (None,), "ones")
+        p["mlp_post_norm"] = PS(Ld + (d,), La + (None,), "ones")
     return p
 
 
@@ -71,12 +75,13 @@ def param_specs(cfg: ModelConfig):
     """The whole tree: embedding, final norm, the stacked layers, and an LM
     head where the embeddings are not tied (qwen2.5-32b)."""
     tree = {
-        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
-        "final_norm": PS((cfg.d_model,), "ones"),
+        "embed": PS((cfg.vocab_padded, cfg.d_model), ("vocab", None), "normal"),
+        "final_norm": PS((cfg.d_model,), (None,), "ones"),
         "layers": layer_param_specs(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = PS((cfg.vocab_padded, cfg.d_model), "normal")
+        tree["lm_head"] = PS((cfg.vocab_padded, cfg.d_model), ("vocab", None),
+                             "normal")
     return tree
 
 
@@ -130,8 +135,8 @@ def ffn_block(cfg: ModelConfig, p, h):
     routed together."""
     hn = L.rms_norm(h, p["mlp_norm"])
     if cfg.is_moe:
-        out = moe_ffn(cfg, hn, p["router"], p["we_gate"], p["we_up"],
-                      p["we_down"])
+        out = moe_ffn(cfg, ONE_DEVICE, hn, p["router"], p["we_gate"],
+                      p["we_up"], p["we_down"])
         if cfg.n_shared_experts:
             out = out + L.swiglu(hn, p["ws_gate"], p["ws_up"], p["ws_down"])
     else:

@@ -23,35 +23,37 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.embedding import embed_lookup, lm_head
 from repro_torch.models.transformer import RunOptions, maybe_remat
-from repro_torch.parallel.sharding import ParamSpec as PS
+from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS
 
 
 def _attn_specs(cfg, Ldim, cross: bool = False):
+    La = (None,)
     d, hd = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
     pre = "x" if cross else "s"
     return {
-        f"{pre}_ln_w": PS(Ldim + (d,), "ones"),
-        f"{pre}_ln_b": PS(Ldim + (d,), "zeros"),
-        f"{pre}_wq": PS(Ldim + (d, qd), "scaled"),
-        f"{pre}_bq": PS(Ldim + (qd,), "zeros"),
-        f"{pre}_wk": PS(Ldim + (d, kvd), "scaled"),
-        f"{pre}_wv": PS(Ldim + (d, kvd), "scaled"),
-        f"{pre}_bv": PS(Ldim + (kvd,), "zeros"),
-        f"{pre}_wo": PS(Ldim + (qd, d), "scaled"),
-        f"{pre}_bo": PS(Ldim + (d,), "zeros"),
+        f"{pre}_ln_w": PS(Ldim + (d,), La + (None,), "ones"),
+        f"{pre}_ln_b": PS(Ldim + (d,), La + (None,), "zeros"),
+        f"{pre}_wq": PS(Ldim + (d, qd), La + ("fsdp", "heads"), "scaled"),
+        f"{pre}_bq": PS(Ldim + (qd,), La + ("heads",), "zeros"),
+        f"{pre}_wk": PS(Ldim + (d, kvd), La + ("fsdp", "kv_heads"), "scaled"),
+        f"{pre}_wv": PS(Ldim + (d, kvd), La + ("fsdp", "kv_heads"), "scaled"),
+        f"{pre}_bv": PS(Ldim + (kvd,), La + ("kv_heads",), "zeros"),
+        f"{pre}_wo": PS(Ldim + (qd, d), La + ("heads", "fsdp"), "scaled"),
+        f"{pre}_bo": PS(Ldim + (d,), La + (None,), "zeros"),
     }
 
 
 def _mlp_specs(cfg, Ldim):
     d, f = cfg.d_model, cfg.d_ff
+    La = (None,)
     return {
-        "m_ln_w": PS(Ldim + (d,), "ones"),
-        "m_ln_b": PS(Ldim + (d,), "zeros"),
-        "w_in": PS(Ldim + (d, f), "scaled"),
-        "b_in": PS(Ldim + (f,), "zeros"),
-        "w_out": PS(Ldim + (f, d), "scaled"),
-        "b_out": PS(Ldim + (d,), "zeros"),
+        "m_ln_w": PS(Ldim + (d,), La + (None,), "ones"),
+        "m_ln_b": PS(Ldim + (d,), La + (None,), "zeros"),
+        "w_in": PS(Ldim + (d, f), La + ("fsdp", "ff"), "scaled"),
+        "b_in": PS(Ldim + (f,), La + ("ff",), "zeros"),
+        "w_out": PS(Ldim + (f, d), La + ("ff", "fsdp"), "scaled"),
+        "b_out": PS(Ldim + (d,), La + (None,), "zeros"),
     }
 
 
@@ -59,15 +61,15 @@ def param_specs(cfg: ModelConfig):
     d = cfg.d_model
     Le, Ld = (cfg.encoder_layers,), (cfg.n_layers,)
     return {
-        "embed": PS((cfg.vocab_padded, d), "normal"),
+        "embed": PS((cfg.vocab_padded, d), ("vocab", None), "normal"),
         "enc_layers": {**_attn_specs(cfg, Le), **_mlp_specs(cfg, Le)},
         "dec_layers": {**_attn_specs(cfg, Ld),
                        **_attn_specs(cfg, Ld, cross=True),
                        **_mlp_specs(cfg, Ld)},
-        "enc_ln_w": PS((d,), "ones"),
-        "enc_ln_b": PS((d,), "zeros"),
-        "dec_ln_w": PS((d,), "ones"),
-        "dec_ln_b": PS((d,), "zeros"),
+        "enc_ln_w": PS((d,), (None,), "ones"),
+        "enc_ln_b": PS((d,), (None,), "zeros"),
+        "dec_ln_w": PS((d,), (None,), "ones"),
+        "dec_ln_b": PS((d,), (None,), "zeros"),
     }
 
 
@@ -156,7 +158,7 @@ def no_frames(cfg, B, device):
 
 def embed_tokens(cfg, params, tokens):
     """The token embeddings plus their sinusoidal positions (B, S, d)."""
-    return embed_lookup(params["embed"], tokens) + sinusoid(
+    return embed_lookup(ONE_DEVICE, params["embed"], tokens) + sinusoid(
         tokens.shape[1], cfg.d_model, tokens.device)[None]
 
 

@@ -20,7 +20,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models.embedding import embed_lookup, logits_of
-from repro_torch.parallel.sharding import ParamSpec as PS
+from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS
 
 
 def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -37,8 +37,8 @@ def n_scan_layers(cfg: ModelConfig) -> int:
 def param_specs(cfg: ModelConfig):
     n_scan = n_scan_layers(cfg)
     tree = {
-        "embed": PS((cfg.vocab_padded, cfg.d_model), "normal"),
-        "final_norm": PS((cfg.d_model,), "ones"),
+        "embed": PS((cfg.vocab_padded, cfg.d_model), ("vocab", None), "normal"),
+        "final_norm": PS((cfg.d_model,), (None,), "ones"),
         "layers": M.mamba_layer_specs(cfg, n_layers=n_scan),
         "shared": T.layer_param_specs(_shared_cfg(cfg), stacked=False),
     }
@@ -61,7 +61,7 @@ def forward(cfg: ModelConfig, params, tokens, opts=None):
     opts = opts or T.RunOptions()
     S = tokens.shape[1]
     k = cfg.shared_attn_every
-    h = embed_lookup(params["embed"], tokens)
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
     pos = torch.arange(S, device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     scan = L.layers(params["layers"])

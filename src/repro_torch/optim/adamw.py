@@ -48,7 +48,7 @@ def opt_state_specs(param_spec_tree):
         "master": tree_map(f32, param_spec_tree),
         "m": tree_map(lambda s: f32(s, "zeros"), param_spec_tree),
         "v": tree_map(lambda s: f32(s, "zeros"), param_spec_tree),
-        "step": ParamSpec((), "zeros", torch.int32),
+        "step": ParamSpec((), (), "zeros", torch.int32),
     }
 
 

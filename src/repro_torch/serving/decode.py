@@ -5,10 +5,19 @@ The cache holds, per attention layer (dense, MoE, VLM and the audio
 decoder) or per application of the shared block (hybrid), its K/V rows, per
 Mamba layer the conv tails (bf16) and the SSM state (f32), and per audio
 decoder layer the cross K/V over the encoder's frames, which decode only
-reads.  On one device every head is local (the reference's "heads" mode);
-the sequence-sharded RPC mode (``_flash_decode_shardmap``, the reference's
-choice where the kv heads do not split over the model axis) waits for the
-mesh slice.
+reads.
+
+The K/V cache is a remote data structure sharded over the ``model`` axis,
+in one of two modes (``kv_mode``), as in the reference:
+
+  * "heads" (one-sided): the kv heads split over ``model``; a rank's decode
+    attention reads only its own heads' rows.  Needs n_kv_heads and n_heads
+    divisible by the axis.  On one device every head is local.
+  * "seq" (RPC): the cache splits over SEQUENCE; the query goes to every
+    rank, each computes the partial flash-decode statistics (m, l, o) of
+    its block, and all-reduces (MAX, then SUM) combine them: a small request
+    out, small partials back, the owner does the walking
+    (``hybrid_decode_attention``).
 
 A decode step writes into the cache it is given, in place, as XLA does the
 reference's ``.at[].set``: the new token's K/V at offset ``len`` of each row,
@@ -21,6 +30,7 @@ from functools import partial
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -30,41 +40,64 @@ from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.embedding import embed, embed_lookup, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
+from repro_torch.parallel.sharding import ONE_DEVICE, Topology
 
 SSM_CACHE = ("conv_x", "conv_B", "conv_C", "ssm")
 
 
-def cache_specs(cfg: ModelConfig, B: int, S: int) -> Dict[str, Tuple]:
-    """{name: (shape, dtype)} of the cache for B rows of S positions."""
-    out: Dict[str, Tuple] = {"len": ((B,), torch.int32)}
+def kv_mode(cfg: ModelConfig, topo: Topology) -> str:
+    """"heads" where the kv heads and the query heads divide over the
+    ``model`` axis (or it is 1), else "seq"."""
+    tp = topo.axis_sizes.get("model", 1)
+    if tp == 1:
+        return "heads"
+    return "heads" if (cfg.n_kv_heads % tp == 0 and cfg.n_heads % tp == 0) \
+        else "seq"
+
+
+def _kv_axes(mode: str):
+    return ((None, "batch", None, "kv_heads", None) if mode == "heads"
+            else (None, "batch", "kv_seq", None, None))
+
+
+def cache_specs(cfg: ModelConfig, B: int, S: int,
+                topo: Topology = ONE_DEVICE) -> Dict[str, Tuple]:
+    """{name: (shape, logical axes, dtype)} of the cache for B rows of S
+    positions; the K/V axes follow ``kv_mode(cfg, topo)``."""
+    out: Dict[str, Tuple] = {"len": ((B,), ("batch",), torch.int32)}
+    kv_ax = _kv_axes(kv_mode(cfg, topo))
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         kv = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
-        out["k"] = (kv, torch.bfloat16)
-        out["v"] = (kv, torch.bfloat16)
+        out["k"] = (kv, kv_ax, torch.bfloat16)
+        out["v"] = (kv, kv_ax, torch.bfloat16)
         if cfg.family == "audio":
             x = (cfg.n_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
-            out["xk"] = (x, torch.bfloat16)
-            out["xv"] = (x, torch.bfloat16)
+            x_ax = (None, "batch", None, "kv_heads", None)
+            out["xk"] = (x, x_ax, torch.bfloat16)
+            out["xv"] = (x, x_ax, torch.bfloat16)
         return out
     nl, K = cfg.n_layers, cfg.conv_width
     GN = cfg.ssm_groups * cfg.ssm_state
-    out["conv_x"] = ((nl, B, K - 1, cfg.d_inner), torch.bfloat16)
-    out["conv_B"] = ((nl, B, K - 1, GN), torch.bfloat16)
-    out["conv_C"] = ((nl, B, K - 1, GN), torch.bfloat16)
+    out["conv_x"] = ((nl, B, K - 1, cfg.d_inner), (None, "batch", None, "ff"),
+                     torch.bfloat16)
+    out["conv_B"] = ((nl, B, K - 1, GN), (None, "batch", None, None),
+                     torch.bfloat16)
+    out["conv_C"] = ((nl, B, K - 1, GN), (None, "batch", None, None),
+                     torch.bfloat16)
     out["ssm"] = ((nl, B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
-                  torch.float32)
+                  (None, "batch", "heads", None, None), torch.float32)
     if cfg.family == "hybrid":
         kv = (cfg.n_layers // cfg.shared_attn_every, B, S, cfg.n_kv_heads,
               cfg.head_dim)
-        out["shared_k"] = (kv, torch.bfloat16)
-        out["shared_v"] = (kv, torch.bfloat16)
+        out["shared_k"] = (kv, kv_ax, torch.bfloat16)
+        out["shared_v"] = (kv, kv_ax, torch.bfloat16)
     return out
 
 
 def init_cache(cfg: ModelConfig, B: int, S: int, device="cuda"):
     dev = resolve_device(device)
     return {k: torch.zeros(shp, dtype=dt, device=dev)
-            for k, (shp, dt) in cache_specs(cfg, B, S).items()}
+            for k, (shp, _, dt) in cache_specs(cfg, B, S).items()}
 
 
 def append_kv(kc, vc, k_new, v_new, lens):
@@ -86,6 +119,52 @@ def decode_attention(cfg: ModelConfig, q, kc, vc, lens, *, window=None):
     on one device (the reference's "heads" mode)."""
     return L.decode_attention(q, kc, vc, lens, window=window,
                               attn_softcap=cfg.attn_softcap)
+
+
+def _flash_decode_shardmap(cfg: ModelConfig, topo: Topology, q, kc, vc, lens,
+                           window):
+    """The "seq" (RPC) path on a rank: q (B_loc, Hq, hd) is every rank's
+    query, kc/vc (B_loc, S_loc, Hkv, hd) the rank's sequence block (its
+    positions start at rank * S_loc along ``model``), lens (B_loc,).  The
+    block's partial (m, l, o) are combined over the ``model`` group by an
+    all-reduce MAX of m, then SUMs of l * corr and o * corr."""
+    B, S_loc, Hkv, hd = kc.shape
+    G = q.shape[1] // Hkv
+    pos = (topo.axis_index("model") * S_loc
+           + torch.arange(S_loc, device=q.device))
+    mask = pos[None] < lens[:, None]
+    if window is not None:
+        mask &= pos[None] > (lens[:, None] - 1) - window
+    qg = q.reshape(B, Hkv, G, hd).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, kc.float()) * hd ** -0.5
+    s = L.softcap(s, cfg.attn_softcap)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p.to(vc.dtype).float(), vc.float())
+    group = topo.group("model")
+    m_all = m.clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_all)
+    l_all = l * corr
+    o_all = o * corr[..., None]
+    dist.all_reduce(l_all, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(o_all, op=dist.ReduceOp.SUM, group=group)
+    out = o_all / l_all.clamp(min=1e-30)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def hybrid_decode_attention(cfg: ModelConfig, topo: Topology, q, kc, vc,
+                            lens, *, window=None, mode=None):
+    """Decode attention under the cache's sharding on a rank: "heads" runs
+    :func:`decode_attention` over the rank's heads (q (B, Hq/tp, hd),
+    kc/vc (B, S, Hkv/tp, hd)); "seq" runs :func:`_flash_decode_shardmap`
+    over the rank's sequence block.  ``mode`` defaults to ``kv_mode``."""
+    mode = mode or kv_mode(cfg, topo)
+    if mode == "heads":
+        return decode_attention(cfg, q, kc, vc, lens, window=window)
+    return _flash_decode_shardmap(cfg, topo, q, kc, vc, lens, window)
 
 
 def _tf_decode_layer(cfg, p, h, kc, vc, lens, *, local: bool):
@@ -131,7 +210,7 @@ def _tf_decode(cfg: ModelConfig, params, cache, tokens):
 
 
 def _ssm_decode(cfg: ModelConfig, params, cache, tokens):
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0]
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
     for i in range(cfg.n_layers):
         h = _ssm_decode_layer(cfg, L.layer(params["layers"], i), h, cache, i)
     return logits_of(cfg, params, h), dict(cache, len=cache["len"] + 1)
@@ -144,7 +223,7 @@ def _hybrid_decode(cfg: ModelConfig, params, cache, tokens):
     n_scan = n_scan_layers(cfg)
     lens = cache["len"]
     scfg = _shared_cfg(cfg)
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0]
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
     for i in range(n_scan):
         h = _ssm_decode_layer(cfg, L.layer(params["layers"], i), h, cache, i)
         if i % k == k - 1:
@@ -184,7 +263,8 @@ def _wh_decode(cfg: ModelConfig, params, cache, tokens):
     """The token's position is row ``len`` of the sinusoid table."""
     lens = cache["len"]
     pos = W.sinusoid(cache["k"].shape[2], cfg.d_model, tokens.device)
-    h = embed_lookup(params["embed"], tokens[:, None])[:, 0] + pos[lens.long()]
+    h = (embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
+         + pos[lens.long()])
     xlen = torch.full_like(lens, cache["xk"].shape[2])     # every frame
     for i in range(cfg.n_layers):
         h = _wh_decode_layer(cfg, L.layer(params["dec_layers"], i), h,

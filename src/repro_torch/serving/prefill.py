@@ -23,6 +23,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.embedding import embed, embed_lookup, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
+from repro_torch.parallel.sharding import ONE_DEVICE
 from repro_torch.serving.decode import SSM_CACHE
 
 
@@ -76,7 +77,7 @@ def _tf_prefill(cfg: ModelConfig, S, room, params, batch):
 
 def _ssm_prefill(cfg: ModelConfig, S, room, params, batch):
     tokens = batch["tokens"]
-    h = embed_lookup(params["embed"], tokens)
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
     states = {n: [] for n in SSM_CACHE}
     for i in range(cfg.n_layers):
         h = _ssm_prefill_layer(cfg, L.layer(params["layers"], i), h, states)
@@ -89,7 +90,7 @@ def _hybrid_prefill(cfg: ModelConfig, S, room, params, batch):
     tokens = batch["tokens"]
     k = cfg.shared_attn_every
     n_scan = n_scan_layers(cfg)
-    h = embed_lookup(params["embed"], tokens)
+    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
     cos, sin = _rope(cfg, S, tokens.device)
     scfg = _shared_cfg(cfg)
     states = {n: [] for n in SSM_CACHE}

@@ -43,15 +43,18 @@ def value_for(key_lo):
 def populate(cfg, layout, t, state, n_keys_per_node, seed=0, device="cuda"):
     """Insert n keys per node (RPC inserts from every node to the keys'
     homes, POPULATE_BATCH per node per round); returns (state, (klo, khi))
-    with (N, n) int32 key words."""
+    with (N, n) int32 key words.  Every rank of a MeshTransport draws the
+    same keys and inserts its own node's row."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
     N = cfg.n_nodes
     klo = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
     khi = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
     h = ht.make_rpc_handler(cfg, layout)
+    mine_lo, mine_hi = t.local(klo), t.local(khi)
     for i in range(0, n_keys_per_node, POPULATE_BATCH):
-        kl, kh = klo[:, i:i + POPULATE_BATCH], khi[:, i:i + POPULATE_BATCH]
+        kl = mine_lo[:, i:i + POPULATE_BATCH]
+        kh = mine_hi[:, i:i + POPULATE_BATCH]
         node, _, _ = ht.lookup_start(cfg, layout, kl, kh)
         state, _, _, _ = R.rpc_call(
             t, state, node,

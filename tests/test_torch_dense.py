@@ -182,7 +182,7 @@ def test_leaf_above_the_threshold_draws_in_slices(monkeypatch, init):
     and dtype, and its statistics (a normal of std 0.02, or a normal
     truncated at 2 sigma over sqrt(12), the whole leaf's fan-in)."""
     monkeypatch.setattr(sharding, "SLICE_ELEMS", 3 * 64 * 96 - 1)
-    spec = ParamSpec((12, 64, 96), init)
+    spec = ParamSpec((12, 64, 96), (None, None, None), init)
     x = spec.initialize(torch.Generator().manual_seed(2))
     assert x.shape == (12, 64, 96) and x.dtype == torch.bfloat16
     x = x.float()

@@ -33,7 +33,8 @@ from repro_torch.convert import (params_from_numpy, params_to_numpy,  # noqa: E4
 from repro_torch.models import api, moe, zamba  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
-from repro_torch.parallel.sharding import ParamSpec, init_params  # noqa: E402
+from repro_torch.parallel.sharding import (ONE_DEVICE, ParamSpec,  # noqa: E402
+                                           init_params)
 
 ARCH = "zamba2-1.2b"
 CPU = "cpu"
@@ -84,12 +85,11 @@ UNPORTED = [("granite-moe-1b-a400m", "moe"), ("deepseek-moe-16b", "moe"),
 def test_registry_and_api_refuse_what_is_not_ported(name, family, topo):
     """What is still unported is refused, naming ROADMAP.md.  The MoE, audio
     and VLM archs are registered and served (test_torch_moe.py,
-    test_torch_audio_vlm.py); of the MoE archs the dispatch modes that
-    shard the experts over a model axis larger than 1 are refused.  The
-    audio and VLM archs have nothing refused on one device: their parameter
-    trees and caches are the reference's and their decode step is made (the
-    sequence-sharded decode attention of a larger model axis has no entry
-    point before the mesh slice, ROADMAP.md item 12)."""
+    test_torch_audio_vlm.py) and have nothing refused: on one device every
+    MoE dispatch mode is the local path, as in the reference (the sharded
+    modes and the sequence-sharded decode attention run on a mesh of
+    ranks, tests/test_torch_mesh.py); their parameter trees and caches are
+    the reference's and their decode step is made."""
     from repro.serving import decode as jD
     from repro_torch.serving import decode as D
     assert JARCHS[name].family == family == get(name).family
@@ -100,15 +100,16 @@ def test_registry_and_api_refuse_what_is_not_ported(name, family, topo):
         w = [torch.zeros(s) for s in ((d, E), (E, d, f), (E, d, f),
                                       (E, f, d))]
         x = torch.ones((1, 4, d))
+        local = moe.moe_ffn(cfg, ONE_DEVICE, x, *w, mode="local")
         for mode in ("rpc", "onesided", "replicated"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                moe.moe_ffn(cfg, x, *w, mode=mode, tp=2)
+            assert torch.equal(moe.moe_ffn(cfg, ONE_DEVICE, x, *w, mode=mode),
+                               local)
         return
     cfg = get(name)
     assert set(api.param_specs(cfg)) == set(japi.param_specs(JARCHS[name]))
     small = cfg.smoke()
     ours = {k: (tuple(shp), str(dt).removeprefix("torch."))
-            for k, (shp, dt) in D.cache_specs(small, 2, 8).items()}
+            for k, (shp, _, dt) in D.cache_specs(small, 2, 8).items()}
     ref = {k: (tuple(shp), jnp.dtype(dt).name)
            for k, (shp, _, dt) in jD.cache_specs(JARCHS[name].smoke(), topo,
                                                  2, 8).items()}
@@ -162,7 +163,7 @@ def test_init_params_is_seeded_and_shaped():
     # reference's fan_in, which for stacked layers is the layer count)
     w = a["shared"]["wq"].float()
     assert float(w.abs().max()) <= 2 / np.sqrt(cfg.d_model) * 1.01
-    x = ParamSpec((4096,), "normal", scale=0.02).initialize(
+    x = ParamSpec((4096,), (None,), "normal", scale=0.02).initialize(
         torch.Generator().manual_seed(3)).float()
     assert abs(float(x.std()) - 0.02) < 2e-3
 

@@ -33,6 +33,9 @@ from repro_torch.convert import (params_from_numpy, params_to_numpy,  # noqa: E4
 from repro_torch.core import cost_model, nic  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api, moe  # noqa: E402
+from repro_torch.parallel.sharding import (ONE_DEVICE,  # noqa: E402
+                                           AbstractMesh)
+from repro_torch.parallel.sharding import Topology as PTopology  # noqa: E402
 from repro_torch.serving import decode as D  # noqa: E402
 
 MOE = ["granite-moe-1b-a400m", "deepseek-moe-16b"]
@@ -147,7 +150,7 @@ def _assert_routing_equal(ours, theirs):
 
 
 def _ffn_both(cfg, cfg_j, topo, x3, ws):
-    got = moe.moe_ffn(cfg, _t(x3), *map(_t, ws))
+    got = moe.moe_ffn(cfg, ONE_DEVICE, _t(x3), *map(_t, ws))
     want = jmoe.moe_ffn(cfg_j, topo, jnp.asarray(x3),
                         *map(jnp.asarray, ws))
     return got, np.asarray(want.astype(jnp.float32))
@@ -286,26 +289,27 @@ class _AxisSizes:
 def test_dispatch_mode_matches_reference(arch):
     cfg, cfg_j = get(arch), JARCHS[arch]
     for tokens in (8, 512, 4096, 32768):
-        assert moe.moe_dispatch_mode(cfg, 1, tokens) == "local"
+        assert moe.moe_dispatch_mode(cfg, ONE_DEVICE, tokens) == "local"
         for tp in (2, 3, 4, 8, 16):
-            assert moe.moe_dispatch_mode(cfg, tp, tokens) == \
+            topo = PTopology(AbstractMesh(("data", "model"), (1, tp)))
+            assert moe.moe_dispatch_mode(cfg, topo, tokens) == \
                 jmoe.moe_dispatch_mode(cfg_j, _AxisSizes(tp), tokens), (tp,
                                                                        tokens)
 
 
 @pytest.mark.parametrize("mode", ["rpc", "onesided", "replicated"])
 def test_sharded_modes_wait_for_the_mesh(mode):
-    """At tp > 1 the sharded modes raise naming ROADMAP.md; at tp 1 they are
-    the local path, as in the reference."""
+    """At tp 1 the sharded modes are the local path, as in the reference
+    (over a larger model axis they run on a mesh of ranks:
+    tests/test_torch_mesh.py)."""
     cfg, _ = _layer_cfg("granite-moe-1b-a400m")
     x, *ws = _inputs(cfg, 8, seed=6)
     x3 = _t(x.reshape(2, 4, -1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_ffn(cfg, x3, *map(_t, ws), mode=mode, tp=2)
-    local = moe.moe_ffn(cfg, x3, *map(_t, ws), mode="local")
-    assert torch.equal(moe.moe_ffn(cfg, x3, *map(_t, ws), mode=mode), local)
+    local = moe.moe_ffn(cfg, ONE_DEVICE, x3, *map(_t, ws), mode="local")
+    assert torch.equal(moe.moe_ffn(cfg, ONE_DEVICE, x3, *map(_t, ws),
+                                   mode=mode), local)
     with pytest.raises(ValueError):
-        moe.moe_ffn(cfg, x3, *map(_t, ws), mode="nearest")
+        moe.moe_ffn(cfg, ONE_DEVICE, x3, *map(_t, ws), mode="nearest")
 
 
 def _fields(c):

@@ -28,6 +28,7 @@ from repro.serving.decode import make_prefill as jprefill  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.parallel.sharding import ONE_DEVICE  # noqa: E402
 from repro_torch.models import zamba  # noqa: E402
 from repro_torch.serving import decode as D  # noqa: E402
 
@@ -106,8 +107,9 @@ def test_cache_specs_match_reference():
     ours = D.cache_specs(cfg, 3, 40)
     theirs = jspecs(cfg_j, Topology(make_smoke_mesh()), 3, 40)
     assert ours.keys() == theirs.keys()
-    for k, (shp, dt) in ours.items():
+    for k, (shp, ax, dt) in ours.items():
         assert shp == tuple(theirs[k][0])
+        assert ax == tuple(theirs[k][1])
         assert str(dt).split(".")[-1] == np.dtype(theirs[k][2]).name
     assert ours["shared_k"][0][0] == cfg.n_layers // cfg.shared_attn_every
 
@@ -166,12 +168,12 @@ def test_other_families_are_refused(family):
     """What stays unported of the other families is refused, naming
     ROADMAP.md (the dense, MoE, SSM, audio and VLM families are served: see
     test_torch_dense.py, test_torch_moe.py, test_torch_ssm.py and
-    test_torch_audio_vlm.py).  Of MoE, the sharded dispatch: its cache is
-    the dense one, and the decode step's expert layer refuses a model axis
-    larger than 1.  VLM and audio have nothing refused on one device: the
-    VLM cache is the dense one, the audio cache adds the cross K/V over the
-    frames, and the decode step is made (the sequence-sharded decode
-    attention of a larger model axis waits for ROADMAP.md item 12)."""
+    test_torch_audio_vlm.py), and nothing of them is refused: the MoE
+    cache is the dense one and on one device every dispatch mode of its
+    expert layer is the local path (the sharded modes run on a mesh of
+    ranks, tests/test_torch_mesh.py); the VLM cache is the dense one, the
+    audio cache adds the cross K/V over the frames, and the decode step is
+    made."""
     import dataclasses
     if family == "moe":
         from repro_torch.models import moe
@@ -182,8 +184,9 @@ def test_other_families_are_refused(family):
         d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
         w = [torch.zeros(s) for s in ((d, E), (E, d, f), (E, d, f),
                                       (E, f, d))]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            moe.moe_ffn(cfg, torch.ones((2, 1, d)), *w, mode="rpc", tp=4)
+        x = torch.ones((2, 1, d))
+        assert torch.equal(moe.moe_ffn(cfg, ONE_DEVICE, x, *w, mode="rpc"),
+                           moe.moe_ffn(cfg, ONE_DEVICE, x, *w, mode="local"))
         return
     arch = {"vlm": "llava-next-mistral-7b", "audio": "whisper-medium"}[family]
     cfg = get(arch).smoke()

@@ -76,8 +76,9 @@ def test_cache_specs_match_reference():
         ours = D.cache_specs(cfg, 3, 40)
         theirs = jspecs(cfg_j, Topology(make_smoke_mesh()), 3, 40)
         assert ours.keys() == theirs.keys()
-        for k, (shp, dt) in ours.items():
+        for k, (shp, ax, dt) in ours.items():
             assert shp == tuple(theirs[k][0])
+            assert ax == tuple(theirs[k][1])
             assert str(dt).split(".")[-1] == np.dtype(theirs[k][2]).name
 
 

@@ -60,6 +60,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.parallel.sharding import ONE_DEVICE  # noqa: E402
 from repro_torch.models import mamba2 as M  # noqa: E402
 from repro_torch.models.transformer import RunOptions  # noqa: E402
 from repro_torch.optim import adamw as A  # noqa: E402
@@ -339,7 +340,7 @@ def test_moe_capacity_drops_carry_no_gradient(arch, topo):
         return jnp.sum(jmoe.moe_ffn(cfg_j, topo, *a) * w)
     want = jax.grad(jf, argnums=tuple(range(5)))(*map(jnp.asarray, ins))
     leaves = [torch.from_numpy(a).requires_grad_() for a in ins]
-    got = torch.autograd.grad((moe.moe_ffn(cfg, *leaves)
+    got = torch.autograd.grad((moe.moe_ffn(cfg, ONE_DEVICE, *leaves)
                                * torch.from_numpy(w)).sum(), leaves)
     for a, b in zip(got, want):
         assert rel_err(a.numpy(), np.asarray(b)) <= 1e-5

@@ -225,7 +225,7 @@ def assert_bf16_serving_matches_forward(arch):
         got, want = logits.numpy(), ref[:, i].numpy()
         np.testing.assert_allclose(got, want, atol=0.12, rtol=0.05)
         assert_greedy(got, want)
-    for name, (shape, dt) in D.cache_specs(cfg, B, PROMPT + DECODE).items():
+    for name, (shape, _, dt) in D.cache_specs(cfg, B, PROMPT + DECODE).items():
         assert cache[name].dtype == dt and tuple(cache[name].shape) == shape
 
 
