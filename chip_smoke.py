@@ -104,7 +104,21 @@ Phases (any failure exits non-zero):
      meanwhile (arenas, commits, reads, abort causes, lookups; the
      additive WireStats summed over the ranks, round trips per rank with
      the simulator's as their largest), ``hash_probe`` launched once per
-     read round per rank; one exchange timed; the sharded branches at full
+     read round per rank; then the protocol's retry loops on the same
+     ranks, each equal bit for bit to ``SimTransport(4)`` run here
+     meanwhile (lanes, arenas, rounds, the additive WireStats summed over
+     the ranks, round trips between the ranks' largest and their sum):
+     ``tx_loop`` (4 rounds, the flight recorder on, every exchange's round
+     trips the ranks' largest, row by row) over the populated TATP state;
+     a replicated state (f=1, 4 x 2**12 subscribers populated through the
+     replicated commit path) through ``tx_loop`` with a placement table
+     that goes stale once (partition 0 handed to its backup, every rank
+     aborting stale in round 0 and refreshing once); ``failover_lookup``
+     of every replicated key with node 1 dead; the B-link tree at 4 x
+     2**12 keys built on the ranks and its scan mix through ``scan_loop``
+     at f=0 and f=1; ``hash_probe`` launched once per read round per rank,
+     wall seconds per rank printed; one exchange timed; the sharded
+     branches at full
      width on a (1, 4) mesh: deepseek-moe-16b's MoE layer (float32, 512
      tokens) in "rpc" and "replicated" against "local", and "onesided" at
      capacity factor 16 against "local" at 16, routing equal and outputs
@@ -1155,7 +1169,10 @@ def traced_tatp(dev, tatp, rep_run):
 @contextlib.contextmanager
 def counted_refreshes():
     """The WireStats of every placement-table refresh issued inside the
-    block (txloop refreshes through ``placement.refresh_table``)."""
+    block (txloop refreshes through ``placement.refresh_table``, entering
+    the read in every retry round gated by its stale aborts: a gated-off
+    read sends nothing and is dropped from the list when the block
+    ends)."""
     from repro_torch.core import placement as pl
     calls, orig = [], pl.refresh_table
 
@@ -1168,6 +1185,7 @@ def counted_refreshes():
         yield calls
     finally:
         pl.refresh_table = orig
+        calls[:] = [c for c in calls if float(c.ops) > 0]
 
 
 def node_records(cfg, layout, arena, node, part=None):
@@ -1653,6 +1671,16 @@ MESH_DECODE_BATCH, MESH_DECODE_SEQ = 4, 4096
 MESH_ONESIDED_CAPACITY = 16.0  # no assignment drops at this factor
 WIRE_ADDITIVE = ("messages", "ops", "req_bytes", "reply_bytes",
                  "nic_hit_ops", "nic_penalty_us")
+# the retry loops on the mesh: the replicated (f=1) state and the B-link
+# tree are cut from TATP_SUBSCRIBERS_PER_NODE (2**13) and
+# ORDERED_KEYS_PER_NODE to 2**12 a node for the mesh phase's time (both
+# populations are host-bound serial folds); node MESH_DEAD is the one
+# failover_lookup reads around
+MESH_REP_SUBSCRIBERS, MESH_TREE_KEYS, MESH_DEAD = 2**12, 2**12, 1
+LOOP_LANE_FIELDS = ("committed", "commit_round")
+LOOP_ROUND_FIELDS = ("round_committed", "round_attempts", "round_retries",
+                     "round_abort_lock", "round_abort_validate",
+                     "round_abort_overflow", "round_abort_stale")
 
 
 def _wire_of(w):
@@ -1665,7 +1693,8 @@ def mesh_tatp(t, dev, subs):
     whole cluster on SimTransport): population by rpc_call, one
     run_transactions batch (fused, f=0), then hybrid_lookup of every
     populated key of the local nodes.  Returns the local rows' results on
-    the CPU, the hash_probe launches of each read phase and wall times."""
+    the CPU, the hash_probe launches of each read phase and wall times, and
+    (cfg, layout, state, klo, khi) for mesh_loops."""
     import numpy as np
     import torch
     from repro_torch.core import hybrid as hy
@@ -1715,7 +1744,133 @@ def mesh_tatp(t, dev, subs):
         slot=cpu(slot), overflow=cpu(ovf), lookup_wire=_wire_of(m.wire),
         tx_launches=tx_launches, lookup_launches=hp.launches - tx_launches,
         population_s=t1 - t0, tx_s=t3 - t2, lookup_s=t4 - t3,
-        read_lanes=int(rk[..., 0].numel()))
+        read_lanes=int(rk[..., 0].numel())), (cfg, layout, state, klo, khi)
+
+
+def _loop_out(state, res, tel=None):
+    """A retry loop's results on the CPU: the arena, the per-lane and
+    per-round fields, the reads, round_trips, every WireStats field, and
+    the trace rows where traced."""
+    reads = (("read_found", "read_values") if hasattr(res, "read_found")
+             else ("truncated", "scan_keys", "scan_values", "scan_mask"))
+    out = {k: getattr(res, k).cpu() for k in
+           LOOP_LANE_FIELDS + LOOP_ROUND_FIELDS + reads}
+    out.update(arena=state["arena"].cpu(), wire=_wire_of(res.metrics.wire),
+               round_trips=float(res.round_trips))
+    if tel is not None:
+        out["trace"] = tel.trace.rows[:tel.trace.n].cpu()
+    return out
+
+
+def mesh_loops(t, dev, tatp):
+    """The protocol's retry loops on transport ``t`` (a rank's node of a
+    MeshTransport, or SimTransport(4)), default draws, every loop with the
+    recorder on: tx_loop over the TATP state ``tatp`` (mesh_tatp's), a
+    replicated state through tx_loop with a placement table that goes
+    stale once, failover_lookup with MESH_DEAD dead, and the B-link tree's
+    scan mix through scan_loop at f=0 and f=1.  On SimTransport the
+    failover also runs once per node with only that node's lanes enabled:
+    the WireStats a rank of the mesh must bill.  Returns the local results
+    on the CPU, hash_probe's launches and the wall seconds of each step."""
+    import numpy as np
+    import torch
+    from repro_torch.core import placement as pl
+    from repro_torch.core import replication as repl
+    from repro_torch.core import telemetry as T
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.datastructs import hashtable as ht
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.testing import workloads as wl
+
+    out, walls = {}, {}
+
+    def timed(name, fn):
+        hp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        out[name + "_launches"] = hp.launches
+        return r
+
+    # 1. tx_loop, the recorder on, over the populated TATP state
+    cfg, layout, state, klo, khi = tatp
+    batch = wl.tatp_transactions(
+        klo, khi, n_nodes=MESH_NODES, lanes=MESH_LANES,
+        subscribers_per_node=klo.shape[1], rng=np.random.RandomState(5),
+        device=dev)
+    rk, wk, ren, wen, wv = (t.local(x) for x in batch)
+    state, _, res, tel = timed("tx_loop", lambda: txl.tx_loop(
+        t, state, cfg, layout, read_keys=rk, write_keys=wk, write_values=wv,
+        read_enabled=ren, write_enabled=wen, max_rounds=TATP_MAX_ROUNDS,
+        telemetry=T.TelemetryConfig(), device=dev))
+    out["tx_loop"] = _loop_out(state, res, tel)
+    del state, tatp
+
+    # 2. the replicated state, then a table that goes stale once
+    rcfg = ht.HashTableConfig(n_nodes=MESH_NODES, n_buckets=TATP_BUCKETS,
+                              bucket_width=1, n_overflow=TATP_OVERFLOW,
+                              max_chain=12)
+    rlay = ht.build_layout(rcfg)
+    rep = repl.ReplicaConfig(MESH_NODES, 1)
+    pcfg = pl.PlacementConfig(MESH_NODES, f=1)
+    old = pl.initial_table(pcfg, device=dev)
+    rst = {k: t.local(v).clone()
+           for k, v in ht.init_cluster_state(rcfg, device=dev).items()}
+    rst, (rlo, rhi) = timed("populate_f1", lambda: wl.populate_replicated(
+        rcfg, rlay, t, rst, MESH_REP_SUBSCRIBERS, rep, lanes=MESH_LANES,
+        seed=3, ptable=old, pcfg=pcfg, device=dev))
+    rst, _ = pl.install_table(t, rst, rlay, pcfg, wl.handoff_table(old, 0),
+                              ht.make_rpc_handler(rcfg, rlay), issuer=0)
+    batch = wl.tatp_transactions(
+        rlo, rhi, n_nodes=MESH_NODES, lanes=MESH_LANES,
+        subscribers_per_node=MESH_REP_SUBSCRIBERS,
+        rng=np.random.RandomState(6), device=dev)
+    rk, wk, ren, wen, wv = (t.local(x) for x in batch)
+    rst, _, res, tel = timed("stale_tx_loop", lambda: txl.tx_loop(
+        t, rst, rcfg, rlay, read_keys=rk, write_keys=wk, write_values=wv,
+        read_enabled=ren, write_enabled=wen, max_rounds=TATP_MAX_ROUNDS,
+        rep=rep, ptable=old, pcfg=pcfg, telemetry=T.TelemetryConfig(),
+        device=dev))
+    out["stale_tx_loop"] = _loop_out(rst, res, tel)
+    out["stale_hits"] = (wen[..., 0] & (ht.part_of(
+        rcfg, wk[..., 0, 0], wk[..., 0, 1]) == 0)).cpu()
+
+    # 3. every replicated key read with node MESH_DEAD dead
+    qlo, qhi = t.local(rlo), t.local(rhi)
+    en = (t.node_ids(dev) != MESH_DEAD)[:, None].expand(qlo.shape)
+    alive = repl.kill_node(repl.all_alive(MESH_NODES, device=dev), MESH_DEAD)
+    fo = timed("failover", lambda: repl.failover_lookup(
+        t, rst, qlo, qhi, rcfg, rlay, rep, alive, enabled=en))
+    out["failover"] = {k: (_wire_of(v) if k == "wire" else v.cpu())
+                       for k, v in fo.items()}
+    out["failover"]["enabled"] = en.cpu()
+    if t.holds_all_arenas:
+        out["failover_by_node"] = [_wire_of(repl.failover_lookup(
+            t, rst, qlo, qhi, rcfg, rlay, rep, alive,
+            enabled=en & (t.node_ids(dev) == n)[:, None])["wire"])
+            for n in range(MESH_NODES)]
+    del rst
+
+    # 4. the B-link tree built on the transport, its scan mix at f=0, f=1
+    tree = timed("build_tree", lambda: wl.build_tree(
+        MESH_NODES, n_keys=MESH_TREE_KEYS, seed=3, batch=ORDERED_BATCH, t=t,
+        device=dev))
+    bcfg, blay, _, bst, allk, _ = tree
+    lo, hi, swk, swen = (t.local(x) for x in wl.scan_workload(
+        allk, MESH_NODES, MESH_LANES, scan_frac=ORDERED_SCAN_FRAC, seed=7,
+        device=dev))
+    for f in (0, 1):
+        st = {"arena": bst["arena"].clone()}
+        st, _, res, tel = timed(f"scan_loop_f{f}", lambda: txl.scan_loop(
+            t, st, bcfg, blay, scan_lo=lo, scan_hi=hi, write_keys=swk,
+            write_values=wl.value_for(swk), write_enabled=swen,
+            max_rounds=ORDERED_MAX_ROUNDS, rep=repl.ReplicaConfig(
+                MESH_NODES, f), telemetry=T.TelemetryConfig(), device=dev))
+        out[f"scan_loop_f{f}"] = _loop_out(st, res, tel)
+    out["loop_walls"] = walls
+    return out
 
 
 def mesh_world_of_one(rank, world):
@@ -1911,7 +2066,9 @@ def mesh_rank(rank, world, subs):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import Topology
     t = MeshTransport(world)
-    out = mesh_tatp(t, "cuda", subs)
+    out, tatp = mesh_tatp(t, "cuda", subs)
+    out.update(mesh_loops(t, "cuda", tatp))
+    del tatp
     # one exchange of the fused round's largest send buffer at this shape
     # (2 read lanes a transaction, the 29-word lookup reply)
     x = torch.zeros((1, world, 2 * MESH_LANES, 29), dtype=torch.int32,
@@ -1923,13 +2080,109 @@ def mesh_rank(rank, world, subs):
     return out
 
 
+def mesh_loop_checks(ranks, sim):
+    """The retry loops of the four ranks (mesh_loops) against
+    SimTransport(4)'s: lanes, arenas and reads concatenated, per-round
+    counts and the additive WireStats summed over the ranks; every loop's
+    trace row by row (every exchange's round trips the ranks' largest, the
+    other columns summed) and its round trips the sum of those largest;
+    hash_probe once per read round per rank; the stale table refreshed once
+    on every rank; failover's reads against the simulator's and each rank's
+    WireStats, round trips included, against the simulator's run of that
+    node's lanes alone; failover reads found on a live copy."""
+    import torch
+    cat = lambda name, k: torch.cat([r[name][k] for r in ranks])
+    # every rank writes the handed-off partition, so every rank refreshes in
+    # round 1 as the simulator's clients do (a rank with no stale abort
+    # would keep its table, as the reference's shard does)
+    for r in ranks:
+        check(r["tx_loop_launches"] >= TATP_MAX_ROUNDS
+              and r["stale_tx_loop_launches"] >= TATP_MAX_ROUNDS
+              and r["failover_launches"] >= 1,
+              "mesh loops: a read round launched no hash_probe")
+        st = r["stale_tx_loop"]["round_abort_stale"]
+        check(int(st[0]) > 0 and int(st[1:].sum()) == 0,
+              f"mesh loops: stale aborts by round {st.tolist()}")
+        hits = r["stale_hits"]
+        cr = r["stale_tx_loop"]["commit_round"]
+        check(bool((cr[hits] != 0).all()) and bool((cr[hits] >= 1).any()),
+              "mesh loops: a stale-routed lane committed before the refresh, "
+              "or none after it")
+    fixed = [0, 1, 2]                       # round, phase, class count
+    rt = 3                                  # telemetry.EV_RT
+    for name in ("tx_loop", "stale_tx_loop", "scan_loop_f0", "scan_loop_f1"):
+        s = sim[name]
+        for k in s:
+            if k in ("wire", "round_trips", "trace"):
+                continue
+            got = (torch.stack([r[name][k] for r in ranks]).sum(0).to(
+                s[k].dtype) if k in LOOP_ROUND_FIELDS else cat(name, k))
+            check(torch.equal(got, s[k]),
+                  f"mesh loops: {name} {k} differs from SimTransport(4)")
+        for f in WIRE_ADDITIVE:
+            check(sum(r[name]["wire"][f] for r in ranks) == s["wire"][f],
+                  f"mesh loops: {name} {f} does not sum to the simulator's")
+        rows = torch.stack([r[name]["trace"] for r in ranks])
+        want = s["trace"]
+        add = [c for c in range(want.shape[1]) if c not in fixed + [rt]]
+        check(rows.shape[1:] == want.shape
+              and torch.equal(rows[:, :, fixed], want[None, :, fixed].expand(
+                  rows.shape[0], -1, -1))
+              and torch.equal(rows[:, :, rt].max(0).values, want[:, rt])
+              and torch.equal(rows[:, :, add].sum(0), want[:, add]),
+              f"mesh loops: {name}'s trace rows do not add up to the "
+              "simulator's")
+        check(float(want[:, rt].sum()) == s["round_trips"]
+              and all(float(r[name]["trace"][:, rt].sum())
+                      == r[name]["round_trips"] for r in ranks),
+              f"mesh loops: {name}'s round trips are not its exchanges'")
+    fo = sim["failover"]
+    for k in ("found", "value", "version", "node", "slot_idx", "overflow",
+              "dead_route"):
+        check(torch.equal(cat("failover", k), fo[k]),
+              f"mesh loops: failover {k} differs from SimTransport(4)")
+    for f in WIRE_ADDITIVE:
+        check(sum(r["failover"]["wire"][f] for r in ranks)
+              == fo["wire"][f],
+              f"mesh loops: failover {f} does not sum to the simulator's")
+    for r, own in zip(ranks, sim["failover_by_node"]):
+        got = r["failover"]["wire"]
+        check(got == own, f"mesh loops: failover's WireStats on a rank "
+              f"{got} are not its node's on the simulator {own}")
+    en = cat("failover", "enabled")
+    check(bool((cat("failover", "found") | ~en).all())
+          and not bool((cat("failover", "node")[en] == MESH_DEAD).any()),
+          "mesh loops: a replicated key was not found on a live copy")
+    committed = {n: int(sim[n]["committed"].sum()) for n in (
+        "tx_loop", "stale_tx_loop", "scan_loop_f0", "scan_loop_f1")}
+    print("mesh loops: tx_loop, the stale-table tx_loop at f=1, "
+          f"failover_lookup with node {MESH_DEAD} dead and scan_loop at f=0 "
+          "and f=1 on four ranks equal to SimTransport(4) bit for bit, the "
+          "loops' traces exchange by exchange, failover's WireStats rank by "
+          "rank; "
+          f"committed {committed} of {MESH_NODES * MESH_LANES} [{card()}]",
+          flush=True)
+    print("mesh loops: " + json.dumps({
+        "rank_walls_s": [r["loop_walls"] for r in ranks],
+        "sim_walls_s": sim["loop_walls"],
+        "round_trips_by_rank": {n: [r[n]["round_trips"] for r in ranks]
+                                for n in committed},
+        "sim_round_trips": {n: sim[n]["round_trips"] for n in committed},
+        "hash_probe_launches_by_rank": {
+            n: [r[n + "_launches"] for r in ranks]
+            for n in ("tx_loop", "stale_tx_loop", "failover")}}),
+        flush=True)
+
+
 def mesh_dataplane(dev):
     """Four ranks on the card over gloo and, started here while they run,
     world size 1 over NCCL against SimTransport(1), bit for bit, then
     SimTransport(4)'s run: the ranks' TATP against it bit for bit (arenas, commits, reads, abort causes, lookups; the additive
     WireStats summed over the ranks, round_trips per rank with the
     simulator's as their largest), hash_probe launched once per read round
-    per rank, and the sharded branches against their one-rank versions."""
+    per rank, the retry loops of mesh_loops against the simulator's
+    (mesh_loop_checks), and the sharded branches against their one-rank
+    versions."""
     import torch
     from repro_torch.core import slots as sl
     from repro_torch.core.transport import SimTransport
@@ -1944,7 +2197,10 @@ def mesh_dataplane(dev):
         ones.append(run_ranks(mesh_world_of_one, 1, device=dev,
                               deadline_s=MESH_DEADLINE_S)[0])
         ones.append(time.perf_counter() - t0)
-        sims.append(mesh_tatp(SimTransport(MESH_NODES), dev, subs))
+        t = SimTransport(MESH_NODES)
+        sim, tatp = mesh_tatp(t, dev, subs)
+        sim.update(mesh_loops(t, dev, tatp))
+        sims.append(sim)
     t0 = time.perf_counter()
     ranks = run_ranks(mesh_rank, MESH_NODES, device=dev, backend="gloo",
                       args=(subs,), deadline_s=MESH_DEADLINE_S,
@@ -1989,6 +2245,7 @@ def mesh_dataplane(dev):
           "arenas, commits, reads, abort causes and lookups equal to "
           f"SimTransport({MESH_NODES}) bit for bit; {committed} of "
           f"{MESH_NODES * MESH_LANES} committed [{card()}]", flush=True)
+    mesh_loop_checks(ranks, sim)
     print("mesh: " + json.dumps({
         "world_s": world_s,
         "rank_population_s": [r["population_s"] for r in ranks],

@@ -222,7 +222,9 @@ def local_meta(cfg: BTreeConfig, layout: rg.RegionTable, state,
                n_clients=None):
     """Snapshot every node's separator directory WITHOUT wire traffic (setup
     and test helper): {"sep": (C, n_nodes, n_leaves), "nleaf": (C, n_nodes)}
-    words, replicated per client."""
+    words, replicated per client.  It reads every node's arena, so it is a
+    SimTransport helper: on a MeshTransport a rank's directory cache comes
+    from ``refresh_meta``."""
     n_clients = cfg.n_nodes if n_clients is None else n_clients
     s = layout["sep"].base
     sep = state["arena"][:, s:s + cfg.n_leaves]

@@ -207,8 +207,9 @@ def probe_end(cfg: HashTableConfig, layout: rg.RegionTable, buf, key_lo,
     if hit is None:
         hit = torch.zeros(shp, dtype=torch.bool, device=buf.device)
     found, version, value, local_idx = hp.probe_lines(
-        buf.reshape(M, -1).to(torch.int32), lane, torch.zeros_like(lane),
-        flat(key_lo), flat(key_hi), live, flat(hit), width=cfg.bucket_width)
+        buf.reshape(M, buf.shape[-1]).to(torch.int32), lane,
+        torch.zeros_like(lane), flat(key_lo), flat(key_hi), live, flat(hit),
+        width=cfg.bucket_width)
     return _probe_result(
         cfg, layout, found.reshape(shp), value.reshape(shp + (sl.VALUE_WORDS,)),
         version.reshape(shp), local_idx.reshape(shp), key_lo, key_hi, off, hit)

@@ -30,7 +30,10 @@ that is dead but for one row.  The port runs each sweep as slices of at most ``S
 in lane order, and bills the ONE round the unsplit call would: the owner's
 fold sees the same records in the same order, the issuer gets the same
 replies, and the WireStats count every lane once and the one (source,
-destination) pair once.
+destination) pair once.  The sweeps need the whole cluster in one process,
+as the JAX package's do: on a MeshTransport ``rereplicate`` and
+``migrate_partition`` raise ValueError.  Everything else here (refresh,
+install, failover reads, the routing queries) runs on either transport.
 """
 from __future__ import annotations
 
@@ -222,8 +225,8 @@ def refresh_table(t: Transport, state, layout, pcfg: PlacementConfig,
     (possibly stale) table.
 
     enabled: optional bool — when False the read issues nothing (zero wire,
-    zero round trips) and the decoded table is garbage; ``txloop`` issues
-    the refresh only where it is wanted instead.  Every SimTransport client
+    zero round trips) and the decoded table is garbage; ``txloop`` gates
+    it so and keeps the old table there.  Every SimTransport client
     reads identical bytes, so lane 0's decode is the one shared table.
     ``telemetry``: the read's flight-recorder event (phase REFRESH).
     Returns (table, WireStats)."""
@@ -514,6 +517,21 @@ def _btree_backup_records(ds, p, sel):
     return recs, sel.reshape(-1)
 
 
+def _simulator_only(t: Transport, who: str):
+    """The one-issuer sweeps read the issuer's replies of another node's
+    region on the host and decide from them whether to send at all, so they
+    need the whole cluster in this process.  The JAX package runs them on
+    its simulator only (``jax.device_get(buf[puller])``,
+    src/repro/core/placement.py:435, does not trace under shard_map); on a
+    MeshTransport they would make the ranks disagree on their exchanges."""
+    if not t.holds_all_arenas:
+        raise ValueError(
+            f"{who} runs only on a SimTransport: its sweeps read replies on "
+            "the host, which the JAX package does only on its simulator "
+            "(src/repro/core/placement.py:435), and a MeshTransport's ranks "
+            "would disagree on the number of exchanges")
+
+
 def rereplicate(t: Transport, state, cfg, layout, pcfg: PlacementConfig,
                 transfers, *, nic=None):
     """Execute ``repair_plan`` transfers: for each (part, src, dst), the new
@@ -526,7 +544,9 @@ def rereplicate(t: Transport, state, cfg, layout, pcfg: PlacementConfig,
     fan out to ``dst``, so the stream only carries the pre-failure state;
     locked or mid-commit (odd-version) records are skipped for the same
     reason.  Returns (state, WireStats) — the re-replication bytes;
-    ``state["arena"]`` is updated in place."""
+    ``state["arena"]`` is updated in place.  SimTransport only (a
+    MeshTransport raises ValueError: ``_simulator_only``)."""
+    _simulator_only(t, "rereplicate")
     ds, kind = _ds_for(cfg)
     handler = ds.make_rpc_handler(cfg, layout)
     dev = state["arena"].device
@@ -578,7 +598,9 @@ def migrate_partition(t: Transport, state, cfg, layout,
 
     Returns (table', state, WireStats, migrated: bool); table' is the input
     table when the migration aborted.  ``state["arena"]`` is updated in
-    place."""
+    place.  SimTransport only (a MeshTransport raises ValueError:
+    ``_simulator_only``)."""
+    _simulator_only(t, "migrate_partition")
     ds, kind = _ds_for(cfg)
     handler = ds.make_rpc_handler(cfg, layout)
     part, dst = int(part), int(dst)

@@ -16,7 +16,11 @@ transactions:
 
 The permutations come from ``perms`` when given — the parity tests feed the
 reference's ``jax.random`` draws, which torch cannot reproduce — and
-otherwise from a ``torch.Generator``.
+otherwise from a ``torch.Generator``: the cluster's (n_nodes, B) draw, of
+which a transport's shard takes its own rows, so a MeshTransport run draws
+what ``SimTransport(n_nodes)`` draws.  (The reference's mesh run splits its
+key per shard, ``split(sub, N)`` with the local N of 1, so its mesh draws
+differ from its simulator's by design; a parity test feeds them per rank.)
 
 ``scan_loop`` adds one ordered-index move: every retry round REFRESHES the
 cached separator directory first (one one-sided read per node, its wire
@@ -27,17 +31,18 @@ reported.
 Both loops take an optional placement table (``ptable=`` with ``pcfg=``):
 every round routes through it, and a retry round entered with stale-route
 aborts first REFRESHES the table with one one-sided read of the published
-routing region.  A round entered without them issues no refresh, so an
+routing region.  Every retry round enters that read, gated off where no
+lane of the process wants it (zero wire, zero round trips), so an
 epoch-stable run has exactly the schedule and wire of a run without a
-table.
+table; on a MeshTransport each rank decides from its own lanes, as the
+reference's shard does, and every rank enters every exchange.
 
 Both loops take an optional flight recorder (``telemetry=`` a
 ``telemetry.TelemetryConfig``): one event per exchange round, one SUMMARY
 row per protocol round, and the modeled latency of every lane still live in
 a round.  The reference issues its gated refreshes in every round and
-records them; where the port issues none (a round without a wanted
-refresh), the recorder appends the reference's zero-wire row, so the two
-traces agree row for row.
+records them; in round 0, where the port issues none, the recorder appends
+the reference's zero-wire row, so the two traces agree row for row.
 """
 from __future__ import annotations
 
@@ -103,10 +108,12 @@ def _on_device(state, device, who):
     return state["arena"].device
 
 
-def _round_perms(perms, max_rounds, N, B, dev, seed, who):
-    """Yield each round's lane permutation: the identity for round 0, then
-    ``perms[rnd]`` when given, else draws of a CPU generator seeded with
-    ``seed``."""
+def _round_perms(perms, max_rounds, t, B, dev, seed, who):
+    """Yield each round's lane permutation of the shard's (t.n_local, B)
+    lanes: the identity for round 0, then ``perms[rnd]`` when given, else
+    the shard's rows of the cluster's (n_nodes, B) draw from a CPU
+    generator seeded with ``seed``."""
+    N = t.n_local
     if perms is not None:
         perms = torch.as_tensor(perms, dtype=torch.int64).to(dev)
         if tuple(perms.shape) != (max_rounds, N, B):
@@ -120,7 +127,8 @@ def _round_perms(perms, max_rounds, N, B, dev, seed, who):
         elif perms is not None:
             yield perms[rnd]
         else:
-            yield torch.rand((N, B), generator=generator).argsort(dim=1).to(dev)
+            draw = torch.rand((t.n_nodes, B), generator=generator)
+            yield t.local(draw.argsort(dim=1)).to(dev)
 
 
 def _check_placement(ptable, pcfg, who):
@@ -130,17 +138,26 @@ def _check_placement(ptable, pcfg, who):
 
 def _refresh_table(t, state, layout, pcfg, ptable, rnd, stale_in, nic, rec):
     """A retry round entered with stale-route aborts refreshes the cached
-    table (one one-sided read); any other round keeps it and issues
-    nothing, and records the zero-wire REFRESH row of the reference's
-    gated-off read.  Returns (table, WireStats or None)."""
+    table (one one-sided read).  As in the reference, every retry round
+    enters the read, gated by ``stale_in`` (a bool tensor: whether this
+    process's lanes aborted on a stale route in the round before; no host
+    sync): gated off, it issues nothing (zero wire, zero round trips), keeps
+    the table and records the zero-wire REFRESH row.  On a MeshTransport
+    that keeps every rank in every exchange, each deciding from its own
+    lanes as the reference's shard does.  Round 0 makes no exchange and
+    records the same row.  Returns (table, WireStats or None)."""
     if ptable is None:
         return ptable, None
-    if rnd == 0 or not stale_in:
+    if rnd == 0:
         if rec is not None:
             rec.record(T.PH_REFRESH, WireStats.zero(rec.buf.rows.device))
         return ptable, None
-    return pl.refresh_table(t, state, layout, pcfg, ptable, nic=nic,
-                            telemetry=rec)
+    new, stats = pl.refresh_table(t, state, layout, pcfg, ptable,
+                                  enabled=stale_in, nic=nic, telemetry=rec)
+    return pl.PlacementTable(*(
+        torch.where(stale_in, a, b) for a, b in (
+            (new.epoch, ptable.epoch), (new.copies, ptable.copies),
+            (new.alive, ptable.alive)))), stats
 
 
 def _recorder(telemetry, t, max_rounds, N, B, dev):
@@ -230,9 +247,11 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
       max_rounds: retry bound (>= 1).  Round 0 is identical to the
                   single-shot protocol; each later round re-runs only the
                   still-aborted lanes with permuted send-queue slots.
-      perms:      optional (max_rounds, N, B) lane permutations (row 0 is
-                  ignored: round 0 is the identity); without them a CPU
-                  torch.Generator seeded with DEFAULT_SEED draws them.
+      perms:      optional (max_rounds, N, B) lane permutations of the
+                  shard's N = t.n_local nodes (row 0 is ignored: round 0 is
+                  the identity); without them a CPU torch.Generator seeded
+                  with DEFAULT_SEED draws the cluster's and the shard takes
+                  its rows.
       rep:        optional replication.ReplicaConfig — every committing
                   round installs the write set on all f+1 copies (zero extra
                   exchange rounds); a dropped backup write aborts its lane
@@ -269,8 +288,8 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
                         dtype=torch.int32, device=dev)
     rec, lat = _recorder(telemetry, t, max_rounds, N, B, dev)
     ys = []
-    stale_in = False
-    for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
+    stale_in = None
+    for rnd, perm in enumerate(_round_perms(perms, max_rounds, t, B, dev,
                                             DEFAULT_SEED, "tx_loop")):
         n0 = _open_round(rec, rnd)
         inv = torch.argsort(perm, dim=1)
@@ -300,7 +319,7 @@ def tx_loop(t: Transport, state, cfg: ht.HashTableConfig, layout, *,
         rfound = torch.where(active[..., None], res.read_found, rfound)
         rvals = torch.where(active[..., None, None], res.read_values, rvals)
         if ptable is not None:
-            stale_in = bool((res.aborted_stale & active).any())
+            stale_in = (res.aborted_stale & active).any()
         ys.append(_round_stats(rnd, newly, active, res, s_ref))
         lat = _close_round(rec, n0, lat, active, ys[-1])
 
@@ -358,9 +377,10 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
       refresh:    refresh the directory before every RETRY round (default),
                   so stale-plan aborts converge; refresh=False replays the
                   initial meta.
-      perms:      optional (max_rounds, N, B) lane permutations (row 0
-                  ignored); without them a CPU torch.Generator seeded with
-                  SCAN_SEED draws them.
+      perms:      optional (max_rounds, N, B) lane permutations of the
+                  shard's nodes (row 0 ignored); without them a CPU
+                  torch.Generator seeded with SCAN_SEED draws the cluster's
+                  and the shard takes its rows.
       ptable/pcfg: optional placement table + config — lock-class routing
                   and the backup fan-out go through the table; a retry
                   round entered with stale-route aborts refreshes it (after
@@ -408,8 +428,8 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
                         device=dev)
     smask = torch.zeros((N, B, S, LW), dtype=torch.bool, device=dev)
     ys = []
-    stale_in = False
-    for rnd, perm in enumerate(_round_perms(perms, max_rounds, N, B, dev,
+    stale_in = None
+    for rnd, perm in enumerate(_round_perms(perms, max_rounds, t, B, dev,
                                             SCAN_SEED, "scan_loop")):
         n0 = _open_round(rec, rnd)
         inv = torch.argsort(perm, dim=1)
@@ -455,7 +475,7 @@ def scan_loop(t: Transport, state, cfg: bt.BTreeConfig, layout, *, scan_lo,
         smask = torch.where(upd, res.scan_mask, smask)
         svals = torch.where(upd[..., None], res.scan_values, svals)
         if ptable is not None:
-            stale_in = bool((res.aborted_stale & active).any())
+            stale_in = (res.aborted_stale & active).any()
         ys.append(_round_stats(rnd, newly, active, res, s_ref))
         lat = _close_round(rec, n0, lat, active, ys[-1])
 

@@ -40,18 +40,26 @@ def value_for(key_lo):
     return sl._mix32(key_lo[..., None] + i)
 
 
+def _draw_keys(cfg, t, n_keys_per_node, seed, dev):
+    """The cluster's (N, n) int32 key words from ``seed``, and this
+    transport's rows of them: every rank of a MeshTransport draws the same
+    keys.  Returns (klo, khi, mine_lo, mine_hi)."""
+    rng = np.random.RandomState(seed)
+    N = cfg.n_nodes
+    klo = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
+    khi = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
+    return klo, khi, t.local(klo), t.local(khi)
+
+
 def populate(cfg, layout, t, state, n_keys_per_node, seed=0, device="cuda"):
     """Insert n keys per node (RPC inserts from every node to the keys'
     homes, POPULATE_BATCH per node per round); returns (state, (klo, khi))
     with (N, n) int32 key words.  Every rank of a MeshTransport draws the
     same keys and inserts its own node's row."""
     dev = resolve_device(device)
-    rng = np.random.RandomState(seed)
-    N = cfg.n_nodes
-    klo = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
-    khi = words(rng.randint(0, 2**31, (N, n_keys_per_node)), dev)
+    klo, khi, mine_lo, mine_hi = _draw_keys(cfg, t, n_keys_per_node, seed,
+                                            dev)
     h = ht.make_rpc_handler(cfg, layout)
-    mine_lo, mine_hi = t.local(klo), t.local(khi)
     for i in range(0, n_keys_per_node, POPULATE_BATCH):
         kl = mine_lo[:, i:i + POPULATE_BATCH]
         kh = mine_hi[:, i:i + POPULATE_BATCH]
@@ -59,6 +67,37 @@ def populate(cfg, layout, t, state, n_keys_per_node, seed=0, device="cuda"):
         state, _, _, _ = R.rpc_call(
             t, state, node,
             ht.make_record(R.OP_INSERT, kl, kh, value=value_for(kl)), h)
+    return state, (klo, khi)
+
+
+def populate_replicated(cfg, layout, t, state, n_keys_per_node, rep, *,
+                        lanes=POPULATE_BATCH, seed=0, ptable=None, pcfg=None,
+                        device="cuda"):
+    """Insert n keys per node THROUGH the replicated commit path, as
+    ``churn_populated`` (the reference's ``_populated_placement_cluster``)
+    does: write-only ``tx_loop`` batches of ``lanes`` lanes a node at
+    ``rep`` (and through ``ptable``, when given), so every key lands on its
+    f+1 copies.  Keys are ``populate``'s draws; every rank of a
+    MeshTransport commits its own node's row.  Returns (state, (klo, khi))
+    with (N, n) int32 key words; raises RuntimeError where a key did not
+    commit."""
+    from repro_torch.core import txloop as txl
+
+    dev = resolve_device(device)
+    klo, khi, mine_lo, mine_hi = _draw_keys(cfg, t, n_keys_per_node, seed,
+                                            dev)
+    for i in range(0, n_keys_per_node, lanes):
+        kl = mine_lo[:, i:i + lanes]
+        kh = mine_hi[:, i:i + lanes]
+        no_reads = torch.zeros(kl.shape + (0, 2), dtype=torch.int32,
+                               device=dev)
+        state, _, res = txl.tx_loop(
+            t, state, cfg, layout, read_keys=no_reads,
+            write_keys=torch.stack([kl, kh], -1)[:, :, None],
+            write_values=value_for(kl)[:, :, None], max_rounds=2, rep=rep,
+            ptable=ptable, pcfg=pcfg, device=dev)
+        if not bool(res.committed.all()):
+            raise RuntimeError("populate_replicated: a key did not commit")
     return state, (klo, khi)
 
 
@@ -178,13 +217,17 @@ def gate_tx_keys(res, res1):
 # ---------------------------------------------------------------------------
 # The ordered index: benchmarks/range_scan.py's tree and scan mixes
 # ---------------------------------------------------------------------------
-def build_tree(n_nodes, *, n_keys=48, seed=3, batch=TREE_BATCH,
+def build_tree(n_nodes, *, n_keys=48, seed=3, batch=TREE_BATCH, t=None,
                device="cuda"):
     """``range_scan.build_tree``: a B-tree of n_nodes x n_keys distinct keys
     (``leaf_width`` 4, ``n_leaves`` 2 x n_keys, ``max_scan_leaves`` 8),
     inserted by OP_BT_INSERT RPCs from every node to the keys' homes,
     ``batch`` per node per round (the reference's 16 by default; the tree's
     layout depends on it), then a refreshed separator cache.
+
+    ``t``: the transport (default ``SimTransport(n_nodes)``).  Every rank of
+    a MeshTransport draws the same keys and inserts its own node's row, so
+    its state and directory cache are its rows of the simulator's.
 
     Returns (cfg, layout, t, state, allk, meta); ``allk`` is the sorted key
     array (numpy uint64)."""
@@ -194,14 +237,15 @@ def build_tree(n_nodes, *, n_keys=48, seed=3, batch=TREE_BATCH,
     cfg = bt.BTreeConfig(n_nodes=n_nodes, n_leaves=2 * n_keys, leaf_width=4,
                          max_scan_leaves=8)
     layout = bt.build_layout(cfg)
-    t = SimTransport(n_nodes)
-    state = bt.init_cluster_state(cfg, device=dev)
+    t = SimTransport(n_nodes) if t is None else t
+    state = {k: t.local(v).clone()
+             for k, v in bt.init_cluster_state(cfg, device=dev).items()}
     rng = np.random.RandomState(seed)
     allk = np.sort(distinct_uint32(rng, n_nodes * n_keys).astype(np.uint64))
     h = bt.make_rpc_handler(cfg, layout)
     flat = allk.astype(np.uint32)
     rng.shuffle(flat)
-    per = words(flat.reshape(n_nodes, n_keys), dev)
+    per = t.local(words(flat.reshape(n_nodes, n_keys), dev))
     for i in range(0, n_keys, batch):
         k = per[:, i:i + batch]
         state, rep, _, _ = R.rpc_call(
@@ -463,6 +507,27 @@ def churn_stale_mix(perms=(None, None), device="cuda"):
         stale_rounds_to_converge=int(res.commit_round.max()) + 1,
         stale_round_trips=float(res.round_trips))
     return numbers, state, res
+
+
+def handoff_table(table, part: int):
+    """The placement table after partition ``part``'s owner hands it to its
+    first backup: the partition's copy row rotated by one (the old owner
+    stays on as the last backup), the epoch bumped.  Clients still holding
+    ``table`` route the partition's lock-class ops to the old owner, which
+    answers ST_WRONG_EPOCH once the new table is installed: a stale-route
+    case that moves no data (at f >= 1 the backup already holds the
+    partition's replicated records), so it runs on a MeshTransport too,
+    where ``placement.migrate_partition`` does not."""
+    from repro_torch.core import placement as pl
+
+    row = [int(c) for c in table.copies[part].tolist() if c >= 0]
+    if len(row) < 2:
+        raise ValueError(f"partition {part} has no backup to hand over to")
+    copies = table.copies.clone()
+    copies[part, :len(row)] = torch.tensor(row[1:] + row[:1],
+                                           dtype=copies.dtype,
+                                           device=copies.device)
+    return pl.PlacementTable(table.epoch + 1, copies, table.alive.clone())
 
 
 def churn_fill_registry(reg, device="cuda"):

@@ -6,7 +6,12 @@ one-device view of JAX:
 
 KIND is ``protocol`` (rpc_call inserts then hybrid_lookup, and
 run_transactions, each on the reference's MeshTransport under shard_map
-over 8 forced host devices, the lookups on SimTransport too), ``branches``
+over 8 forced host devices, the lookups on SimTransport too), ``loops``
+(tests/test_torch_mesh_protocol.py: tx_loop at f=0 and f=1, with a placement
+table that is stale on every or on some shards, traced, failover_lookup
+with each node dead, and scan_loop at f=0 and f=1 over a B-link tree, each
+under shard_map on 4 devices with a PRNG key of its own a shard; the
+per-shard backoff draws come back as ``perms``), ``branches``
 (embed_lookup, hybrid_decode_attention and moe_ffn on (1, tp) and (2, 2)
 meshes with Auto axes, as ``repro.launch.mesh.make_smoke_mesh`` builds
 them) or ``specs`` (param_specs_pspec, cache_specs' axes and kv_mode of
@@ -14,6 +19,7 @@ every arch on the production meshes, 512 forced devices; INPUTS.npz is
 ignored).  Per-rank scalars come back as (N,) arrays; everything goes to
 OUT.npz.
 """
+import concurrent.futures
 import dataclasses
 import os
 import sys
@@ -31,6 +37,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from repro.core import hybrid as hy  # noqa: E402
 from repro.core import rpc as R  # noqa: E402
+from repro.core import telemetry as T  # noqa: E402
 from repro.core import tx  # noqa: E402
 from repro.core.datastructs import hashtable as ht  # noqa: E402
 from repro.core.transport import MeshTransport, SimTransport  # noqa: E402
@@ -245,11 +252,204 @@ def specs():
     out["json"] = np.asarray(json.dumps(res))
 
 
+def shard_perms(key, rounds, B):
+    """The lane permutations the reference's loop draws on a shard of one
+    node from ``key`` (txloop.py:129-131: ``split(sub, N)`` with N = 1),
+    round 0's row replaced by the identity as the loop does: (rounds, 1,
+    B)."""
+    out = []
+    for rnd in range(rounds):
+        key, sub = jax.random.split(key)
+        perm = jax.vmap(lambda k: jax.random.permutation(k, B))(
+            jax.random.split(sub, 1)).astype(jnp.int32)
+        out.append(np.arange(B, dtype=np.int32)[None] if rnd == 0
+                   else np.asarray(perm))
+    return np.stack(out)
+
+
+def loop_out(prefix, res, tel=None):
+    """A loop result's per-shard fields, and the trace where traced."""
+    names = ["committed", "commit_round", "round_committed",
+             "round_attempts", "round_retries", "round_abort_lock",
+             "round_abort_validate", "round_abort_overflow",
+             "round_abort_stale", "round_trips"]
+    names += (["read_found", "read_values"] if hasattr(res, "read_found")
+              else ["truncated", "scan_keys", "scan_values", "scan_mask"])
+    for k in names:
+        x = getattr(res, k)
+        out[prefix + k] = np.asarray(x)
+    m = res.metrics
+    for k in ("onesided_success", "rpc_fallback", "total"):
+        out[prefix + k] = np.asarray(getattr(m, k))
+    wire_dict(prefix, m.wire)
+    if tel is not None:
+        for k in ("rows", "n", "dropped"):
+            out[prefix + "trace_" + k] = np.asarray(getattr(tel.trace, k))
+        out[prefix + "lane_latency_us"] = np.asarray(tel.lane_latency_us)
+
+
+def shard_loop_result(res, tel=None):
+    """Per-shard outputs of a loop under shard_map: (1, ...) blocks."""
+    per = dict(res.__dict__)
+    for k, v in per.items():
+        if k.startswith("round_") and k != "round_trips":
+            per[k] = v[None]
+    per["round_trips"] = jnp.reshape(res.round_trips, (1,))
+    per["metrics"] = per_rank(res.metrics)
+    res = type(res)(**per)
+    if tel is not None:
+        tr = tel.trace
+        tel = T.TelemetryOut(trace=dataclasses.replace(
+            tr, rows=tr.rows[None], n=jnp.reshape(tr.n, (1,)),
+            rnd=jnp.reshape(tr.rnd, (1,)),
+            dropped=jnp.reshape(tr.dropped, (1,))),
+            lane_latency_us=tel.lane_latency_us)
+    return res, tel
+
+
+def loops(inp):
+    from repro.core import placement as pl
+    from repro.core import replication as repl
+    from repro.core import txloop as txl
+    from repro.core.replication import ReplicaConfig
+    g = lambda k: jnp.asarray(inp[k])
+    N, B, rounds = (int(inp[k]) for k in ("n_nodes", "lanes", "max_rounds"))
+    cap = int(inp["capacity"])
+    mesh = jax.make_mesh((N,), ("node",), axis_types=(AxisType.Auto,),
+                         devices=jax.devices()[:N])
+    tm = MeshTransport(N, axis_name="node")
+    keys = jax.random.split(jax.random.PRNGKey(int(inp["perm_seed"])), N)
+    out["perms"] = np.stack([shard_perms(keys[r], rounds, B)
+                             for r in range(N)])
+    tel_cfg = T.TelemetryConfig()
+    cfg = ht.HashTableConfig(n_nodes=N, n_buckets=32, bucket_width=2,
+                             n_overflow=32)
+    layout = ht.build_layout(cfg)
+    h = ht.make_rpc_handler(cfg, layout)
+    pcfg = pl.PlacementConfig(N, f=1)
+    plo, phi, pval = g("pool_lo"), g("pool_hi"), g("pool_val")
+    pnode, _, _ = ht.lookup_start(cfg, layout, plo, phi)
+    batch = (g("rk"), g("wk"), g("wv"), g("ren"), g("wen"))
+
+    def tx_program(f, traced, placed, capacity):
+        rep = ReplicaConfig(N, f)
+
+        def run(state, pnode, plo, phi, pval, rk, wk, wv, ren, wen, key,
+                ptab):
+            state, _, _, _ = R.rpc_call(
+                tm, state, pnode, ht.make_record(R.OP_INSERT, plo, phi,
+                                                 value=pval), h)
+            kw = {}
+            if placed:
+                state, _ = pl.install_table(
+                    tm, state, layout, pcfg, pl.PlacementTable(
+                        epoch=g("new_epoch"), copies=g("new_copies"),
+                        alive=g("new_alive")), h, issuer=0)
+                kw = dict(ptable=jax.tree.map(lambda x: x[0], ptab),
+                          pcfg=pcfg)
+            o = txl.tx_loop(
+                tm, state, cfg, layout, read_keys=rk, write_keys=wk,
+                write_values=wv, read_enabled=ren, write_enabled=wen,
+                capacity=capacity, max_rounds=rounds, key=key[0], rep=rep,
+                telemetry=tel_cfg if traced else None, **kw)
+            res, tel = shard_loop_result(o[2], o[3] if traced else None)
+            return o[0]["arena"], res, tel
+        return smap(run, mesh, (P("node"),) * 12, P("node"))
+
+    def ptabs(rows):
+        return pl.PlacementTable(
+            epoch=jnp.asarray(inp[rows + "_epoch"]),
+            copies=jnp.asarray(inp[rows + "_copies"]),
+            alive=jnp.asarray(inp[rows + "_alive"]))
+
+    # failover_lookup of every write key from tx1's arenas, each node dead
+    # in turn (a dead node's lanes issue nothing; its shard still runs)
+    rep = ReplicaConfig(N, 1)
+
+    def fo(state, klo, khi, en, alive):
+        r = repl.failover_lookup(tm, state, klo, khi, cfg, layout, rep,
+                                 alive[0], enabled=en)
+        return {k: (per_rank(v) if k == "wire" else v) for k, v in r.items()}
+    wk = g("wk")
+    klo, khi = (wk[..., i].reshape(N, -1) for i in (0, 1))
+
+    def fo_args(arena, dead):
+        alive = jnp.ones((N,), bool).at[dead].set(False)
+        en = jnp.broadcast_to((jnp.arange(N) != dead)[:, None], klo.shape)
+        return (put(mesh, {"arena": arena}), *put(mesh, (klo, khi, en)),
+                put(mesh, jnp.broadcast_to(alive, (N, N))))
+
+    # scan_loop over range_scan.build_tree's tree (built on SimTransport)
+    bench_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "..", "benchmarks")
+    sys.path.insert(0, bench_dir)
+    import range_scan
+    sys.path.remove(bench_dir)
+    bcfg, blay, _, bstate, allk, _ = range_scan.build_tree(
+        N, n_keys=int(inp["tree_keys"]), seed=int(inp["tree_seed"]))
+    out["tree_arena"] = np.asarray(bstate["arena"])
+
+    def scan_program(f):
+        def run(state, lo, hi, wk, wv, wen, key):
+            o = txl.scan_loop(
+                tm, state, bcfg, blay, scan_lo=lo, scan_hi=hi, meta=None,
+                write_keys=wk, write_values=wv, write_enabled=wen,
+                max_rounds=rounds, key=key[0], rep=ReplicaConfig(N, f))
+            res, _ = shard_loop_result(o[2])
+            return o[0]["arena"], res
+        return smap(run, mesh, (P("node"),) * 7, P("node"))
+    scan_args = (put(mesh, bstate), *put(mesh, tuple(
+        g(k) for k in ("scan_lo", "scan_hi", "scan_wk", "scan_wv",
+                       "scan_wen")) + (keys,)))
+
+    # every program traced here, then compiled side by side (XLA compiles
+    # off the interpreter lock), then run
+    dummy = jnp.zeros((N, 1), jnp.int32)
+    args = lambda: (put(mesh, ht.init_cluster_state(cfg)),
+                    *put(mesh, (pnode, plo, phi, pval) + batch + (keys,)))
+    arena0 = ht.init_cluster_state(cfg)["arena"]
+    programs = {
+        "tx0": (tx_program(0, False, False, cap), (*args(), put(mesh,
+                                                              dummy))),
+        "tx1": (tx_program(1, True, False, cap), (*args(), put(mesh, dummy))),
+        "stale": (tx_program(1, True, True, None),
+                  (*args(), put(mesh, ptabs("stale")))),
+        "fo": (smap(fo, mesh, (P("node"),) * 5, P("node")),
+               fo_args(arena0, 0)),
+        "scan0": (scan_program(0), scan_args),
+        "scan1": (scan_program(1), scan_args)}
+    lowered = {k: fn.lower(*a) for k, (fn, a) in programs.items()}
+    with concurrent.futures.ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = dict(zip(lowered, pool.map(lambda lw: lw.compile(),
+                                              lowered.values())))
+
+    for name in ("tx0", "tx1", "stale", "stale_some"):
+        prog = compiled["stale" if name.startswith("stale") else name]
+        a = (programs[name][1] if name != "stale_some"
+             else (*args(), put(mesh, ptabs("stale_some"))))
+        arena, res, tel = prog(*a)
+        out[name + "arena"] = np.asarray(arena)
+        loop_out(name, res, tel)
+    for dead in range(N):
+        r = compiled["fo"](*fo_args(jnp.asarray(out["tx1arena"]), dead))
+        for k, v in r.items():
+            if k == "wire":
+                wire_dict(f"fo{dead}", v)
+            else:
+                out[f"fo{dead}{k}"] = np.asarray(v)
+    for name in ("scan0", "scan1"):
+        arena, res = compiled[name](*scan_args)
+        out[name + "arena"] = np.asarray(arena)
+        loop_out(name, res)
+
+
 if KIND == "specs":
     specs()
 else:
     inp = np.load(INPUTS)
-    if KIND == "branches":
+    if KIND == "loops":
+        loops(inp)
+    elif KIND == "branches":
         branches(inp)
     else:
         for case in str(inp["cases"]).split(","):

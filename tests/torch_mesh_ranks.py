@@ -217,3 +217,222 @@ def lookup_case_1():
                                       dtype=np.uint64).astype(np.uint32)
     return dict(n_nodes=1, cache_slots=0, klo=u((1, 64), 2**31),
                 khi=u((1, 64), 2**31), vals=u((1, 64, 27), 2**32))
+
+
+# --- tests/test_torch_mesh_protocol.py: the retry loops on the mesh ----------
+LOOP_FIELDS = ("committed", "commit_round", "round_committed",
+               "round_attempts", "round_retries", "round_abort_lock",
+               "round_abort_validate", "round_abort_overflow",
+               "round_abort_stale")
+TX_READS = ("read_found", "read_values")
+SCAN_READS = ("truncated", "scan_keys", "scan_values", "scan_mask")
+
+
+def loop_fields(state, res, tel=None):
+    """A loop's results as a flat dict on the CPU: the arena, the per-lane
+    and per-round fields, round_trips, the hybrid counts and every WireStats
+    field (scalars as (1,) tensors), and the trace where traced."""
+    reads = TX_READS if hasattr(res, "read_found") else SCAN_READS
+    m = res.metrics
+    out = {k: getattr(res, k) for k in LOOP_FIELDS + reads}
+    out.update(arena=state["arena"], round_trips=res.round_trips.reshape(1),
+               onesided_success=m.onesided_success.reshape(1),
+               rpc_fallback=m.rpc_fallback.reshape(1),
+               total=m.total.reshape(1),
+               **{"wire_" + k: v for k, v in _wire(m.wire).items()})
+    if tel is not None:
+        from repro_torch.core import telemetry as T
+        out.update(trace_rows=tel.trace.rows, trace_n=tel.trace.n,
+                   trace_dropped=tel.trace.dropped,
+                   lane_latency_us=tel.lane_latency_us,
+                   trace_events=len(T.export_trace(tel.trace)["traceEvents"]))
+    return {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor)
+                else v) for k, v in out.items()}
+
+
+def loop_hash_cfg(c):
+    return ht.HashTableConfig(n_nodes=int(c["n_nodes"]), n_buckets=32,
+                              bucket_width=2, n_overflow=32)
+
+
+def pooled(t, c, device=CPU):
+    """The hash table with the key pool inserted by rpc_call: (cfg, layout,
+    state), the state the transport's shard of it."""
+    cfg = loop_hash_cfg(c)
+    layout = ht.build_layout(cfg)
+    state = {k: t.local(v).clone()
+             for k, v in ht.init_cluster_state(cfg, device=device).items()}
+    plo, phi, pval = (t.local(words(c[k], device))
+                      for k in ("pool_lo", "pool_hi", "pool_val"))
+    pnode, _, _ = ht.lookup_start(cfg, layout, plo, phi)
+    state, _, _, _ = R.rpc_call(
+        t, state, pnode, ht.make_record(R.OP_INSERT, plo, phi, value=pval),
+        ht.make_rpc_handler(cfg, layout))
+    return cfg, layout, state
+
+
+def loop_batch(t, c, device=CPU):
+    g = lambda k: t.local(torch.from_numpy(c[k])).to(device)
+    w = lambda k: t.local(words(c[k], device))
+    return dict(read_keys=w("rk"), write_keys=w("wk"), write_values=w("wv"),
+                read_enabled=g("ren"), write_enabled=g("wen"))
+
+
+def tx_loop_case(t, c, *, f, perms=None, traced=False, ptable=None,
+                 capacity=None, device=CPU):
+    """The pool inserted, then (with ``ptable``) the handed-off table
+    installed from node 0, then tx_loop over the batch.  Returns
+    loop_fields."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core import telemetry as T
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.replication import ReplicaConfig
+    from repro_torch.testing import workloads as wl
+    cfg, layout, state = pooled(t, c, device)
+    kw = {}
+    if ptable is not None:
+        pcfg = pl.PlacementConfig(cfg.n_nodes, f=1)
+        new = wl.handoff_table(pl.initial_table(pcfg, device=device),
+                               int(c["handoff_part"]))
+        state, _ = pl.install_table(t, state, layout, pcfg, new,
+                                    ht.make_rpc_handler(cfg, layout),
+                                    issuer=0)
+        kw = dict(ptable=ptable, pcfg=pcfg)
+    out = txl.tx_loop(
+        t, state, cfg, layout, capacity=capacity,
+        max_rounds=int(c["max_rounds"]), perms=perms,
+        rep=ReplicaConfig(cfg.n_nodes, f),
+        telemetry=T.TelemetryConfig() if traced else None, device=device,
+        **loop_batch(t, c, device), **kw)
+    return loop_fields(out[0], out[2], out[3] if traced else None)
+
+
+def failover_case(t, c, arena, dead, only=None, device=CPU):
+    """failover_lookup at f=1 of every write key of the batch from
+    ``arena`` (the f=1 run's), node ``dead`` dead: its lanes issue nothing,
+    its rank still enters every exchange.  ``only``: a node whose lanes
+    alone are enabled."""
+    from repro_torch.core import replication as repl
+    cfg = loop_hash_cfg(c)
+    N = cfg.n_nodes
+    wk = t.local(words(c["wk"], device))
+    klo, khi = (wk[..., i].reshape(wk.shape[0], -1) for i in (0, 1))
+    en = (t.node_ids(device) != dead)[:, None].expand(klo.shape)
+    if only is not None:
+        en = en & (t.node_ids(device) == only)[:, None]
+    alive = repl.kill_node(repl.all_alive(N, device=device), dead)
+    r = repl.failover_lookup(t, {"arena": arena.clone()}, klo, khi, cfg,
+                             ht.build_layout(cfg),
+                             repl.ReplicaConfig(N, 1), alive, enabled=en)
+    out = {k: v.cpu() for k, v in r.items() if k != "wire"}
+    out.update({"wire_" + k: v for k, v in _wire(r["wire"]).items()})
+    return out
+
+
+def tree_of(t, c, device=CPU):
+    from repro_torch.testing import workloads as wl
+    return wl.build_tree(int(c["n_nodes"]), n_keys=int(c["tree_keys"]),
+                         seed=int(c["tree_seed"]), t=t, device=device)
+
+
+def scan_loop_case(t, c, tree, *, f, perms=None, device=CPU):
+    """scan_loop over the built tree (its directory fetched up front), the
+    scan mix of the inputs."""
+    from repro_torch.core import txloop as txl
+    from repro_torch.core.replication import ReplicaConfig
+    cfg, layout, _, state, _, _ = tree
+    g = lambda k: t.local(torch.from_numpy(c[k])).to(device)
+    w = lambda k: t.local(words(c[k], device))
+    state = {"arena": state["arena"].clone()}
+    state, _, res = txl.scan_loop(
+        t, state, cfg, layout, scan_lo=w("scan_lo"), scan_hi=w("scan_hi"),
+        meta=None, write_keys=w("scan_wk"), write_values=w("scan_wv"),
+        write_enabled=g("scan_wen"), max_rounds=int(c["max_rounds"]),
+        perms=perms, rep=ReplicaConfig(cfg.n_nodes, f), device=device)
+    return loop_fields(state, res)
+
+
+def sweeps_refused(t, c, device=CPU):
+    """rereplicate and migrate_partition on a MeshTransport: the error each
+    raises (None where it ran)."""
+    from repro_torch.core import placement as pl
+    cfg, layout, state = pooled(t, c, device)
+    pcfg = pl.PlacementConfig(cfg.n_nodes, f=1)
+    table = pl.initial_table(pcfg, device=device)
+    out = []
+    for run in (lambda: pl.rereplicate(t, state, cfg, layout, pcfg,
+                                       [(0, 0, 2)]),
+                lambda: pl.migrate_partition(t, state, cfg, layout, pcfg,
+                                             table, 0, 2)):
+        try:
+            run()
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def replicated_population(t, c, device=CPU):
+    """``workloads.populate_replicated`` at f=1 through the initial
+    placement table (write-only tx_loop batches, no read round) of
+    ``rep_keys`` keys a node: the arena."""
+    from repro_torch.core import placement as pl
+    from repro_torch.core.replication import ReplicaConfig
+    from repro_torch.testing import workloads as wl
+    cfg = loop_hash_cfg(c)
+    layout = ht.build_layout(cfg)
+    state = {k: t.local(v).clone()
+             for k, v in ht.init_cluster_state(cfg, device=device).items()}
+    pcfg = pl.PlacementConfig(cfg.n_nodes, f=1)
+    state, _ = wl.populate_replicated(
+        cfg, layout, t, state, int(c["rep_keys"]),
+        ReplicaConfig(cfg.n_nodes, 1), lanes=int(c["rep_keys"]) // 2,
+        seed=9, ptable=pl.initial_table(pcfg, device=device), pcfg=pcfg,
+        device=device)
+    return state["arena"].clone()
+
+
+def table_rows(c, name, rank):
+    """A rank's own placement table of the per-rank tables ``name``."""
+    from repro_torch.core import placement as pl
+    return pl.PlacementTable(
+        epoch=torch.tensor(int(c[name + "_epoch"][rank]), dtype=torch.int32),
+        copies=torch.from_numpy(c[name + "_copies"][rank]),
+        alive=torch.from_numpy(c[name + "_alive"][rank]))
+
+
+def loops_rank(rank, world, c, perms):
+    """Every case of the protocol world on MeshTransport(world), once fed
+    the reference's per-shard draws ``perms`` (N, rounds, 1, B) and once
+    with the default draws; plus the plain probe's calls per tx_loop and
+    the membership sweeps' refusals."""
+    calls = counting_probe()
+    t = MeshTransport(world)
+    out = {"sweeps": sweeps_refused(t, c),
+           "rep_population": replicated_population(t, c)}
+    cap = int(c["capacity"])
+    for mode, pm in (("fed", torch.from_numpy(perms[rank])), ("default",
+                                                               None)):
+        r = out[mode] = {}
+        for name, f, traced in (("tx0", 0, False), ("tx1", 1, False),
+                                ("tx1traced", 1, True)):
+            before = calls[0]
+            r[name] = tx_loop_case(t, c, f=f, perms=pm, traced=traced,
+                                   capacity=cap)
+            r[name]["probes"] = calls[0] - before
+        for name in ("stale", "stale_some"):
+            if mode == "default" and name == "stale_some":
+                continue
+            for traced in (False, True):
+                r[name + "traced" * traced] = tx_loop_case(
+                    t, c, f=1, perms=pm, traced=traced,
+                    ptable=table_rows(c, name, rank))
+        for dead in range(world):
+            before = calls[0]
+            r[f"fo{dead}"] = failover_case(t, c, r["tx1"]["arena"], dead)
+            r[f"fo{dead}"]["probes"] = calls[0] - before
+        tree = tree_of(t, c)
+        r["tree_arena"] = tree[3]["arena"].clone()
+        for name, f in (("scan0", 0), ("scan1", 1)):
+            r[name] = scan_loop_case(t, c, tree, f=f, perms=pm)
+    return out
