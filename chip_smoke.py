@@ -18,7 +18,7 @@ Phases (any failure exits non-zero):
      lane, 8192 and 2**18); ``flash_attention`` (causal and not, window,
      softcap, GQA 2 and 4, ragged lengths around the bf16 kernel's 128 x
      128 tiles, D 16-128, bf16 on the tensor-core kernel and float32 on
-     the CUDA-core one; at the serving shape with diffuse and sharp scores, element by
+     the CUDA-core one, a query offset on each; at the serving shape with diffuse and sharp scores, element by
      element, and a dropped kv block as a negative control) and
      ``ssd_scan`` (several Q/H/h_tile, Q not a multiple of its 64-row tile,
      one chunk, initial states) within stated tolerances, then both timed
@@ -97,7 +97,7 @@ Phases (any failure exits non-zero):
      and one ``run_transactions`` batch equal to ``SimTransport(1)`` bit
      for bit, ``hash_probe`` launched once per read round.  Then four
      ranks sharing the card over gloo with CUDA tensors (NCCL refuses two
-     ranks on one device), with a deadline: TATP at 4 nodes x 2**13
+     ranks on one device), with a deadline: TATP at 4 nodes x 2**12
      subscribers, 512 lanes a node, the 80/16/4 mix, f=0 (population by
      ``rpc_call``, one ``run_transactions`` batch, ``hybrid_lookup`` of
      every populated key) equal bit for bit to ``SimTransport(4)`` run here
@@ -110,12 +110,12 @@ Phases (any failure exits non-zero):
      the ranks, round trips between the ranks' largest and their sum):
      ``tx_loop`` (4 rounds, the flight recorder on, every exchange's round
      trips the ranks' largest, row by row) over the populated TATP state;
-     a replicated state (f=1, 4 x 2**12 subscribers populated through the
+     a replicated state (f=1, 4 x 2**11 subscribers populated through the
      replicated commit path) through ``tx_loop`` with a placement table
      that goes stale once (partition 0 handed to its backup, every rank
      aborting stale in round 0 and refreshing once); ``failover_lookup``
      of every replicated key with node 1 dead; the B-link tree at 4 x
-     2**12 keys built on the ranks and its scan mix through ``scan_loop``
+     2**11 keys built on the ranks and its scan mix through ``scan_loop``
      at f=0 and f=1; ``hash_probe`` launched once per read round per rank,
      wall seconds per rank printed; one exchange timed; the sharded
      branches at full
@@ -127,19 +127,35 @@ Phases (any failure exits non-zero):
      and "onesided" at deepseek's vocab of 102,400 (bf16) equal to the
      plain gather; llava-next-mistral-7b's sequence-sharded decode
      attention (B 4, S 4,096, float32) against ``decode_attention``
-     within ``F32_REL_FAMILY``;
- 11. the serving main path: zamba2-1.2b at full size (38 layers, seeded
+     within ``F32_REL_FAMILY``.  The populations are cut to pay for
+     phase 11 (PERF.md section 4);
+ 11. tensor-parallel serving (``tensor_parallel``): eight gloo ranks
+     sharing the card, meshed (1, 8) for qwen1.5-4b at full width (20
+     heads over 8: the sequence-parallel branch and the "seq" cache) and
+     (2, 4) for glm4-9b (32 heads over 4 with its 2 kv heads repeated, the
+     batch over data), SERVE_RULES, each rank holding its blocks of the
+     seeded weights, the batch and the cache: float32 at 2 layers (B 1 x
+     512 + 4 and 2 x 512 + 4) against the one-rank run on the card (logits
+     within ``TP_F32_REL`` of the range, greedy tokens equal, each model's
+     conditioning printed and held to a quarter of its limit); qwen1.5-4b's
+     forward with ``pad_heads`` (24 heads) against without; bf16 at 4
+     layers served through ``launch.serve`` (2 x 2,048 + 8 and 4 x 2,048 +
+     8) with one ``flash_attention`` launch per layer per rank per
+     prefill, prefill and decode ms per rank; the ``q_offset`` kernel at
+     each rank's shape against its plain version, timed on the last rank
+     beside ``scaled_dot_product_attention`` with the same boolean mask;
+ 12. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
      ``flash_attention`` and ``ssd_scan`` read around that one run; finite
      logits, ids in the vocabulary, the cache's length and dtypes; then one
      decode step and one prefill under torch.profiler;
- 12. the dense and pure-SSM families (gemma2-27b, qwen2.5-32b, qwen1.5-4b,
+ 13. the dense and pure-SSM families (gemma2-27b, qwen2.5-32b, qwen1.5-4b,
      glm4-9b, mamba2-780m) at their smoke() sizes, float32, prefill and 4
      decode steps on the card against the CPU, with the launches of each
      prefill; gemma2-27b at full width cut to 2 layers (one local, one
      global), float32, card against CPU after its conditioning is measured;
- 13. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
+ 14. ``flash_attention`` at gemma2-27b's two prefill shapes (BH 64, S 8192,
      D 128, group 2, causal, softcap 50, with and without its 4096-token
      window), at the MoE family's (BH 128, S 4096: D 128 for
      deepseek-moe-16b, D 64 and group 2 for granite-moe-1b-a400m), at
@@ -151,28 +167,28 @@ Phases (any failure exits non-zero):
      their bounds, the plain versions and, for attention,
      ``scaled_dot_product_attention`` (the same function at the MoE shapes;
      at gemma2's, without softcap and window, not);
- 14. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
+ 15. gemma2-27b (46 layers, 2 x 8192-token prompts) and then mamba2-780m (48
      layers, 8 x 2048) served at full size through ``repro_torch.launch.serve``
-     with 32 greedy tokens each, as in phase 11, each with its own launch
+     with 32 greedy tokens each, as in phase 12, each with its own launch
      counts (46 ``flash_attention`` and 0 ``ssd_scan``; 0 and 48) and its
      peak memory.
- 15. the MoE family (deepseek-moe-16b, granite-moe-1b-a400m) at smoke()
+ 16. the MoE family (deepseek-moe-16b, granite-moe-1b-a400m) at smoke()
      size, float32, prefill and 4 decode steps on the card against the CPU:
      logits, greedy tokens and every layer's routing (experts and keep bits);
- 16. deepseek-moe-16b at full width cut to 2 layers, float32, card against
+ 17. deepseek-moe-16b at full width cut to 2 layers, float32, card against
      CPU after its conditioning is measured: routing call by call (a flip
      must lie within 4x the router-logit deviation of the CPU's margin),
      logits before any flip, then each prefill layer from the CPU's input
      (the MoE output compared on the tokens whose routing agrees);
- 17. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
-     4096-token prompts, 32 greedy tokens) as in phase 11: 28 and 24
+ 18. deepseek-moe-16b and then granite-moe-1b-a400m served at full size (8 x
+     4096-token prompts, 32 greedy tokens) as in phase 12: 28 and 24
      ``flash_attention`` launches a prefill, the share of expert
      assignments kept at each step, peak memory;
- 18. the audio and VLM families (whisper-medium, llava-next-mistral-7b) at
+ 19. the audio and VLM families (whisper-medium, llava-next-mistral-7b) at
      smoke() size with their frames or patch embeddings, float32, prefill
      and 4 decode steps on the card against the CPU, with the launches of
      each prefill;
- 19. whisper-medium at full width cut to 2 encoder and 2 decoder layers
+ 20. whisper-medium at full width cut to 2 encoder and 2 decoder layers
      (all 1,500 frames, a 416-token prompt) and llava-next-mistral-7b cut
      to 2 layers (2,880 patch positions and 192 text tokens), at the full
      models' init scale, B 1, 4 decode steps, float32, card against CPU
@@ -184,12 +200,12 @@ Phases (any failure exits non-zero):
      the CPU's encoder output held on the card within ``WHISPER_F32_REL``
      (the encoder's bf16 roundings make the whole run discontinuous; the
      unheld logits are printed);
- 20. whisper-medium (8 x 1,500 frames, 416-token prompts) and then
+ 21. whisper-medium (8 x 1,500 frames, 416-token prompts) and then
      llava-next-mistral-7b (4 x 4,096 positions, the first 2,880 patch
      embeddings) served at full size with 32 greedy tokens, as in phase
-     11: 72 and 32 ``flash_attention`` launches a prefill, every cache
+     12: 72 and 32 ``flash_attention`` launches a prefill, every cache
      entry (whisper's cross K/V included) finite, peak memory;
- 21. gradients through the kernels: ``ops.flash_attention``'s Function at
+ 22. gradients through the kernels: ``ops.flash_attention``'s Function at
      zamba2's training shape (B 8, S 2048, 32 heads of 64, causal, bf16)
      and granite's (16 heads over 8), ``ops.ssd_scan``'s at zamba2's (B 8,
      8 chunks of 256, H 64, P = N = 64, float32): the forward launches the
@@ -198,20 +214,20 @@ Phases (any failure exits non-zero):
      ``ssd_scan_plain``) on the card within a stated limit, and a Function
      whose backward returns zeros is rejected; the forward's and the
      backward's times;
- 22. training at smoke() size, every arch, float32 weights: the loss
+ 23. training at smoke() size, every arch, float32 weights: the loss
      and every gradient leaf, card against CPU, with the kernels' launches;
      then one train step's master weights;
- 23. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
+ 24. zamba2-1.2b (38 layers) and then granite-moe-1b-a400m (24 layers)
      trained at full size: 8 x 2048 tokens a step, seeded weights, AdamW
      and remat at the reference's defaults, a warm-up step and 5 timed
      ones: loss, grad norm, ms and tokens/s of each step, kernel launches
      per step against the layer count and the remat (the recompute
      launches every kernel again), peak memory, granite's kept share of
      expert assignments, one step under torch.profiler;
- 24. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
+ 25. learnability: qwen1.5-4b at smoke() size, 100 steps on the card, held
      to the two inequalities of the reference's
      ``test_loss_decreases_on_repetitive_stream``;
- 25. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
+ 26. the checkpoint on the card: zamba2-1.2b at full width cut to 2 layers,
      2 steps, a save through ``CheckpointManager(device="cuda")`` (its
      commit record an OCC transaction on the card, read back through
      ``hybrid_lookup`` and the ``hash_probe`` kernel), every array read
@@ -1659,7 +1675,7 @@ def ordered_path(dev):
 # The mesh dataplane: MeshTransport over torch.distributed, one node a rank.
 # NCCL at world size 1 (the production backend), then four ranks sharing the
 # one card over gloo with CUDA tensors (NCCL refuses two ranks on one
-# device): TATP at MESH_NODES x TATP_SUBSCRIBERS_PER_NODE, then the sharded
+# device): TATP at MESH_NODES x MESH_SUBSCRIBERS, then the sharded
 # model branches at full width.
 # ---------------------------------------------------------------------------
 MESH_NODES, MESH_LANES = 4, 512
@@ -1671,12 +1687,15 @@ MESH_DECODE_BATCH, MESH_DECODE_SEQ = 4, 4096
 MESH_ONESIDED_CAPACITY = 16.0  # no assignment drops at this factor
 WIRE_ADDITIVE = ("messages", "ops", "req_bytes", "reply_bytes",
                  "nic_hit_ops", "nic_penalty_us")
-# the retry loops on the mesh: the replicated (f=1) state and the B-link
-# tree are cut from TATP_SUBSCRIBERS_PER_NODE (2**13) and
-# ORDERED_KEYS_PER_NODE to 2**12 a node for the mesh phase's time (both
-# populations are host-bound serial folds); node MESH_DEAD is the one
-# failover_lookup reads around
-MESH_REP_SUBSCRIBERS, MESH_TREE_KEYS, MESH_DEAD = 2**12, 2**12, 1
+# the mesh's populations are host-bound serial folds (a rank's TATP
+# population took 40.5 s at 2**13 subscribers, the replicated one 35.3 s
+# and the tree's 34.3 s at 2**12 a node; PERF.md section 5), so to pay for
+# the tensor-parallel phase they are cut: TATP from TATP_SUBSCRIBERS_PER_NODE
+# (2**13) to 2**12 a node, the replicated (f=1) state and the B-link tree
+# from 2**12 to 2**11; node MESH_DEAD is the one failover_lookup reads
+# around
+MESH_SUBSCRIBERS = 2**12
+MESH_REP_SUBSCRIBERS, MESH_TREE_KEYS, MESH_DEAD = 2**11, 2**11, 1
 LOOP_LANE_FIELDS = ("committed", "commit_round")
 LOOP_ROUND_FIELDS = ("round_committed", "round_attempts", "round_retries",
                      "round_abort_lock", "round_abort_validate",
@@ -2189,7 +2208,7 @@ def mesh_dataplane(dev):
     from repro_torch.kernels import hash_probe as hp
     from repro_torch.testing.ranks import run_ranks
 
-    subs = TATP_SUBSCRIBERS_PER_NODE
+    subs = MESH_SUBSCRIBERS
     ones, sims = [], []       # run here while the four ranks run
 
     def meanwhile():
@@ -2333,6 +2352,13 @@ FLASH_CASES = [
     (1, 256, 256, 2, 2, 16, True, None, None, "bfloat16"),
     (1, 200, 200, 4, 2, 32, True, 60, None, "bfloat16"),
 ]
+# the query offset (the sequence-parallel rank's rows against every key):
+# (B, Sq, Sk, Hq, Hkv, D, causal, window, softcap, dtype, q_offset), rows
+# and offsets off the kernels' tiles, one case a kernel
+FLASH_QOFF_CASES = [
+    (2, 200, 1024, 4, 2, 128, True, None, 30.0, "bfloat16", 600),
+    (1, 100, 356, 4, 1, 64, True, 64, None, "float32", 200),
+]
 # |kernel - plain| <= FLASH_ULPS ulps of (|plain| + the rms of its row),
 # element by element.  The limit scales with each value, so it holds the late
 # rows of the causal triangle (outputs ~0.5 / sqrt(row) with diffuse scores)
@@ -2383,22 +2409,24 @@ FLASH_KERNEL = {"bfloat16": "bf16 tensor-core kernel, wgmma + TMA, 128 x 128",
                 "float32": "float32 CUDA-core kernel, 64 x 64"}
 
 
-def flash_flops(BH, Sq, Sk, D, causal, window=None):
+def flash_flops(BH, Sq, Sk, D, causal, window=None, q_offset=0):
     """The two products over the (q, k) pairs the mask keeps: causal, and
-    within the window (k > q - window) where there is one."""
+    within the window (k > q - window) where there is one; the queries at
+    positions q_offset on."""
     import numpy as np
-    q = np.arange(Sq, dtype=np.int64)
+    q = q_offset + np.arange(Sq, dtype=np.int64)
     hi = np.minimum(q, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(q - window + 1, 0) if window is not None else 0
     pairs = int(np.maximum(hi - lo + 1, 0).sum())
     return 4 * BH * D * pairs
 
 
-def flash_bound(BH, Sq, Sk, D, causal, elem_bytes, window=None, group=1):
+def flash_bound(BH, Sq, Sk, D, causal, elem_bytes, window=None, group=1,
+                q_offset=0):
     """Least time (ms) for one call and what bounds it: the two products
     over the pairs the mask keeps, at the bf16 tensor-core peak, against
     q, k, v (BH / group kv heads) read once and out written once."""
-    flops = flash_flops(BH, Sq, Sk, D, causal, window)
+    flops = flash_flops(BH, Sq, Sk, D, causal, window, q_offset)
     byts = elem_bytes * D * (2 * BH * Sq + 2 * (BH // group) * Sk)
     t_ops, t_mem = flops / BF16_FLOP_PER_S, byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
@@ -2420,6 +2448,17 @@ def flash_checks(dev, rows):
         err = max(err, _flash_compare(
             f"flash_attention case {i} ({FLASH_KERNEL[dt]}): B={B} Sq={Sq} "
             f"Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
+            f"window={window} softcap={cap} {dt}", got, want, dt))
+    for i, (B, Sq, Sk, Hq, Hkv, D, causal, window, cap, dt, off) in \
+            enumerate(FLASH_QOFF_CASES):
+        q, k, v = flash_inputs(B, Sq, Sk, Hq, Hkv, D, dt, dev, 50 + i)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  group=Hq // Hkv, q_offset=off)
+        got = fa.flash_attention_bhsd(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err = max(err, _flash_compare(
+            f"flash_attention q_offset case {i} ({FLASH_KERNEL[dt]}): B={B} "
+            f"Sq={Sq} at offset {off}, Sk={Sk} Hq={Hq} Hkv={Hkv} D={D} "
             f"window={window} softcap={cap} {dt}", got, want, dt))
     for n, shape in enumerate(flash_path_shapes()):
         e, ms = flash_at_shape(dev, *shape)
@@ -3415,6 +3454,7 @@ def moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, dev):
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.embedding import embed
+    from repro_torch.parallel.sharding import ONE_DEVICE
     S = tokens.shape[1]
     h = embed(cfg, p_cpu["embed"], tokens)
     cos, sin = L.rope_tables(torch.arange(S), cfg.head_dim, cfg.rope_theta)
@@ -3422,11 +3462,11 @@ def moe_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, dev):
         res, a_c = [], None
         for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
             lp = L.layer(p["layers"], i)
-            a = T.attention_block(cfg, lp, h.to(d), cos.to(d), sin.to(d),
-                                  window=None)
+            a = T.attention_block(cfg, ONE_DEVICE, lp, h.to(d), cos.to(d),
+                                  sin.to(d), window=None)
             a_in = a if a_c is None else a_c.to(d)
             with routed() as calls:
-                y = T.ffn_block(cfg, lp, a_in)
+                y = T.ffn_block(cfg, ONE_DEVICE, lp, a_in)
             res.append((a.cpu(), (y - a_in).cpu(), calls))
             a_c = res[0][0]
         (a_c, f_c, r_c), (a_g, f_g, r_g) = res
@@ -3686,6 +3726,7 @@ def dense_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, extra, dev):
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.embedding import embed
+    from repro_torch.parallel.sharding import ONE_DEVICE
     S = tokens.shape[1]
     h = T.with_patches(embed(cfg, p_cpu["embed"], tokens),
                        extra.get("patch_embeds"))
@@ -3694,10 +3735,11 @@ def dense_layers_card_vs_cpu(tag, cfg, p_dev, p_cpu, tokens, extra, dev):
         out = []
         for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
             lp = L.layer(p["layers"], i)
-            a = T.attention_block(cfg, lp, h.to(d), cos.to(d), sin.to(d),
-                                  window=None)
+            a = T.attention_block(cfg, ONE_DEVICE, lp, h.to(d), cos.to(d),
+                                  sin.to(d), window=None)
             a_in = a if not out else out[0][0].to(d)
-            out.append((a.cpu(), (T.ffn_block(cfg, lp, a_in) - a_in).cpu()))
+            y = T.ffn_block(cfg, ONE_DEVICE, lp, a_in)
+            out.append((a.cpu(), (y - a_in).cpu()))
         (a_c, f_c), (a_g, f_g) = out
         for name, x, ref in (("attention block", a_g, a_c),
                              ("FFN block", f_g, f_c)):
@@ -4264,6 +4306,319 @@ def profile_round(fn, label="tatp", spans=()):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving on the mesh: eight gloo ranks sharing the card, the
+# same group meshed (1, 8) and then (2, 4), each transformer at full width
+# ---------------------------------------------------------------------------
+TP_DEADLINE_S, TP_SEED = 300, 31
+# (arch, mesh, float32 parity (B, prompt, decode), bf16 serving (B, prompt,
+# decode)): qwen1.5-4b's 20 heads do not divide 8, so the attention runs
+# sequence-parallel and the cache is sequence-sharded ("seq"); glm4-9b's 32
+# heads split 4 ways by heads, its 2 kv heads do not (K/V repeated, 64 of a
+# kv head's 128 columns a rank), and the batch splits over data
+TP_CASES = (("qwen1.5-4b", (1, 8), (1, 512, 4), (2, 2048, 8)),
+            ("glm4-9b", (2, 4), (2, 512, 4), (4, 2048, 8)))
+TP_LAYERS, TP_PARITY_LAYERS = 4, 2
+# float32 parity, the ranks against the one-rank run, as a share of the
+# logit range.  qwen1.5-4b at 2 layers is well conditioned: a 1e-7
+# relative change of its embeddings moved its logits by 1.056e-5 of their
+# range, under a quarter of F32_REL_FAMILY.  glm4-9b at 2 layers is not:
+# the same change moved its logits by 3.978e-4 of their range (its weights
+# at the reference's init scale for 2 stacked layers, 1/sqrt(2), make its
+# scores sharp; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).  By
+# the rule of MOE_F32_REL and LLAVA_F32_REL its limit sits several times
+# above that conditioning, chosen from it before any parity reading, and
+# the run fails if the conditioning passes a quarter of the limit.
+TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3}
+# qwen1.5-4b's forward with pad_heads against without, over all 512
+# positions, as a share of the largest |logit|.  Both branches reorder
+# float32 sums, and over all positions the 2-layer model is ill-conditioned
+# (its attention at the reference's init scale is sharp): padded against
+# unpadded read 7.978e-4, above F32_REL_FAMILY, and a 1e-7 relative change
+# of the embeddings moved the one-rank forward by 7.661e-4, while the last
+# position (the parity runs') moved by 1.056e-5 (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 6).  This limit was chosen after the first of
+# those readings, ~6x above it; the run measures the forward's conditioning
+# over every position and fails if it passes a quarter of the limit.
+TP_PAD_REL = 5e-3
+
+
+def _tp_steps(cfg, topo, params, tokens, prompt, decode):
+    """Prefill logits, then ``decode`` teacher-forced steps' logits, each
+    the rank's block, with the greedy tokens across the vocab blocks."""
+    from repro_torch.models.embedding import greedy
+    from repro_torch.serving.decode import make_decode_step, make_prefill
+    logits, cache = make_prefill(cfg, prompt, decode, topo)(
+        params, {"tokens": tokens[:, :prompt]})
+    out = [logits]
+    step = make_decode_step(cfg, topo)
+    for t in range(prompt, prompt + decode):
+        logits, cache = step(params, cache, tokens[:, t])
+        out.append(logits)
+    return out, [greedy(cfg, x, topo) for x in out]
+
+
+def _tp_params(cfg, topo, dev, dtype=None):
+    """The seeded tree (TP_SEED) drawn leaf by leaf on the card and cut to
+    this rank's blocks (topo None: the whole tree), in ``dtype`` if given."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import init_params
+    p = init_params(api.param_specs(cfg), torch.Generator(
+        device=dev).manual_seed(TP_SEED), dev, topo=topo)
+    return p if dtype is None else _map_tree(p, lambda t: t.to(dtype))
+
+
+def tp_qoffset(topo, B, S, Hq, D, dev):
+    """flash_attention with q_offset at the sequence-parallel rank's prefill
+    shape (its S/tp query rows of every head against every key, bf16,
+    causal): against its plain version within flash_checks' limits, on
+    every rank; then timed on rank 0 alone, beside its plain version, its
+    bound and scaled_dot_product_attention with the same boolean mask (the
+    same function), while the other ranks wait."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    tp = topo.axis_sizes["model"]
+    r = topo.axis_index("model")
+    Sq, off, BH = S // tp, r * (S // tp), B * Hq
+    g = torch.Generator(device=dev).manual_seed(40 + r)
+    mk = lambda n, a: (torch.randn((BH, n, D), generator=g, device=dev) *
+                       a).to(torch.bfloat16)
+    q, k, v = mk(Sq, 0.5), mk(S, 0.5), mk(S, 0.5)
+    tag = (f"flash_attention with q_offset {off} on rank {r} (BH={BH}, "
+           f"Sq={Sq}, Sk={S}, D={D}, causal, bf16)")
+    got = fa.flash_attention_bhsd(q, k, v, q_offset=off)
+    err = _flash_compare(tag, got, fa.flash_attention_plain(
+        q, k, v, q_offset=off), "bfloat16")
+    dist.barrier()
+    out = {"qoff_err": err}
+    if r == tp - 1 and topo.axis_index("data") == 0:
+        # the last rank's rows see the most keys: the heaviest call
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        keep = (torch.arange(S, device=dev)[None]
+                <= off + torch.arange(Sq, device=dev)[:, None])
+        q4, k4, v4 = (t.reshape(B, Hq, -1, D) for t in (q, k, v))
+        out.update(
+            qoff_ms=_mean(time_cuda(lambda: fa.flash_attention_bhsd(
+                q, k, v, q_offset=off), 20)),
+            qoff_plain_ms=_mean(time_cuda(lambda: fa.flash_attention_plain(
+                q, k, v, q_offset=off), 3)),
+            qoff_sdpa_ms=_mean(time_cuda(lambda: sdpa(q4, k4, v4,
+                                                      attn_mask=keep), 20)),
+            qoff_bound=flash_bound(BH, Sq, S, D, True, 2, q_offset=off),
+            qoff_shape=(BH, Sq, S, D, off))
+    dist.barrier()
+    return out
+
+
+def tp_rank(rank, world, dev, cases):
+    """A rank of the tensor-parallel world on ``dev``: for each of
+    ``cases`` (TP_CASES), its mesh
+    over the one group (SERVE_RULES), then the float32 parity run at
+    TP_PARITY_LAYERS (prefill and teacher-forced decode; qwen1.5-4b's
+    forward with and without pad_heads), then bf16 serving at TP_LAYERS
+    through launch.serve with flash_attention's launches counted, and
+    qwen1.5-4b's q_offset kernel at the rank's shape."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.embedding import vocab_block
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.parallel.sharding import SERVE_RULES, Topology
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blk = lambda t, topo: topo.block(t, "batch", *(None,) * (t.dim() - 1))
+    out = {}
+    for arch, shape, (B, P, Dn), (Bs, Ps, Ds) in cases:
+        topo = Topology(make_mesh(shape, ("data", "model"), dev),
+                        dict(SERVE_RULES))
+        res = out[arch] = {"coord": topo.coordinate()}
+        cfg = dataclasses.replace(get(arch), n_layers=TP_PARITY_LAYERS)
+        t0 = time.perf_counter()
+        p = _tp_params(cfg, topo, dev, torch.float32)
+        toks = blk(serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"], topo)
+        steps, greedy = _tp_steps(cfg, topo, p, toks, P, Dn)
+        res["parity"] = [s.cpu() for s in steps]
+        res["greedy"] = [x.cpu() for x in greedy]
+        if arch == cases[0][0]:
+            lo, n = vocab_block(cfg, topo)
+            real = (lo + torch.arange(n, device=dev)) < cfg.vocab_size
+            fwd = [api.forward(cfg, p, {"tokens": toks[:, :P]},
+                               opts=RunOptions(remat=False, pad_heads=pad),
+                               topo=topo)[..., real]
+                   for pad in (False, True)]
+            res["pad_diff"] = float((fwd[1] - fwd[0]).abs().max())
+            res["pad_max"] = float(fwd[0].abs().max())
+            del fwd
+        res["parity_s"] = time.perf_counter() - t0
+        del p
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get(arch), n_layers=TP_LAYERS)
+        p = _tp_params(cfg, topo, dev)
+        batch = {k: blk(v, topo) for k, v in serve.prompt_batch(
+            cfg, Bs, Ps, Ds, dev).items()}
+        serve.serve(cfg, p, batch, 64, 2, topo)           # warm-up
+        fa.launches = 0
+        ids, st = serve.serve(cfg, p, batch, Ps, Ds, topo)
+        res.update(launches=fa.launches, ids=ids.cpu(),
+                   prefill_ms=st["prefill_ms"],
+                   decode_ms_step=st["decode_ms"] / (Ds - 1),
+                   finite=bool(torch.isfinite(st["last_logits"]).all()),
+                   cache_len=int(st["cache"]["len"].max()),
+                   cache_shape=tuple(st["cache"]["k"].shape))
+        del p, st
+        torch.cuda.empty_cache()
+        if arch == cases[0][0]:
+            res.update(tp_qoffset(topo, Bs, Ps, cfg.n_heads, cfg.head_dim,
+                                  dev))
+    return out
+
+
+def tp_one_rank(dev, cases):
+    """The one-rank float32 runs the ranks' parity runs are held to, on the
+    card, with each model's conditioning: the logit change for a 1e-7
+    relative change of the embeddings."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import ONE_DEVICE
+    from repro_torch.models import api
+    from repro_torch.models.transformer import RunOptions
+    out = {}
+    for arch, _, (B, P, Dn), _ in cases:
+        cfg = dataclasses.replace(get(arch), n_layers=TP_PARITY_LAYERS)
+        V = cfg.vocab_size
+        p = _tp_params(cfg, None, dev, torch.float32)
+        toks = serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"]
+        run = lambda q: _tp_steps(cfg, ONE_DEVICE, q, toks, P, Dn)[0]
+        fwd = lambda q: api.forward(cfg, q, {"tokens": toks[:, :P]},
+                                    opts=RunOptions(remat=False))[..., :V]
+        first = arch == cases[0][0]
+        ref = run(p)
+        f0 = fwd(p) if first else None
+        g = torch.Generator(device=dev).manual_seed(2)
+        e = p["embed"]
+        p["embed"] = e * (1 + 1e-7 * torch.randn(e.shape, generator=g,
+                                                 device=dev))
+        moved = max(float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
+                    for a, b in zip(run(p), ref))
+        out[arch] = dict(ref=[x.cpu() for x in ref], moved=moved)
+        if first:                   # the forward over every position
+            out[arch]["fwd_moved"] = float((fwd(p) - f0).abs().max()
+                                           / f0.abs().max())
+        del p, e, f0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_gather(ranks, arch, key, i):
+    """Step i of the ranks' ``key`` blocks put back together: batch rows
+    over data, vocab columns over model."""
+    import torch
+    rows = {}
+    for r in ranks:
+        c = r[arch]["coord"]
+        rows.setdefault(c["data"], {})[c["model"]] = r[arch][key][i]
+    return torch.cat([torch.cat([b[m] for m in sorted(b)], -1)
+                      for _, b in sorted(rows.items())], 0)
+
+
+def tensor_parallel(dev, cases=TP_CASES):
+    """TP_WORLD gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), with the one-rank float32 runs on the card meanwhile in this
+    process: each TP_CASES arch's float32 parity against its one-rank run
+    within F32_REL_FAMILY of the logit range, greedy tokens equal (its
+    conditioning at most a quarter of that limit); qwen1.5-4b's forward
+    with pad_heads (20 -> 24 heads) against without within the same limit;
+    one flash_attention launch per layer per rank per prefill; the q_offset
+    kernel against its plain version on every rank; prefill and decode ms
+    per rank."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.testing.ranks import run_ranks
+    refs = {}
+    world = cases[0][1][0] * cases[0][1][1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_rank, world, device=dev, backend="gloo",
+                      args=(dev, cases), deadline_s=TP_DEADLINE_S,
+                      meanwhile=lambda: refs.update(tp_one_rank(dev, cases)))
+    world_s = time.perf_counter() - t0
+    for arch, shape, (B, P, Dn), (Bs, Ps, Ds) in cases:
+        ref = refs[arch]
+        moved, rel = ref["moved"], TP_F32_REL[arch]
+        V = get(arch).vocab_size
+        got = [_tp_gather(ranks, arch, "parity", i) for i in range(Dn + 1)]
+        print(f"tensor parallel {arch} {shape}: a 1e-7 relative change of "
+              f"the embeddings moves the one-rank float32 logits by "
+              f"{moved:.3e} of their range (at most a quarter of the parity "
+              f"limit {rel}) [{card()}]", flush=True)
+        _compare(f"tensor parallel {arch} {shape}, {TP_PARITY_LAYERS} layers"
+                 f", {B} x {P} + {Dn}, float32, {world} ranks vs one, limit "
+                 f"{rel}", got, ref["ref"], V, rel)
+        check(moved <= rel / 4, f"{arch}: conditioned worse than the "
+              "tensor-parallel parity limit assumes")
+        rows = B // shape[0]               # a rank's batch rows
+        for i in range(Dn + 1):
+            want = got[i][:, :V].argmax(-1)
+            for r in ranks:
+                d = r[arch]["coord"]["data"]
+                check(torch.equal(r[arch]["greedy"][i],
+                                  want[d * rows:(d + 1) * rows]),
+                      f"{arch}: a rank's greedy token differs from the "
+                      f"argmax of the gathered logits at step {i}")
+        for r in ranks:
+            x = r[arch]
+            check(x["launches"] == TP_LAYERS,
+                  f"{arch}: {x['launches']} flash_attention launches on rank "
+                  f"{x['coord']} in a {TP_LAYERS}-layer prefill")
+            check(x["finite"] and x["cache_len"] == Ps + Ds - 1,
+                  f"{arch}: non-finite logits or a wrong cache length")
+            check(bool(((x["ids"] >= 0) & (x["ids"] < V)).all()),
+                  f"{arch}: ids outside the vocabulary")
+        print(f"tensor parallel {arch} {shape}, bf16, {TP_LAYERS} layers, "
+              f"{Bs} x {Ps} + {Ds}: one flash_attention launch per layer on "
+              f"every rank; the cache block {ranks[0][arch]['cache_shape']} "
+              f"a rank; prefill ms by rank "
+              f"{[round(r[arch]['prefill_ms'], 3) for r in ranks]}, decode "
+              f"ms a step by rank "
+              f"{[round(r[arch]['decode_ms_step'], 3) for r in ranks]} "
+              f"({world} ranks time-slice one card: not {world} cards' "
+              f"times); the float32 parity runs "
+              f"{max(r[arch]['parity_s'] for r in ranks):.1f} s a rank "
+              f"[{card()}]", flush=True)
+    qa, tp = cases[0][0], cases[0][1][1]
+    Hq = get(qa).n_heads
+    pad = max(r[qa]["pad_diff"] for r in ranks) / max(
+        r[qa]["pad_max"] for r in ranks)
+    moved = refs[qa]["fwd_moved"]
+    print(f"tensor parallel {qa}: the forward with pad_heads ({Hq} -> "
+          f"{-(-Hq // tp) * tp} heads) against without at tp {tp}, all "
+          f"{cases[0][2][1]} positions: {pad:.3e} of the largest |logit| "
+          f"(limit {TP_PAD_REL}); a 1e-7 relative change of the embeddings "
+          f"moves the one-rank forward by {moved:.3e} (at most a quarter of "
+          f"the limit) [{card()}]", flush=True)
+    check(pad <= TP_PAD_REL, f"{qa}: pad_heads changes the forward")
+    check(moved <= TP_PAD_REL / 4, f"{qa}: the forward is conditioned worse "
+          "than the pad_heads limit assumes")
+    err = max(r[qa]["qoff_err"] for r in ranks)
+    t = next(r[qa] for r in ranks if "qoff_ms" in r[qa])
+    BH, Sq, S, D, off = t["qoff_shape"]
+    bms, bby = t["qoff_bound"]
+    print(f"flash_attention with q_offset at {qa}'s rank shape (BH={BH}, "
+          f"{Sq} rows at offset {off} over {S} keys, D={D}, causal, bf16): "
+          f"max |kernel - plain| over the ranks {err:.3e}; kernel "
+          f"{t['qoff_ms']:.4f} ms, plain {t['qoff_plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention with the same boolean mask "
+          f"{t['qoff_sdpa_ms']:.4f} ms (the same function), bound "
+          f"{bms:.5f} ms ({bby}) [{card()}]", flush=True)
+    print(f"tensor parallel: {world} ranks {world_s:.1f} s", flush=True)
+
+
 KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
     "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                    "src/repro/kernels/hash_probe.py:53", "bytes"),
@@ -4394,6 +4749,12 @@ def main():
     phase("the mesh dataplane: NCCL at world size 1, four ranks on the card")
     t0 = time.perf_counter()
     mesh_dataplane(dev)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("tensor_parallel: qwen1.5-4b on (1, 8) and glm4-9b on (2, 4), "
+          "eight ranks on the card")
+    t0 = time.perf_counter()
+    tensor_parallel(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("serving main path: zamba2-1.2b")

@@ -1,1 +1,2 @@
-from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
+from repro_torch.configs.base import (ModelConfig, SHAPES, ShapeConfig,  # noqa: F401
+                                     shape_applicable)

@@ -5,7 +5,7 @@ use; the full config runs on the card."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +60,11 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def subquadratic(self) -> bool:
+        """May ``long_500k`` run?  Only the SSM and hybrid archs."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def d_inner(self) -> int:
@@ -140,3 +145,21 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                         # train | prefill | decode
+
+
+# the reference's input shapes of the dry run (``repro/configs/base.py``)
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, the reason where it does not): ``long_500k`` only for the
+    sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full-attention arch: 500k decode KV cache is "
+                       "quadratic-history; skipped per assignment rule")
+    return True, ""

@@ -8,7 +8,8 @@ uint32}``, e.g. ``jax.device_get(state)``) and returns the port's tensors on
 
 Model parameters: ``params_from_numpy`` takes the reference's parameter tree
 as numpy arrays (nested dicts) and returns the port's tree on ``device``;
-``params_to_numpy`` is the inverse.  A train state (``{"params", "opt":
+``params_to_numpy`` is the inverse; ``params_block`` cuts a rank's blocks
+of a whole tree for a mesh.  A train state (``{"params", "opt":
 {"master", "m", "v", "step"}}``) crosses in with ``train_state_from_numpy``
 and back with ``params_to_numpy``.  JAX's bf16 arrays come out of
 ``np.asarray`` as ``ml_dtypes.bfloat16``, which torch cannot read, so they
@@ -67,6 +68,18 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def params_block(topo, spec_tree, params):
+    """This rank's block of every leaf of ``params`` under ``topo``
+    (``Topology.block`` by its ParamSpec's logical axes in ``spec_tree``),
+    as contiguous copies: the counterpart of the reference's
+    ``param_shardings`` and ``device_put``."""
+    if isinstance(spec_tree, dict):
+        return {k: params_block(topo, spec_tree[k], params[k])
+                for k in spec_tree}
+    return topo.block(params, *spec_tree.logical_axes).clone(
+        memory_format=torch.contiguous_format)
 
 
 def params_to_numpy(tree):

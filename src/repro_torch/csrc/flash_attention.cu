@@ -9,7 +9,11 @@
 // -1e30); online softmax with float32 m, l and acc; p rounded to the input
 // type before the PV product; out = acc / max(l, 1e-30) in the input type.
 // Whole kv blocks outside the causal / window mask are skipped, by the TPU
-// kernel's `needed` test applied to this kernel's blocks.
+// kernel's `needed` test applied to this kernel's blocks.  Query row i sits
+// at position q_offset + i (the reference's block_attention(q_offset=)): a
+// rank of the sequence-parallel attention holds rows [r S/tp, (r+1) S/tp)
+// against keys [0, S), so every mask test and block bound compares
+// q_offset + i with the key's index, and loads and stores use i.
 //
 // Bound: operations.  At the serving shape (BH 256, S 2048, D 64, causal,
 // bf16) the two products are ~137 GFLOP against ~268 MB of inputs and
@@ -84,8 +88,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                 int n_qb, int group, int causal, int window, int has_cap,
-                 float cap, float scale) {
+                 int q_off, int n_qb, int group, int causal, int window,
+                 int has_cap, float cap, float scale) {
   constexpr int QS = D + 1;     // padded row stride of the q and k tiles
   constexpr int CJ = D / 16;    // acc columns per thread
   extern __shared__ float smem[];
@@ -97,7 +101,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int64_t bh = blockIdx.x / n_qb;
-  const int q0 = (blockIdx.x % n_qb) * kBQ;
+  const int q0 = (blockIdx.x % n_qb) * kBQ;   // first row of the block
+  const int p0 = q_off + q0;                    // and its position
   const T* qp = q + bh * Sq * D;
   const T* kp = k + (bh / group) * Sk * D;
   const T* vp = v + (bh / group) * Sk * D;
@@ -119,9 +124,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // kv blocks the mask needs (the TPU kernel's `needed`, on these blocks)
   const int n_kb = (Sk + kBK - 1) / kBK;
   int j_end = n_kb, j_begin = 0;
-  if (causal) j_end = min(n_kb, (q0 + kBQ - 1) / kBK + 1);
+  if (causal) j_end = min(n_kb, (p0 + kBQ - 1) / kBK + 1);
   if (window > 0) {
-    const int lo = q0 - (window - 1) - (kBK - 1);   // need j * kBK >= lo
+    const int lo = p0 - (window - 1) - (kBK - 1);   // need j * kBK >= lo
     j_begin = lo <= 0 ? 0 : (lo + kBK - 1) / kBK;
   }
 
@@ -156,7 +161,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
+      const int qi = p0 + ty + 16 * i;            // the row's position
       float mx = kNeg;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -217,7 +222,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
-                long long BH, int Sq, int Sk, int group, int causal,
+                long long BH, int Sq, int Sk, int q_off, int group, int causal,
                 int window, int has_cap, float cap, cudaStream_t stream) {
   const int smem = int(sizeof(float)) *
                    (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kPS);
@@ -229,21 +234,22 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out,
   if (BH * n_qb > INT_MAX) return cudaErrorInvalidConfiguration;
   flash_fwd_kernel<T, D><<<unsigned(BH * n_qb), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, int(n_qb),
-      group, causal, window, has_cap, cap, float(1.0 / sqrt(double(D))));
+      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, q_off,
+      int(n_qb), group, causal, window, has_cap, cap,
+      float(1.0 / sqrt(double(D))));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t run_d(int D, const void* q, const void* k, const void* v,
-                  void* out, long long BH, int Sq, int Sk, int group,
-                  int causal, int window, int has_cap, float cap,
+                  void* out, long long BH, int Sq, int Sk, int q_off,
+                  int group, int causal, int window, int has_cap, float cap,
                   cudaStream_t s) {
   switch (D) {
-    case 16: return run<T, 16>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 32: return run<T, 32>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 64: return run<T, 64>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 128: return run<T, 128>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
+    case 16: return run<T, 16>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 32: return run<T, 32>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 64: return run<T, 64>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 128: return run<T, 128>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -475,8 +481,8 @@ struct Mask {
   int Sk, causal, window, has_cap;
   float cap, scale, sl2;   // sl2 = scale * log2(e)
   int kpad;                // keys from kpad on weigh nothing
-  int t, r0, wq0;          // lane % 4; this thread's first row; the
-                           // warpgroup's first row
+  int t, r0, wq0;          // lane % 4; the positions of this thread's
+                           // first row and of the warpgroup's first row
 };
 
 // S = Q K^T for warpgroup wg: D / 16 wgmma k-steps along the panels
@@ -578,8 +584,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ out, int BH, int Sq, int Sk,
-                int n_qb, int group, int causal, int window, int has_cap,
-                float cap, float scale) {
+                int q_off, int n_qb, int group, int causal, int window,
+                int has_cap, float cap, float scale) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -599,14 +605,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int per = hi ? n_hi : n_qb - n_hi;
   const int bh = idx / per;
   const int q0 = ((hi ? n_qb : n_qb - n_hi) - 1 - idx % per) * kBM;
+  const int p0 = q_off + q0;               // the position of row q0
 
   // kv blocks the mask needs: the plain version's `needed`, on its blocks
   // (min(kBM, Sq) q rows, min(kBN, Sk) kv rows)
   const int n_kb = (Sk + kBN - 1) / kBN;
   int j_end = n_kb, j_begin = 0;
-  if (causal) j_end = min(n_kb, (q0 + min(kBM, Sq) - 1) / kBN + 1);
+  if (causal) j_end = min(n_kb, (p0 + min(kBM, Sq) - 1) / kBN + 1);
   if (window > 0) {
-    const int lo = q0 - (window - 1) - (min(kBN, Sk) - 1);
+    const int lo = p0 - (window - 1) - (min(kBN, Sk) - 1);
     j_begin = lo <= 0 ? 0 : (lo + kBN - 1) / kBN;
   }
 
@@ -643,10 +650,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
 
-  // consumers: warpgroup wg owns q rows wq0 .. wq0 + 63; this thread holds
-  // rows r0 and r0 + 8 of each accumulator (the wgmma register layout)
+  // consumers: warpgroup wg owns the q rows at positions wq0 .. wq0 + 63;
+  // this thread holds those at r0 and r0 + 8 of each accumulator (the
+  // wgmma register layout)
   const int wg = warp / 4, g = lane / 4, t = lane % 4;
-  const int wq0 = q0 + 64 * wg;
+  const int wq0 = p0 + 64 * wg;
   // keys past Sk inside a kv block the plain version does not pad (Sk <
   // kBN) weigh nothing, even in a row that no key reaches
   const Mask mk{Sk, causal, window, has_cap, cap, scale, scale * kLog2e,
@@ -741,7 +749,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     turn_end();
   }
 
-  const int r0 = mk.r0;
+  const int r0 = mk.r0 - q_off;             // back to rows of q and out
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
@@ -804,7 +812,7 @@ bool make_map(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 
 template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* out,
-                long long BH, int Sq, int Sk, int group, int causal,
+                long long BH, int Sq, int Sk, int q_off, int group, int causal,
                 int window, int has_cap, float cap, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
@@ -820,21 +828,21 @@ cudaError_t run(const void* q, const void* k, const void* v, void* out,
   const long long n_qb = (Sq + kBM - 1) / kBM;
   if (BH * n_qb > INT_MAX) return cudaErrorInvalidConfiguration;
   flash_tc_kernel<D><<<unsigned(BH * n_qb), kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), int(BH), Sq, Sk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), int(BH), Sq, Sk, q_off,
       int(n_qb), group, causal, window, has_cap, cap,
       float(1.0 / sqrt(double(D))));
   return cudaGetLastError();
 }
 
 cudaError_t run_d(int D, const void* q, const void* k, const void* v,
-                  void* out, long long BH, int Sq, int Sk, int group,
-                  int causal, int window, int has_cap, float cap,
+                  void* out, long long BH, int Sq, int Sk, int q_off,
+                  int group, int causal, int window, int has_cap, float cap,
                   cudaStream_t s) {
   switch (D) {
-    case 16: return run<16>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 32: return run<32>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 64: return run<64>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
-    case 128: return run<128>(q, k, v, out, BH, Sq, Sk, group, causal, window, has_cap, cap, s);
+    case 16: return run<16>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 32: return run<32>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 64: return run<64>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
+    case 128: return run<128>(q, k, v, out, BH, Sq, Sk, q_off, group, causal, window, has_cap, cap, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -844,19 +852,22 @@ cudaError_t run_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 float32 (the CUDA-core kernel above), 1 bfloat16 (the tensor-core
-// kernel).  window <= 0: no window.  Returns the CUDA error of the launch
-// (0 on success); the kernel runs on `stream`.
+// kernel).  window <= 0: no window.  q_offset >= 0: the position of q's
+// first row.  Returns the CUDA error of the launch (0 on success); the
+// kernel runs on `stream`.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, long long BH,
-                                      int Sq, int Sk, int D, int group,
-                                      int causal, int window, int has_cap,
-                                      float cap, int dtype, void* stream) {
+                                      int Sq, int Sk, int q_offset, int D,
+                                      int group, int causal, int window,
+                                      int has_cap, float cap, int dtype,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_offset < 0) return int(cudaErrorInvalidValue);
   if (dtype == 0)
-    return int(run_d<float>(D, q, k, v, out, BH, Sq, Sk, group, causal,
-                            window, has_cap, cap, s));
+    return int(run_d<float>(D, q, k, v, out, BH, Sq, Sk, q_offset, group,
+                            causal, window, has_cap, cap, s));
   if (dtype == 1)
-    return int(tc::run_d(D, q, k, v, out, BH, Sq, Sk, group, causal, window,
-                         has_cap, cap, s));
+    return int(tc::run_d(D, q, k, v, out, BH, Sq, Sk, q_offset, group,
+                         causal, window, has_cap, cap, s));
   return int(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 """Deterministic synthetic batches (counterpart of ``repro/data/pipeline.py``):
 a pure function of (seed, step), made with numpy exactly as the JAX package
 makes them, the audio family's frames and the VLM family's patch
-embeddings included."""
+embeddings included; ``batch_specs`` gives the dry run's batch shapes."""
 from __future__ import annotations
 
 import dataclasses
@@ -63,3 +63,19 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, dc: DataConfig,
             dc.seed * 104729 + step, B, min(cfg.n_patches, shape.seq_len),
             d).to(dev)
     return batch
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """{name: (shape, dtype)} of the dry run's batch for ``shape``
+    (tokens, labels for training, frames or patch embeddings where the
+    family takes them): the reference's ShapeDtypeStructs."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {"tokens": ((B, S), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = ((B, S), torch.int32)
+    if cfg.family == "audio":
+        specs["frames"] = ((B, cfg.encoder_seq, cfg.d_model), torch.bfloat16)
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = ((B, min(cfg.n_patches, S), cfg.d_model),
+                                 torch.bfloat16)
+    return specs

@@ -3,7 +3,10 @@ port of the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_bhsd``).
 
 Heads-major layout: q (BHq, Sq, D), k/v (BHkv, Sk, D) with BHq = BHkv *
-group; q head ``b`` reads kv head ``b // group``.  Online softmax with
+group; q head ``b`` reads kv head ``b // group``.  Query row ``i`` sits at
+position ``q_offset + i`` for the causal and window masks (the reference's
+``block_attention(q_offset=)``; the sequence-parallel attention's rank
+holds rows ``[r S/tp, (r + 1) S/tp)`` against every key).  Online softmax with
 float32 ``m``/``l``/``acc``; causal and sliding-window blocks outside the
 mask are skipped; optional tanh softcap; scale ``D ** -0.5``; ``p`` is
 rounded to the input type before the PV product, as the TPU kernel does.
@@ -55,7 +58,7 @@ def tile(dtype) -> int:
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
-                          q_block=None, kv_block=None, group=1):
+                          q_block=None, kv_block=None, group=1, q_offset=0):
     """Plain PyTorch version: the TPU kernel's algorithm, kv block by kv
     block over all q blocks at once, with its block skipping.  Its default
     tiles are the CUDA kernel's for q's dtype (:func:`tile`), so both round
@@ -75,7 +78,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     acc = torch.zeros((BH, n_q, qb, D), dtype=torch.float32, device=dev)
     m = torch.full((BH, n_q, qb), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((BH, n_q, qb), dtype=torch.float32, device=dev)
-    q_lo = torch.arange(n_q, device=dev) * qb
+    q_lo = q_offset + torch.arange(n_q, device=dev) * qb       # positions
     qpos = q_lo[:, None] + torch.arange(qb, device=dev)          # (n_q, qb)
     for j in range(n_kv):
         k_lo = j * kb
@@ -110,7 +113,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     return out.reshape(BH, n_q * qb, D)[:, :Sq].to(q.dtype)
 
 
-def _launch(q, k, v, *, causal, window, softcap, group):
+def _launch(q, k, v, *, causal, window, softcap, group, q_offset=0):
     global launches
     from repro_torch.kernels import build
     BH, Sq, D = q.shape
@@ -134,12 +137,12 @@ def _launch(q, k, v, *, causal, window, softcap, group):
     fn = build.load("flash_attention").flash_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                 Sq, Sk, D, group, int(causal),
+                 Sq, Sk, int(q_offset), D, group, int(causal),
                  -1 if window is None else window, int(softcap is not None),
                  0.0 if softcap is None else float(softcap), _DTYPES[q.dtype],
                  stream)
@@ -150,17 +153,23 @@ def _launch(q, k, v, *, causal, window, softcap, group):
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True, window=None, softcap=None,
-                         group=1):
+                         group=1, q_offset=0):
     """q (BHq, Sq, D); k/v (BHkv, Sk, D) with BHq == BHkv * group -> (BHq,
-    Sq, D) in q's dtype, tiled ``tile(q.dtype)`` square on either device."""
+    Sq, D) in q's dtype, tiled ``tile(q.dtype)`` square on either device;
+    q's rows at positions ``q_offset`` on."""
     if k.shape[1] == 0:
         raise ValueError("flash_attention: no keys (Sk == 0)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, group=group)
+                                     softcap=softcap, group=group,
+                                     q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                   causal=causal, window=window, softcap=softcap, group=group)
+                   causal=causal, window=window, softcap=softcap, group=group,
+                   q_offset=q_offset)

@@ -40,7 +40,7 @@ def _wants_grad(*ts) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def _flash(q, k, v, causal, window, softcap):
+def _flash(q, k, v, causal, window, softcap, q_offset=0):
     """The forward dispatch in the models' layout."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -48,7 +48,8 @@ def _flash(q, k, v, causal, window, softcap):
     kh = k.transpose(1, 2).reshape(B * Hkv, Sk, D)
     vh = v.transpose(1, 2).reshape(B * Hkv, Sk, D)
     out = fa.flash_attention_bhsd(qh, kh, vh, causal=causal, window=window,
-                                  softcap=softcap, group=Hq // Hkv)
+                                  softcap=softcap, group=Hq // Hkv,
+                                  q_offset=q_offset)
     return out.reshape(B, Hq, Sq, D).transpose(1, 2)
 
 
@@ -57,11 +58,12 @@ class FlashAttention(torch.autograd.Function):
     through ``layers.block_attention_jnp`` recomputed from q, k, v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block):
+    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block,
+                q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, attn_softcap=softcap,
-                      q_block=q_block, kv_block=kv_block)
-        return _flash(q, k, v, causal, window, softcap)
+                      q_block=q_block, kv_block=kv_block, q_offset=q_offset)
+        return _flash(q, k, v, causal, window, softcap, q_offset)
 
     @staticmethod
     def backward(ctx, g):
@@ -70,18 +72,18 @@ class FlashAttention(torch.autograd.Function):
         with torch.enable_grad(), RANGE("flash_attention backward"):
             out = block_attention_jnp(*leaves, **ctx.kw)
             grads = torch.autograd.grad(out, leaves, g)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    q_block=512, kv_block=512):
+                    q_block=512, kv_block=512, q_offset=0):
     """q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D), the models' layout, adapted to
-    the kernel's heads-major (B*H, S, D).  ``q_block`` / ``kv_block`` tile
-    the backward only."""
+    the kernel's heads-major (B*H, S, D); q's rows at positions
+    ``q_offset`` on.  ``q_block`` / ``kv_block`` tile the backward only."""
     if _wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, softcap,
-                                    q_block, kv_block)
-    return _flash(q, k, v, causal, window, softcap)
+                                    q_block, kv_block, q_offset)
+    return _flash(q, k, v, causal, window, softcap, q_offset)
 
 
 class SSDScan(torch.autograd.Function):

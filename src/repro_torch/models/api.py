@@ -1,27 +1,47 @@
 """Family dispatcher (counterpart of ``repro/models/api.py``): ``dense``,
 ``moe`` and ``vlm`` (transformer), ``ssm`` (mamba2), ``hybrid`` (zamba) and
-``audio`` (whisper)."""
+``audio`` (whisper).  The transformer families run on a mesh; the others
+raise on one until their slices port them."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2, transformer, whisper, zamba
+from repro_torch.parallel.sharding import ONE_DEVICE, Topology
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba, "audio": whisper}
+# the slice that ports each of the other families' mesh forward (ROADMAP.md)
+MESH_SLICE = {"ssm": "slice 15 (the SSM/hybrid mesh forward)",
+              "hybrid": "slice 15 (the SSM/hybrid mesh forward)",
+              "audio": "slice 16 (whisper on the mesh)"}
 
 
 def param_specs(cfg: ModelConfig):
     return FAMILIES[cfg.family].param_specs(cfg)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None):
+def one_device_only(cfg: ModelConfig, topo: Topology):
+    """Raise NotImplementedError where ``cfg``'s family has no mesh path and
+    ``topo`` has an axis above 1: nothing runs silently unsharded."""
+    if cfg.family in MESH_SLICE and topo.sharded():
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) has no mesh path yet: "
+            f"{MESH_SLICE[cfg.family]} ports it")
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None,
+            topo: Topology = ONE_DEVICE):
     """batch {"tokens": (B, S)}, with "frames" (audio) or "patch_embeds"
     (vlm) where the family takes them -> logits (B, S, V_padded) float32.
     ``opts``: ``transformer.RunOptions`` (tiles of the attention's backward,
-    remat), the reference's default when None."""
+    remat, ``pad_heads``, ``moe_mode``), the reference's default when None.
+    On a mesh (``topo``; transformer families only) ``params`` and the batch
+    are this rank's blocks and the logits its (B_r, S, V_padded / tp)
+    block."""
     tokens = batch["tokens"]
+    one_device_only(cfg, topo)
     if cfg.family == "ssm":
         return mamba2.forward(cfg, params, tokens, opts=opts)
     if cfg.family == "hybrid":
@@ -29,5 +49,5 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None):
     if cfg.family == "audio":
         return whisper.forward(cfg, params, tokens, frames=batch.get("frames"),
                                opts=opts)
-    return transformer.forward(cfg, params, tokens, opts=opts,   # dense|moe|vlm
+    return transformer.forward(cfg, topo, params, tokens, opts=opts,
                                extra_embeds=batch.get("patch_embeds"))

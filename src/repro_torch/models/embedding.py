@@ -74,21 +74,30 @@ def embed_lookup(topo: Topology, table: torch.Tensor, tokens: torch.Tensor,
     return rows
 
 
-def embed(cfg, table, tokens):
+def embed(cfg, table, tokens, topo: Topology = ONE_DEVICE):
     """The lookup, times sqrt(d_model) where ``cfg.embed_scale``: the factor
     is rounded to the table's dtype first, as the reference rounds it
-    (sqrt(4608) = 67.88 is 68.0 in bf16)."""
-    h = embed_lookup(ONE_DEVICE, table, tokens)
+    (sqrt(4608) = 67.88 is 68.0 in bf16).  On a mesh ``table`` is the
+    rank's vocab block and ``tokens`` its batch block."""
+    h = embed_lookup(topo, table, tokens, vocab=cfg.vocab_padded)
     if cfg.embed_scale:
         h = h * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=h.dtype,
                              device=h.device)
     return h
 
 
-def lm_head(cfg, table, h):
-    """The LM head of normed h (..., d) over ``table`` (V_padded, d) in
-    float32, ``logit_softcap``, and the padded vocab tail masked ->
-    (..., V_padded) float32.  The table goes to float32 LM_HEAD_ELEMS at a
+def vocab_block(cfg, topo: Topology):
+    """(first row, rows) of this rank's block of the (V_padded, d) table."""
+    V = cfg.vocab_padded
+    return topo.extent(topo.spec_for((V, cfg.d_model), ("vocab", None))[0],
+                       V)
+
+
+def lm_head(cfg, table, h, offset: int = 0):
+    """The LM head of normed h (..., d) over ``table`` (V_r, d), rows
+    ``offset`` on of the (V_padded, d) table, in float32,
+    ``logit_softcap``, and the padded vocab tail masked by global index ->
+    (..., V_r) float32.  The table goes to float32 LM_HEAD_ELEMS at a
     time."""
     h = h.float()
     V, d = table.shape
@@ -97,12 +106,34 @@ def lm_head(cfg, table, h):
     rows = max(1, LM_HEAD_ELEMS // d)
     for i in range(0, V, rows):
         out[..., i:i + rows] = h @ table[i:i + rows].float().T
-    return L.mask_pad_logits(L.softcap(out, cfg.logit_softcap), cfg.vocab_size)
+    return L.mask_pad_logits(L.softcap(out, cfg.logit_softcap),
+                             cfg.vocab_size, offset)
 
 
-def logits_of(cfg, params, h):
+def logits_of(cfg, params, h, topo: Topology = ONE_DEVICE):
     """Final norm, then :func:`lm_head` over the untied ``lm_head`` where the
     config has one, else the embedding.  h (..., d) -> (..., V_padded)
-    float32."""
+    float32; on a mesh the rank's vocab block (..., V_padded / tp) where the
+    rules split the vocab (the reference's vocab-sharded logits)."""
     return lm_head(cfg, params.get("lm_head", params["embed"]),
-                   L.rms_norm(h, params["final_norm"]))
+                   L.rms_norm(h, params["final_norm"]),
+                   vocab_block(cfg, topo)[0])
+
+
+def greedy(cfg, logits, topo: Topology = ONE_DEVICE):
+    """Greedy tokens (...,) int64 from logits (..., V_r), the rank's vocab
+    block: each rank's largest value and its first index, all-gathered over
+    the axes the vocab is split over, the largest of those with ties to the
+    lowest global index (``jnp.argmax``'s order)."""
+    lo, n = vocab_block(cfg, topo)
+    if n == cfg.vocab_padded:
+        return logits.argmax(-1)
+    e = topo.spec_for((cfg.vocab_padded, cfg.d_model), ("vocab", None))[0]
+    idx = logits.argmax(-1, keepdim=True)
+    # value and global index side by side in float64 (both exact), one
+    # all-gather
+    both = torch.cat([logits.gather(-1, idx).double(), (idx + lo).double()],
+                     -1)[None]
+    both = topo.gather(both, 0, e)                # (tp, ..., 2) rank order
+    best = both[..., 0].argmax(0, keepdim=True)
+    return both[..., 1].gather(0, best)[0].long()

@@ -82,35 +82,41 @@ def softcap(x, cap: Optional[float]):
     return torch.tanh(x / cap) * cap
 
 
-def mask_pad_logits(logits, vocab_real: int):
-    """-1e30 on the padded vocab tail (``ModelConfig.vocab_padded``)."""
-    if logits.shape[-1] == vocab_real:
+def mask_pad_logits(logits, vocab_real: int, offset: int = 0):
+    """-1e30 on the padded vocab tail (``ModelConfig.vocab_padded``): the
+    columns whose global index ``offset + j`` is ``vocab_real`` or more
+    (``offset``: the first column of a rank's vocab block)."""
+    first = max(0, vocab_real - offset)
+    if logits.shape[-1] <= first:
         return logits
     out = logits.clone()
-    out[..., vocab_real:] = NEG
+    out[..., first:] = NEG
     return out
 
 
 def block_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     attn_softcap: Optional[float] = None,
-                    q_block: int = 512, kv_block: int = 512):
+                    q_block: int = 512, kv_block: int = 512,
+                    q_offset: int = 0):
     """q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D), Hq % Hkv == 0 -> (B, Sq, Hq, D)
-    in q's dtype, through the flash_attention kernel.  ``q_block`` and
-    ``kv_block`` tile the backward (``block_attention_jnp``); the kernel
-    keeps its own tiles."""
+    in q's dtype, through the flash_attention kernel; q's rows sit at
+    positions ``q_offset`` on (the sequence-parallel rank's rows against
+    every key).  ``q_block`` and ``kv_block`` tile the backward
+    (``block_attention_jnp``); the kernel keeps its own tiles."""
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=attn_softcap, q_block=q_block,
-                               kv_block=kv_block)
+                               kv_block=kv_block, q_offset=q_offset)
 
 
 def pair_schedule(n_q: int, n_k: int, q_block: int, kv_block: int,
-                  causal: bool, window: Optional[int]):
+                  causal: bool, window: Optional[int], q_offset: int = 0):
     """The (q block, kv block) pairs that intersect the mask, in the
-    reference's order (``_pair_schedule``, q positions from 0)."""
+    reference's order (``_pair_schedule``: q positions from q_offset)."""
     pairs = []
     for i in range(n_q):
-        q_lo, q_hi = i * q_block, (i + 1) * q_block - 1
+        q_lo = q_offset + i * q_block
+        q_hi = q_offset + (i + 1) * q_block - 1
         for j in range(n_k):
             k_lo, k_hi = j * kv_block, (j + 1) * kv_block - 1
             if causal and k_lo > q_hi:
@@ -124,7 +130,8 @@ def pair_schedule(n_q: int, n_k: int, q_block: int, kv_block: int,
 def block_attention_jnp(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         attn_softcap: Optional[float] = None,
-                        q_block: int = 512, kv_block: int = 512):
+                        q_block: int = 512, kv_block: int = 512,
+                        q_offset: int = 0):
     """The reference's pair-scheduled blockwise attention
     (``repro/models/layers.py::block_attention``) in PyTorch: an online
     softmax over the needed (q block, kv block) pairs in the reference's
@@ -154,13 +161,13 @@ def block_attention_jnp(q, k, v, *, causal: bool = True,
          for _ in range(n_q)]
     l = [torch.zeros((B, Hkv, G, qb), dtype=torch.float32, device=dev)
          for _ in range(n_q)]
-    for i, j in pair_schedule(n_q, n_k, qb, kb, causal, window):
+    for i, j in pair_schedule(n_q, n_k, qb, kb, causal, window, q_offset):
         qs = qg[:, i * qb:(i + 1) * qb].float()
         ks = k[:, j * kb:(j + 1) * kb].float()
         vs = v[:, j * kb:(j + 1) * kb]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qs, ks) * scale
         s = softcap(s, attn_softcap)
-        qpos = i * qb + torch.arange(qb, device=dev)
+        qpos = q_offset + i * qb + torch.arange(qb, device=dev)
         kpos = j * kb + torch.arange(kb, device=dev)
         mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
         if causal:

@@ -28,7 +28,13 @@ reference's sharded modes run on it, chosen per shape by the cost model:
     tokens through every expert at that slice's capacity, and all-gathers
     the outputs; "rpc" where the tokens do not split over the axis;
   * "replicated": where the rules give the experts no mesh axis (wide-DP),
-    every rank holds every expert and routes its own tokens.
+    every rank holds every expert and routes its own tokens;
+  * "local" on a mesh (a ``model`` axis of 1, or one the experts do not
+    divide): the batch blocks are all-gathered and routed together, at
+    the whole batch's capacity, as the reference routes its global batch.
+
+``moe_dispatch`` says which mode a call runs; ``transformer.ffn_block``
+asks it first, to hand the experts' blocks or the whole stacks.
 
 No mode reads a device value on the host.
 """
@@ -148,6 +154,28 @@ def moe_dispatch_mode(cfg: ModelConfig, topo: Topology,
     return choice.mode
 
 
+def moe_dispatch(cfg: ModelConfig, topo: Topology, tokens: int,
+                 mode: str = "auto") -> str:
+    """The mode ``moe_ffn`` runs for ``tokens`` tokens on this rank when
+    asked for ``mode``: the cost model's under "auto"; "replicated" where
+    the rules give the experts no mesh axis on a ``model`` axis above 1
+    (wide-DP); "local" where the axis is 1 or does not divide the experts;
+    "rpc" for "onesided" where the tokens do not split over the axis."""
+    if mode not in MODES:
+        raise ValueError(f"unknown MoE dispatch mode {mode!r}")
+    E = cfg.n_experts
+    tp = topo.axis_sizes.get("model", 1)
+    if mode == "auto":
+        mode = moe_dispatch_mode(cfg, topo, tokens_per_device=tokens)
+    if tp > 1 and not topo._mesh_axes_for("expert", E):
+        return "replicated"
+    if mode == "local" or tp == 1 or E % tp != 0:
+        return "local" if mode != "replicated" else mode
+    if mode == "onesided" and tokens % tp != 0:
+        return "rpc"      # decode-sized batches: too few tokens to split
+    return mode
+
+
 def route(cfg: ModelConfig, x, router_w):
     """The local path's routing of x (B, S, d): (topi, buf, meta)."""
     B, S, d = x.shape
@@ -175,38 +203,49 @@ def _gather(x, group, tp: int):
     return out
 
 
+def _batch_axes(topo: Topology):
+    return tuple(a for a in topo.rules.get("batch", ())
+                 if topo.axis_sizes.get(a, 1) > 1)
+
+
 def moe_ffn(cfg: ModelConfig, topo: Topology, x, router_w, wg, wu, wd,
             mode: str = "auto"):
     """x (B_loc, S, d): this rank's block of a batch split over every batch
     axis of the mesh; router_w (d, E); wg/wu (E_r, d, f), wd (E_r, f, d):
-    this rank's block of the expert stacks, E_r = E / tp where the rules
-    shard the experts over ``model`` and E where they do not.  Returns
-    (B_loc, S, d) in x's dtype."""
-    if mode not in MODES:
-        raise ValueError(f"unknown MoE dispatch mode {mode!r}")
+    this rank's block of the expert stacks, E_r = E / tp where the mode
+    shards the experts over ``model`` ("rpc", "onesided") and E where it
+    runs them all (``moe_dispatch``).  Returns (B_loc, S, d) in x's
+    dtype."""
     B, S, d = x.shape
     E = cfg.n_experts
     tp = topo.axis_sizes.get("model", 1)
     T_loc = B * S
-    if mode == "auto":
-        mode = moe_dispatch_mode(cfg, topo, tokens_per_device=T_loc)
-    if tp > 1 and not topo._mesh_axes_for("expert", E):
+    mode = moe_dispatch(cfg, topo, T_loc, mode)
+    xt = x.reshape(T_loc, d)
+    if mode == "replicated":
         # wide-DP rules: every rank holds every expert and routes its own
         # tokens, with no dispatch collective
-        mode = "replicated"
-    xt = x.reshape(T_loc, d)
-    if mode == "replicated" or mode == "local" or tp == 1 or E % tp != 0:
         _, buf, meta = route(cfg, x, router_w)
         out = _combine(_expert_ffn(buf, wg, wu, wd), meta, T_loc, d)
         return out.reshape(B, S, d)
+    if mode == "local":
+        # the reference routes the whole batch at once (one capacity for
+        # it): a batch split over the mesh is gathered, routed and cut back
+        axes = _batch_axes(topo)
+        xg = topo.gather(x, 0, axes) if axes else x
+        _, buf, meta = route(cfg, xg, router_w)
+        out = _combine(_expert_ffn(buf, wg, wu, wd), meta, xg.shape[0] * S,
+                       d).reshape(xg.shape)
+        if axes:
+            lo, n = topo.extent(axes, xg.shape[0])
+            out = out[lo:lo + n]
+        return out
     E_l = E // tp
     if wg.shape[0] != E_l:
         raise ValueError(f"expert blocks of {E} experts over {tp} ranks hold "
                          f"{E_l}, got {wg.shape[0]}")
     m = topo.axis_index("model")
     group = topo.group("model")
-    if mode == "onesided" and T_loc % tp != 0:
-        mode = "rpc"      # decode-sized batches: too few tokens to split
     if mode == "rpc":
         out = _routed_ffn(cfg, xt, router_w, wg, wu, wd, m * E_l,
                           capacity(cfg, T_loc))

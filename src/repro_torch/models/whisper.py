@@ -82,7 +82,7 @@ def _sinusoid(S: int, d: int, device: str):
     return torch.from_numpy(table).to(torch.bfloat16).to(device)
 
 
-def sinusoid(S: int, d: int, device="cpu"):
+def sinusoid(S: int, d: int, *, device):
     """(S, d) bf16: sin then cos of pos / 10000^(2i/d), computed in float64
     and rounded to bf16 as the reference's ``jnp.asarray`` rounds it.  Row
     p does not depend on S.  Memoized per (S, d, device); do not write into
@@ -140,7 +140,8 @@ def encode(cfg, params, frames, opts=None):
     encoder's normed output.  Its input is rounded to bf16, as the
     reference's."""
     opts = opts or RunOptions()
-    h = (frames + sinusoid(frames.shape[1], cfg.d_model, frames.device)[None]
+    h = (frames + sinusoid(frames.shape[1], cfg.d_model,
+                           device=frames.device)[None]
          ).to(torch.bfloat16)
     per_layer = L.layers(params["enc_layers"])
     body = maybe_remat(lambda hh, i: encoder_layer(cfg, per_layer[i], hh,
@@ -159,7 +160,7 @@ def no_frames(cfg, B, device):
 def embed_tokens(cfg, params, tokens):
     """The token embeddings plus their sinusoidal positions (B, S, d)."""
     return embed_lookup(ONE_DEVICE, params["embed"], tokens) + sinusoid(
-        tokens.shape[1], cfg.d_model, tokens.device)[None]
+        tokens.shape[1], cfg.d_model, device=tokens.device)[None]
 
 
 def head(cfg, params, h):

@@ -50,7 +50,8 @@ def param_specs(cfg: ModelConfig):
 
 def shared_block(cfg: ModelConfig, p, h, cos, sin, opts=None):
     opts = opts or T.RunOptions()
-    return T.decoder_layer(_shared_cfg(cfg), p, h, cos, sin, local=False,
+    return T.decoder_layer(_shared_cfg(cfg), ONE_DEVICE, p, h, cos, sin,
+                           local=False,
                            q_block=opts.q_block, kv_block=opts.kv_block)
 
 

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -82,10 +83,20 @@ class Topology:
     mesh: object
     rules: Dict[str, Tuple[str, ...]] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_RULES))
+    # axis sizes, sharded() and spec_for's entries, worked out once a
+    # topology (the models ask for the same leaves' entries every layer of
+    # every step); the mesh and the rules are not changed after the
+    # topology is made
+    _memo: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
-        return dict(zip(self.mesh.mesh_dim_names, tuple(self.mesh.shape)))
+        sizes = self._memo.get("axis_sizes")
+        if sizes is None:
+            sizes = self._memo["axis_sizes"] = dict(zip(
+                self.mesh.mesh_dim_names, tuple(self.mesh.shape)))
+        return sizes
 
     def _prod(self, axes) -> int:
         return math.prod(self.axis_sizes[a] for a in axes)
@@ -106,6 +117,10 @@ class Topology:
                  logical_axes: Sequence[Optional[str]]) -> tuple:
         """The reference's PartitionSpec entries of a (shape, logical axes)
         leaf; a mesh axis serves at most one dimension."""
+        key = (tuple(shape), tuple(logical_axes))
+        hit = self._memo.get(key)
+        if hit is not None:
+            return hit
         if len(shape) != len(logical_axes):
             raise ValueError(f"shape {tuple(shape)} vs axes {logical_axes}")
         entries = []
@@ -118,15 +133,41 @@ class Topology:
                 axes = axes[:-1]
             used.update(axes)
             entries.append(axes if len(axes) > 1 else (axes[0] if axes else None))
-        return tuple(entries)
+        self._memo[key] = tuple(entries)
+        return self._memo[key]
 
     def coordinate(self) -> Dict[str, int]:
-        """This rank's index along every mesh axis (a DeviceMesh only)."""
+        """This rank's index along every mesh axis (a DeviceMesh only; an
+        AbstractMesh gives rank 0's, every index 0)."""
+        if isinstance(self.mesh, AbstractMesh):
+            return {a: 0 for a in self.mesh.mesh_dim_names}
         return dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
 
     def axis_index(self, axis: str) -> int:
-        """This rank's index along ``axis`` (0 where the mesh lacks it)."""
+        """This rank's index along ``axis`` (0 where the mesh lacks it or
+        the axis is 1 wide)."""
+        if self.axis_sizes.get(axis, 1) == 1:
+            return 0
         return self.coordinate().get(axis, 0)
+
+    def sharded(self) -> bool:
+        """Does any mesh axis have more than one rank?"""
+        hit = self._memo.get("sharded")
+        if hit is None:
+            hit = self._memo["sharded"] = any(
+                n > 1 for n in self.axis_sizes.values())
+        return hit
+
+    def extent(self, entry, dim: int) -> Tuple[int, int]:
+        """(first index, length) of this rank's block of a dimension of
+        ``dim`` under a ``spec_for`` entry (None, an axis, or axes a1-major
+        as :meth:`block` cuts them)."""
+        axes = entry_axes(entry)
+        idx = 0
+        for a in axes:
+            idx = idx * self.axis_sizes[a] + self.axis_index(a)
+        n = dim // self._prod(axes)
+        return idx * n, n
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
@@ -149,15 +190,72 @@ class Topology:
             x = x.narrow(dim, idx * n, n)
         return x
 
+    def gather(self, x, dim: int, entry):
+        """All-gather dimension ``dim`` of this rank's block ``x`` over the
+        mesh axes of a ``spec_for`` entry: the inverse of :meth:`block`
+        along it.  Axes a1-major: the minor axis is gathered first, so
+        each step joins whole blocks of the next.  Axes 1 wide cost
+        nothing."""
+        return self.gather_many([x], [dim], entry)[0]
+
+    def gather_many(self, xs, dims, entry):
+        """:meth:`gather` of several blocks of one dtype (``xs[i]`` along
+        ``dims[i]``) over the same entry, in one collective an axis: each
+        rank's blocks travel flattened side by side."""
+        xs = list(xs)
+        for a in reversed(entry_axes(entry)):
+            n = self.axis_sizes[a]
+            if n == 1:
+                continue
+            parts = [x.movedim(d, 0) for x, d in zip(xs, dims)]
+            flat = torch.cat([p.reshape(-1) for p in parts])
+            out = flat.new_empty(n * flat.numel())
+            dist.all_gather_into_tensor(out, flat, group=self.group(a))
+            out = out.view(n, -1)
+            at = 0
+            for i, (p, d) in enumerate(zip(parts, dims)):
+                y = out[:, at:at + p.numel()].reshape((n,) + tuple(p.shape))
+                xs[i] = y.reshape((n * p.shape[0],) + tuple(
+                    p.shape[1:])).movedim(0, d)
+                at += p.numel()
+        return xs
+
+    def all_reduce(self, x, entry):
+        """Sum ``x``, a partial result, over the mesh axes of a ``spec_for``
+        entry, in place; returns it."""
+        for a in entry_axes(entry):
+            if self.axis_sizes[a] > 1:
+                dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group(a))
+        return x
+
+    def full(self, x, shape: Sequence[int],
+             logical_axes: Sequence[Optional[str]], keep: Sequence[int] = ()):
+        """This rank's block ``x`` of a global tensor of ``shape`` with
+        every sharded dimension gathered but those in ``keep``."""
+        for dim, entry in enumerate(self.spec_for(shape, logical_axes)):
+            if entry is not None and dim not in keep:
+                x = self.gather(x, dim, entry)
+        return x
+
     def constrain(self, x, *logical_axes):
-        """The identity on a rank's local block.  The reference's
-        ``with_sharding_constraint`` becomes real with the tensor-parallel
-        forward (ROADMAP.md, slice 13)."""
+        """The identity.  Where the reference pins a layout with
+        ``with_sharding_constraint`` and lets GSPMD place the collectives,
+        the port's tensor-parallel code (``models/transformer.py``,
+        ``serving/``) already holds each rank's block in that layout and
+        calls :meth:`gather` and :meth:`all_reduce` itself, so there is
+        nothing left to pin."""
         return x
 
 
 # one device: every logical axis maps to a mesh axis of size 1
 ONE_DEVICE = Topology(AbstractMesh(("data", "model"), (1, 1)))
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of a ``spec_for`` entry, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 
@@ -198,15 +296,22 @@ class ParamSpec:
         return x.normal_(0.0, 1.0, generator=generator).mul_(self.scale)
 
 
-def init_params(spec_tree, generator: torch.Generator, device="cuda"):
+def init_params(spec_tree, generator: torch.Generator, device="cuda",
+                topo: Optional[Topology] = None):
     """The parameter tree of ``spec_tree`` (nested dicts of ParamSpec), drawn
     leaf by leaf in sorted key order on the generator's device and moved to
-    ``device``."""
+    ``device``.  With ``topo`` each leaf is cut to this rank's block as soon
+    as it is drawn (the same draws as without), so a rank holds one whole
+    leaf at a time beside its blocks."""
     dev = resolve_device(device)
 
     def walk(t):
         if isinstance(t, ParamSpec):
-            return t.initialize(generator).to(dev)
+            x = t.initialize(generator).to(dev)
+            if topo is not None:
+                x = topo.block(x, *t.logical_axes).clone(
+                    memory_format=torch.contiguous_format)
+            return x
         return {k: walk(t[k]) for k in sorted(t)}
     return walk(spec_tree)
 

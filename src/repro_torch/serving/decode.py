@@ -23,6 +23,17 @@ A decode step writes into the cache it is given, in place, as XLA does the
 reference's ``.at[].set``: the new token's K/V at offset ``len`` of each row,
 each Mamba layer's new states over its old ones.  It returns the cache with
 ``len`` advanced; clone the tensors first to keep the old cache.
+
+On a mesh (``make_decode_step(cfg, topo=)``, the transformer families) a
+rank holds its blocks of the parameters, the batch and the cache: in
+"heads" mode it projects and attends its own query and kv heads and the
+output projection is row-parallel (one all-reduce over ``model``); in
+"seq" mode the query and the new K/V are every head's (the projections'
+column blocks all-gathered), the rank that owns position ``len`` of a row
+writes it (the reference's ``.at[rows, lens].set`` on a sequence-sharded
+cache), the attention runs as ``_flash_decode_shardmap`` and the output
+projection row-parallel.  The FFN and the vocab-sharded LM head are the
+prefill's.
 """
 from __future__ import annotations
 
@@ -108,6 +119,32 @@ def append_kv(kc, vc, k_new, v_new, lens):
     vc[rows, lens.long()] = v_new.to(vc.dtype)
 
 
+def append_kv_owned(kc, vc, k_new, v_new, pos):
+    """The sequence-sharded cache's append on a rank: kc/vc (B, S_r, Hkv,
+    hd) hold positions [first, first + S_r) of each row and ``pos`` (B,) is
+    ``lens - first``; a row's new K/V is written where 0 <= pos < S_r (this
+    rank owns position ``lens``), the others keep their words.  No host
+    sync."""
+    S_r = kc.shape[1]
+    ok = ((pos >= 0) & (pos < S_r))[:, None, None]
+    at = pos.clamp(0, S_r - 1).long()
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    kc[rows, at] = torch.where(ok, k_new.to(kc.dtype), kc[rows, at])
+    vc[rows, at] = torch.where(ok, v_new.to(vc.dtype), vc[rows, at])
+
+
+def seq_block(topo: Topology, rows: int):
+    """(entry, first position, tp) of a rank's block of a sequence-sharded
+    cache whose blocks hold ``rows`` positions: the ``spec_for`` entry of
+    ``kv_seq`` (None where the rules give it no axis, then the whole cache
+    is the block), where the block starts, and the number of blocks."""
+    axes = tuple(a for a in topo.rules.get("kv_seq", ())
+                 if a in topo.axis_sizes)
+    n = topo._prod(axes)
+    e = None if not axes else (axes[0] if len(axes) == 1 else axes)
+    return e, topo.extent(e, rows * n)[0], n
+
+
 def _rope_single(x, lens, theta):
     """x (B, H, hd) rotated at per-row positions lens (B,)."""
     cos, sin = L.rope_tables(lens, x.shape[-1], theta)
@@ -125,13 +162,15 @@ def _flash_decode_shardmap(cfg: ModelConfig, topo: Topology, q, kc, vc, lens,
                            window):
     """The "seq" (RPC) path on a rank: q (B_loc, Hq, hd) is every rank's
     query, kc/vc (B_loc, S_loc, Hkv, hd) the rank's sequence block (its
-    positions start at rank * S_loc along ``model``), lens (B_loc,).  The
-    block's partial (m, l, o) are combined over the ``model`` group by an
-    all-reduce MAX of m, then SUMs of l * corr and o * corr."""
+    positions and its group from :func:`seq_block`), lens (B_loc,).  The
+    block's partial (m, l, o) travel in one all-gather over the ``kv_seq``
+    axes and every rank combines them alike: the largest m, then the sums
+    of l * corr and o * corr in rank order (the reference's pmax and two
+    psums, one collective instead of three)."""
     B, S_loc, Hkv, hd = kc.shape
     G = q.shape[1] // Hkv
-    pos = (topo.axis_index("model") * S_loc
-           + torch.arange(S_loc, device=q.device))
+    es, first, _ = seq_block(topo, S_loc)
+    pos = first + torch.arange(S_loc, device=q.device)
     mask = pos[None] < lens[:, None]
     if window is not None:
         mask &= pos[None] > (lens[:, None] - 1) - window
@@ -143,14 +182,12 @@ def _flash_decode_shardmap(cfg: ModelConfig, topo: Topology, q, kc, vc, lens,
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p.to(vc.dtype).float(), vc.float())
-    group = topo.group("model")
-    m_all = m.clone()
-    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
-    corr = torch.exp(m - m_all)
-    l_all = l * corr
-    o_all = o * corr[..., None]
-    dist.all_reduce(l_all, op=dist.ReduceOp.SUM, group=group)
-    dist.all_reduce(o_all, op=dist.ReduceOp.SUM, group=group)
+    part = torch.cat([m[..., None], l[..., None], o], -1)[None]
+    part = topo.gather(part, 0, es)             # (tp, B, Hkv, G, 2 + hd)
+    m_all = part[..., 0].amax(0)
+    corr = torch.exp(part[..., 0] - m_all)
+    l_all = (part[..., 1] * corr).sum(0)
+    o_all = (part[..., 2:] * corr[..., None]).sum(0)
     out = o_all / l_all.clamp(min=1e-30)[..., None]
     return out.reshape(q.shape).to(q.dtype)
 
@@ -167,25 +204,43 @@ def hybrid_decode_attention(cfg: ModelConfig, topo: Topology, q, kc, vc,
     return _flash_decode_shardmap(cfg, topo, q, kc, vc, lens, window)
 
 
-def _tf_decode_layer(cfg, p, h, kc, vc, lens, *, local: bool):
+def _tf_decode_layer(cfg, topo, p, h, kc, vc, lens, *, local: bool):
     """Dense or MoE decoder layer for one token.  h (B, d); the token's K/V
-    go into kc/vc at ``lens``.  The FFN is the prefill's
-    (``transformer.ffn_block``) over the B tokens."""
+    go into kc/vc (this rank's cache block) at ``lens``.  The FFN is the
+    prefill's (``transformer.ffn_block``) over the B tokens."""
     B = h.shape[0]
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     hn = L.rms_norm(h, p["attn_norm"])
-    q, k, v = hn @ p["wq"], hn @ p["wk"], hn @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = _rope_single(q.reshape(B, Hq, hd), lens, cfg.rope_theta)
-    k = _rope_single(k.reshape(B, Hkv, hd), lens, cfg.rope_theta)
-    append_kv(kc, vc, k, v.reshape(B, Hkv, hd), lens)
     window = cfg.sliding_window if local else None
-    att = decode_attention(cfg, q, kc, vc, lens + 1, window=window)
-    o = att.reshape(B, Hq * hd) @ p["wo"]
+    if kv_mode(cfg, topo) == "heads":
+        eq, lo, nh = T._heads(topo, "heads", Hq)
+        ekv, klo, nk = T._heads(topo, "kv_heads", Hkv)
+        q = T._local_cols(topo, cfg, p, "wq", hn, lo * hd, nh * hd, eq)
+        k = T._local_cols(topo, cfg, p, "wk", hn, klo * hd, nk * hd, ekv)
+        v = T._local_cols(topo, cfg, p, "wv", hn, klo * hd, nk * hd, ekv)
+        q = _rope_single(q.reshape(B, nh, hd), lens, cfg.rope_theta)
+        k = _rope_single(k.reshape(B, nk, hd), lens, cfg.rope_theta)
+        append_kv(kc, vc, k, v.reshape(B, nk, hd), lens)
+        att = decode_attention(cfg, q, kc, vc, lens + 1, window=window)
+        o = T._local_rows(topo, cfg, p, "wo", att.reshape(B, nh * hd),
+                          lo * hd, nh * hd, eq)
+    else:
+        q, k, v = T._project(topo, cfg, p, hn, ("wq", "wk", "wv"))
+        q = _rope_single(q.reshape(B, Hq, hd), lens, cfg.rope_theta)
+        k = _rope_single(k.reshape(B, Hkv, hd), lens, cfg.rope_theta)
+        es, first, _ = seq_block(topo, kc.shape[1])
+        append_kv_owned(kc, vc, k, v.reshape(B, Hkv, hd), lens - first)
+        att = (decode_attention(cfg, q, kc, vc, lens + 1, window=window)
+               if es is None else
+               _flash_decode_shardmap(cfg, topo, q, kc, vc, lens + 1, window))
+        er = T._entry(topo, cfg, "wo", 0)
+        rlo, rn = topo.extent(er, Hq * hd)
+        o = T._local_rows(topo, cfg, p, "wo",
+                          att.reshape(B, Hq * hd)[:, rlo:rlo + rn], rlo, rn,
+                          er)
     if cfg.post_norms:
         o = L.rms_norm(o, p["attn_post_norm"])
-    return T.ffn_block(cfg, p, (h + o)[:, None])[:, 0]
+    return T.ffn_block(cfg, topo, p, (h + o)[:, None])[:, 0]
 
 
 def _ssm_decode_layer(cfg, p, h, cache, i: int):
@@ -199,14 +254,14 @@ def _ssm_decode_layer(cfg, p, h, cache, i: int):
     return h2[:, 0]
 
 
-def _tf_decode(cfg: ModelConfig, params, cache, tokens):
+def _tf_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
     lens = cache["len"]
-    h = embed(cfg, params["embed"], tokens[:, None])[:, 0]
+    h = embed(cfg, params["embed"], tokens[:, None], topo)[:, 0]
     for i in range(cfg.n_layers):
-        h = _tf_decode_layer(cfg, L.layer(params["layers"], i), h,
+        h = _tf_decode_layer(cfg, topo, L.layer(params["layers"], i), h,
                              cache["k"][i], cache["v"][i], lens,
                              local=T.is_local(cfg, i))
-    return logits_of(cfg, params, h), dict(cache, len=lens + 1)
+    return logits_of(cfg, params, h, topo), dict(cache, len=lens + 1)
 
 
 def _ssm_decode(cfg: ModelConfig, params, cache, tokens):
@@ -228,7 +283,7 @@ def _hybrid_decode(cfg: ModelConfig, params, cache, tokens):
         h = _ssm_decode_layer(cfg, L.layer(params["layers"], i), h, cache, i)
         if i % k == k - 1:
             a = i // k
-            h = _tf_decode_layer(scfg, params["shared"], h,
+            h = _tf_decode_layer(scfg, ONE_DEVICE, params["shared"], h,
                                  cache["shared_k"][a], cache["shared_v"][a],
                                  lens, local=False)
     for i in range(n_scan, cfg.n_layers):
@@ -262,7 +317,7 @@ def _wh_decode_layer(cfg, p, h, kc, vc, xk, xv, lens, xlen):
 def _wh_decode(cfg: ModelConfig, params, cache, tokens):
     """The token's position is row ``len`` of the sinusoid table."""
     lens = cache["len"]
-    pos = W.sinusoid(cache["k"].shape[2], cfg.d_model, tokens.device)
+    pos = W.sinusoid(cache["k"].shape[2], cfg.d_model, device=tokens.device)
     h = (embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
          + pos[lens.long()])
     xlen = torch.full_like(lens, cache["xk"].shape[2])     # every frame
@@ -273,18 +328,27 @@ def _wh_decode(cfg: ModelConfig, params, cache, tokens):
     return W.head(cfg, params, h), dict(cache, len=lens + 1)
 
 
-_DECODE = {"dense": _tf_decode, "moe": _tf_decode, "vlm": _tf_decode,
-           "ssm": _ssm_decode, "hybrid": _hybrid_decode, "audio": _wh_decode}
+_DECODE = {"ssm": _ssm_decode, "hybrid": _hybrid_decode, "audio": _wh_decode}
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, topo: Topology = ONE_DEVICE):
     """decode_step(params, cache, tokens (B,)) -> (logits (B, V_padded) f32,
-    the cache, written in place, with ``len`` advanced)."""
+    the cache, written in place, with ``len`` advanced).  On a mesh
+    (transformer families) the rank's blocks in and its logits block
+    (B_r, V_padded / tp) out."""
+    from repro_torch.models.api import one_device_only
+    one_device_only(cfg, topo)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return partial(_tf_decode, cfg, topo)
     return partial(_DECODE[cfg.family], cfg)
 
 
-def make_prefill(cfg: ModelConfig, S: int, room: int = 0):
+def make_prefill(cfg: ModelConfig, S: int, room: int = 0,
+                 topo: Topology = ONE_DEVICE):
     """prefill(params, batch) -> (last-position logits (B, V_padded), cache
-    holding S positions and ``room`` more, zeros, for decode)."""
+    holding S positions and ``room`` more, zeros, for decode).  On a mesh
+    (transformer families) the rank's blocks in, its logits and cache
+    blocks out; in "seq" cache mode the room is rounded up so that S +
+    room divides over the ``kv_seq`` axes."""
     from repro_torch.serving.prefill import prefill_fn
-    return partial(prefill_fn, cfg, S, room)
+    return partial(prefill_fn, cfg, topo, S, room)

@@ -11,6 +11,12 @@ The K/V regions are allocated once, for the prompt and ``room`` more
 positions, and each layer's rows are written into them: at gemma2-27b's
 2 x 8,192 positions the region is 6.2 GB, so neither a stack of per-layer
 rows nor a later pad copies it.
+
+On a mesh (the transformer families, ``_tf_prefill``: the reference's
+``_attn_with_cache``) a rank's region is its block of the cache in
+``decode.kv_mode``'s layout: its kv heads in "heads" mode; in "seq" mode
+its rows of every head, positions [r L/tp, (r + 1) L/tp) of the L = S +
+room positions, where ``room`` is rounded up so that tp divides L.
 """
 from __future__ import annotations
 
@@ -23,8 +29,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.embedding import embed, embed_lookup, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
-from repro_torch.parallel.sharding import ONE_DEVICE
-from repro_torch.serving.decode import SSM_CACHE
+from repro_torch.models.api import one_device_only
+from repro_torch.parallel.sharding import ONE_DEVICE, Topology
+from repro_torch.serving.decode import SSM_CACHE, _kv_axes, kv_mode, seq_block
 
 
 def _rope(cfg, S, device):
@@ -45,34 +52,54 @@ def _ssm_prefill_layer(cfg, p, h, states):
     return h
 
 
-def _kv_region(cfg, n, h, room):
+def _kv_region(cfg, n, h, room, topo: Topology = ONE_DEVICE):
     """K and V regions of ``n`` attention layers of ``cfg``: (n, B, S + room,
     Hkv, hd) zeros in the dtype of the activations h (B, S, d) they are
-    projected from."""
+    projected from; on a mesh the rank's block of them in the cache's
+    layout, with room rounded up in "seq" mode (see the module)."""
     B, S = h.shape[:2]
+    axes = list(_kv_axes(kv_mode(cfg, topo)))
+    if "kv_seq" in axes:
+        tp = seq_block(topo, 0)[2]
+        room = -(-(S + room) // tp) * tp - S
+    axes[1] = None                       # h is the rank's batch block
     shape = (n, B, S + room, cfg.n_kv_heads, cfg.head_dim)
+    shape = topo.block(torch.empty(shape, device="meta"), *axes).shape
     return tuple(torch.zeros(shape, dtype=h.dtype, device=h.device)
                  for _ in "kv")
+
+
+def _put_kv(kc, vc, k, v, first):
+    """Rows [first, first + kc.shape[1]) of the prompt's K/V (B, S, H, hd)
+    into this rank's region rows kc/vc (B, S_r, H, hd), as far as the prompt
+    reaches."""
+    n = max(0, min(kc.shape[1], k.shape[1] - first))
+    kc[:, :n] = k[:, first:first + n]
+    vc[:, :n] = v[:, first:first + n]
 
 
 def _lens(B, S, device):
     return torch.full((B,), S, dtype=torch.int32, device=device)
 
 
-def _tf_prefill(cfg: ModelConfig, S, room, params, batch):
+def _tf_prefill(cfg: ModelConfig, topo: Topology, S, room, params, batch):
     tokens = batch["tokens"]
-    h = T.with_patches(embed(cfg, params["embed"], tokens),
+    h = T.with_patches(embed(cfg, params["embed"], tokens, topo),
                        batch.get("patch_embeds"))
     cos, sin = _rope(cfg, S, tokens.device)
-    kc, vc = _kv_region(cfg, cfg.n_layers, h, room)
+    kc, vc = _kv_region(cfg, cfg.n_layers, h, room, topo)
+    first = 0
+    if kv_mode(cfg, topo) == "seq":
+        first = seq_block(topo, kc.shape[2])[1]
     for i in range(cfg.n_layers):
         p = L.layer(params["layers"], i)
         window = cfg.sliding_window if T.is_local(cfg, i) else None
-        h, kc[i, :, :S], vc[i, :, :S] = T.attention_block(
-            cfg, p, h, cos, sin, window=window, return_kv=True)
-        h = T.ffn_block(cfg, p, h)
+        h, k, v = T.attention_block(cfg, topo, p, h, cos, sin, window=window,
+                                    return_kv=True)
+        _put_kv(kc[i], vc[i], k, v, first)
+        h = T.ffn_block(cfg, topo, p, h)
     cache = {"k": kc, "v": vc, "len": _lens(h.shape[0], S, h.device)}
-    return logits_of(cfg, params, h[:, -1]), cache
+    return logits_of(cfg, params, h[:, -1], topo), cache
 
 
 def _ssm_prefill(cfg: ModelConfig, S, room, params, batch):
@@ -100,9 +127,9 @@ def _hybrid_prefill(cfg: ModelConfig, S, room, params, batch):
         if i % k == k - 1:
             a = i // k
             h, kc[a, :, :S], vc[a, :, :S] = T.attention_block(
-                scfg, params["shared"], h, cos, sin, window=None,
+                scfg, ONE_DEVICE, params["shared"], h, cos, sin, window=None,
                 return_kv=True)
-            h = T.ffn_block(scfg, params["shared"], h)
+            h = T.ffn_block(scfg, ONE_DEVICE, params["shared"], h)
     for i in range(cfg.n_layers - n_scan):
         h = _ssm_prefill_layer(cfg, L.layer(params["tail_layers"], i), h,
                                states)
@@ -135,10 +162,13 @@ def _wh_prefill(cfg: ModelConfig, S, room, params, batch):
     return W.head(cfg, params, h[:, -1]), cache
 
 
-_PREFILL = {"dense": _tf_prefill, "moe": _tf_prefill, "vlm": _tf_prefill,
-            "ssm": _ssm_prefill, "hybrid": _hybrid_prefill,
+_PREFILL = {"ssm": _ssm_prefill, "hybrid": _hybrid_prefill,
             "audio": _wh_prefill}
 
 
-def prefill_fn(cfg: ModelConfig, S: int, room: int, params, batch):
+def prefill_fn(cfg: ModelConfig, topo: Topology, S: int, room: int, params,
+               batch):
+    one_device_only(cfg, topo)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _tf_prefill(cfg, topo, S, room, params, batch)
     return _PREFILL[cfg.family](cfg, S, room, params, batch)

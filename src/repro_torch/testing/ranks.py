@@ -38,6 +38,8 @@ def _rank_main(fn, rank, world_size, device, backend, init_method, args,
     try:
         import torch.distributed as dist
         from repro_torch.launch.mesh import init_group
+        if isinstance(device, (list, tuple)):
+            device = device[rank]
         init_group(device, rank=rank, world_size=world_size,
                    init_method=init_method, backend=backend)
         result = fn(rank, world_size, *args)
@@ -54,12 +56,13 @@ def _rank_main(fn, rank, world_size, device, backend, init_method, args,
         os._exit(1)
 
 
-def run_ranks(fn, world_size: int, *, device="cpu", args=(),
+def run_ranks(fn, world_size: int, *, device, args=(),
               backend: Optional[str] = None, deadline_s: float = 120.0,
               workdir=None, meanwhile=None):
     """``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks, each
-    joined to the default process group on ``device`` (the backend from
-    the device unless ``backend`` names one).  The rendezvous file and the
+    joined to the default process group on ``device`` (one for all ranks,
+    or a sequence of one a rank; the backend from the device unless
+    ``backend`` names one).  The rendezvous file and the
     results go in a new directory under ``workdir`` (default the temporary
     directory), removed after.  ``meanwhile``, if given, is called here
     once the ranks have started.  Returns the results in rank order;

@@ -35,6 +35,7 @@ from repro_torch.models import api, transformer, whisper  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.transformer import RunOptions  # noqa: E402
 from repro_torch.optim import adamw as A  # noqa: E402
+from repro_torch.parallel.sharding import ONE_DEVICE  # noqa: E402
 from repro_torch.serving import decode as D  # noqa: E402
 from repro_torch.train import step as S  # noqa: E402
 
@@ -122,13 +123,13 @@ def test_full_trees_counted_from_specs(arch):
 @pytest.mark.parametrize("S,d", [(1500, 1024), (448, 1024), (24, 64),
                                  (4096, 1024)])
 def test_sinusoid_bit_for_bit(S, d):
-    got = whisper.sinusoid(S, d)
+    got = whisper.sinusoid(S, d, device="cpu")
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (S, d)
     want = np.asarray(jW.sinusoid(S, d))
     np.testing.assert_array_equal(tensor_to_numpy(got).view(np.uint16),
                                   want.view(np.uint16))
     # row p does not depend on the table's length
-    assert torch.equal(whisper.sinusoid(S + 7, d)[:S], got)
+    assert torch.equal(whisper.sinusoid(S + 7, d, device="cpu")[:S], got)
 
 
 @pytest.mark.parametrize("arch", ARCH_LIST)
@@ -266,7 +267,7 @@ def test_patches_take_the_first_positions():
     with_p = api.forward(cfg, params, batch)
     without = api.forward(cfg, params, {"tokens": batch["tokens"]})
     assert not torch.allclose(with_p[:, 0], without[:, 0])
-    same = transformer.forward(cfg, params, batch["tokens"],
+    same = transformer.forward(cfg, ONE_DEVICE, params, batch["tokens"],
                                extra_embeds=batch["patch_embeds"])
     assert torch.equal(same, with_p)
     cfg, params = serve.build("whisper-medium", smoke=True, device="cpu")

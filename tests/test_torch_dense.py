@@ -20,7 +20,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.embedding import embed  # noqa: E402
 from repro_torch.parallel import sharding  # noqa: E402
-from repro_torch.parallel.sharding import ParamSpec, init_params  # noqa: E402
+from repro_torch.parallel.sharding import (ONE_DEVICE, ParamSpec,  # noqa: E402
+                                           init_params)
 from repro_torch.serving import decode as D  # noqa: E402
 
 DENSE = ["gemma2-27b", "qwen2.5-32b", "qwen1.5-4b", "glm4-9b"]
@@ -114,9 +115,9 @@ def test_gemma2_window_bites_at_the_test_prompt():
     assert [transformer.is_local(cfg, i) for i in range(4)] == \
         [True, False, True, False]
     tokens = serve.prompt_batch(cfg, 1, P.PROMPT, 0, P.CPU)["tokens"]
-    local = transformer.forward(cfg, params, tokens)
+    local = transformer.forward(cfg, ONE_DEVICE, params, tokens)
     glob = transformer.forward(dataclasses.replace(cfg, sliding_window=None),
-                               params, tokens)
+                               ONE_DEVICE, params, tokens)
     w = cfg.sliding_window
     assert torch.equal(local[:, :w], glob[:, :w])
     assert not torch.allclose(local[:, w:], glob[:, w:])
