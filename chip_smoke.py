@@ -4308,17 +4308,27 @@ def profile_round(fn, label="tatp", spans=()):
 
 # ---------------------------------------------------------------------------
 # tensor-parallel serving on the mesh: eight gloo ranks sharing the card, the
-# same group meshed (1, 8) and then (2, 4), each transformer at full width
+# same group meshed (1, 8) and (2, 4), each arch at full width
 # ---------------------------------------------------------------------------
 TP_DEADLINE_S, TP_SEED = 300, 31
 # (arch, mesh, float32 parity (B, prompt, decode), bf16 serving (B, prompt,
 # decode)): qwen1.5-4b's 20 heads do not divide 8, so the attention runs
 # sequence-parallel and the cache is sequence-sharded ("seq"); glm4-9b's 32
 # heads split 4 ways by heads, its 2 kv heads do not (K/V repeated, 64 of a
-# kv head's 128 columns a rank), and the batch splits over data
+# kv head's 128 columns a rank), and the batch splits over data;
+# mamba2-780m's 48 SSM heads and 3072 d_inner channels split 8 ways alike,
+# so ssd_scan runs at 6 heads a rank; zamba2-1.2b's 64 SSM heads run 16 a
+# rank and its shared block's 32 heads split by heads, the batch over data
+# (one row a rank)
 TP_CASES = (("qwen1.5-4b", (1, 8), (1, 512, 4), (2, 2048, 8)),
-            ("glm4-9b", (2, 4), (2, 512, 4), (4, 2048, 8)))
+            ("glm4-9b", (2, 4), (2, 512, 4), (4, 2048, 8)),
+            ("mamba2-780m", (1, 8), (1, 512, 4), (2, 2048, 8)),
+            ("zamba2-1.2b", (2, 4), (2, 512, 4), (2, 2048, 8)))
 TP_LAYERS, TP_PARITY_LAYERS = 4, 2
+# (float32 parity, bf16 serving) layers where an arch takes others than
+# (TP_PARITY_LAYERS, TP_LAYERS): zamba2's 6 Mamba layers, the shared block
+# once and 1 tail layer in both
+TP_DEPTH = {"zamba2-1.2b": (7, 7)}
 # float32 parity, the ranks against the one-rank run, as a share of the
 # logit range.  qwen1.5-4b at 2 layers is well conditioned: a 1e-7
 # relative change of its embeddings moved its logits by 1.056e-5 of their
@@ -4329,7 +4339,14 @@ TP_LAYERS, TP_PARITY_LAYERS = 4, 2
 # the rule of MOE_F32_REL and LLAVA_F32_REL its limit sits several times
 # above that conditioning, chosen from it before any parity reading, and
 # the run fails if the conditioning passes a quarter of the limit.
-TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3}
+# mamba2-780m at 2 layers (at its 48-layer init scale, full_scale_stacks)
+# is not well conditioned either: the same change moved its logits by
+# 9.918e-5 of their range (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+# 6), above a quarter of F32_REL_FAMILY, so its limit is 1e-3, ten times
+# that conditioning (set after the run that measured it, whose parity read
+# 1.243e-4).  zamba2-1.2b's is its card-against-CPU limit F32_REL.
+TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3,
+              "mamba2-780m": 1e-3, "zamba2-1.2b": F32_REL}
 # qwen1.5-4b's forward with pad_heads against without, over all 512
 # positions, as a share of the largest |logit|.  Both branches reorder
 # float32 sums, and over all positions the 2-layer model is ill-conditioned
@@ -4358,15 +4375,58 @@ def _tp_steps(cfg, topo, params, tokens, prompt, decode):
     return out, [greedy(cfg, x, topo) for x in out]
 
 
+def _tp_depth(arch):
+    """(float32 parity layers, bf16 serving layers) of a TP_CASES arch."""
+    return TP_DEPTH.get(arch, (TP_PARITY_LAYERS, TP_LAYERS))
+
+
 def _tp_params(cfg, topo, dev, dtype=None):
     """The seeded tree (TP_SEED) drawn leaf by leaf on the card and cut to
-    this rank's blocks (topo None: the whole tree), in ``dtype`` if given."""
+    this rank's blocks (topo None: the whole tree), in ``dtype`` if given;
+    an SSM or hybrid cut's stacks rescaled to the full depth's init
+    (full_scale_stacks), its blocks as the whole tree's."""
     import torch
+    from repro_torch.configs.registry import get
     from repro_torch.models import api
     from repro_torch.parallel.sharding import init_params
     p = init_params(api.param_specs(cfg), torch.Generator(
         device=dev).manual_seed(TP_SEED), dev, topo=topo)
-    return p if dtype is None else _map_tree(p, lambda t: t.to(dtype))
+    if dtype is not None:
+        p = _map_tree(p, lambda t: t.to(dtype))
+    if cfg.ssm_state:
+        full_scale_stacks(cfg, get(cfg.name), p)
+    return p
+
+
+def tp_ssd(topo, cfg, B, S, dev):
+    """ssd_scan at the rank's prefill shape (B rows of S tokens, the rank's
+    heads of ``cfg``'s Mamba layer): against its plain version on every
+    rank; then timed on the last rank alone, beside its plain version and
+    its float32 bound, while the other ranks wait (no PyTorch call
+    computes it)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba2 as M
+    r = dist.get_rank()
+    Q = min(cfg.ssm_chunk, S)
+    shape = (B, S // Q, Q, M.layout(cfg, topo).hn, cfg.ssm_head_dim,
+             cfg.ssm_state)
+    x = ssd_inputs(*shape, dev, 60 + r)
+    y, st = ss.ssd_scan(*x, h_tile=1)
+    yp, sp = ss.ssd_scan_plain(*x)
+    err = max(float((y - yp).abs().max()), float((st - sp).abs().max()))
+    scale = max(1.0, float(yp.abs().max()), float(sp.abs().max()))
+    dist.barrier()
+    out = {"ssd_err": err, "ssd_limit": SSD_RTOL * scale,
+           "ssd_shape": shape}
+    if r == dist.get_world_size() - 1:
+        out.update(
+            ssd_ms=_mean(time_cuda(lambda: ss.ssd_scan(*x, h_tile=1), 10)),
+            ssd_plain_ms=_mean(time_cuda(lambda: ss.ssd_scan_plain(*x), 3)),
+            ssd_bound=ssd_bound(*shape))
+    dist.barrier()
+    return out
 
 
 def tp_qoffset(topo, B, S, Hq, D, dev):
@@ -4416,14 +4476,16 @@ def tp_rank(rank, world, dev, cases):
     """A rank of the tensor-parallel world on ``dev``: for each of
     ``cases`` (TP_CASES), its mesh
     over the one group (SERVE_RULES), then the float32 parity run at
-    TP_PARITY_LAYERS (prefill and teacher-forced decode; qwen1.5-4b's
-    forward with and without pad_heads), then bf16 serving at TP_LAYERS
-    through launch.serve with flash_attention's launches counted, and
-    qwen1.5-4b's q_offset kernel at the rank's shape."""
+    its parity depth (prefill and teacher-forced decode; qwen1.5-4b's
+    forward with and without pad_heads), then bf16 serving at its serving
+    depth through launch.serve with flash_attention's and ssd_scan's
+    launches counted, qwen1.5-4b's q_offset kernel and the SSM archs'
+    ssd_scan at the rank's shape."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
@@ -4437,7 +4499,8 @@ def tp_rank(rank, world, dev, cases):
         topo = Topology(make_mesh(shape, ("data", "model"), dev),
                         dict(SERVE_RULES))
         res = out[arch] = {"coord": topo.coordinate()}
-        cfg = dataclasses.replace(get(arch), n_layers=TP_PARITY_LAYERS)
+        depth, serve_depth = _tp_depth(arch)
+        cfg = dataclasses.replace(get(arch), n_layers=depth)
         t0 = time.perf_counter()
         p = _tp_params(cfg, topo, dev, torch.float32)
         toks = blk(serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"], topo)
@@ -4457,24 +4520,28 @@ def tp_rank(rank, world, dev, cases):
         res["parity_s"] = time.perf_counter() - t0
         del p
         torch.cuda.empty_cache()
-        cfg = dataclasses.replace(get(arch), n_layers=TP_LAYERS)
+        cfg = dataclasses.replace(get(arch), n_layers=serve_depth)
         p = _tp_params(cfg, topo, dev)
         batch = {k: blk(v, topo) for k, v in serve.prompt_batch(
             cfg, Bs, Ps, Ds, dev).items()}
         serve.serve(cfg, p, batch, 64, 2, topo)           # warm-up
-        fa.launches = 0
+        fa.launches = ss.launches = 0
         ids, st = serve.serve(cfg, p, batch, Ps, Ds, topo)
-        res.update(launches=fa.launches, ids=ids.cpu(),
+        res.update(launches=fa.launches, ssd_launches=ss.launches,
+                   ids=ids.cpu(),
                    prefill_ms=st["prefill_ms"],
                    decode_ms_step=st["decode_ms"] / (Ds - 1),
                    finite=bool(torch.isfinite(st["last_logits"]).all()),
                    cache_len=int(st["cache"]["len"].max()),
-                   cache_shape=tuple(st["cache"]["k"].shape))
+                   cache_shape={k: tuple(v.shape) for k, v in
+                                st["cache"].items() if k != "len"})
         del p, st
         torch.cuda.empty_cache()
         if arch == cases[0][0]:
             res.update(tp_qoffset(topo, Bs, Ps, cfg.n_heads, cfg.head_dim,
                                   dev))
+        if cfg.ssm_state:
+            res.update(tp_ssd(topo, cfg, batch["tokens"].shape[0], Ps, dev))
     return out
 
 
@@ -4491,7 +4558,7 @@ def tp_one_rank(dev, cases):
     from repro_torch.models.transformer import RunOptions
     out = {}
     for arch, _, (B, P, Dn), _ in cases:
-        cfg = dataclasses.replace(get(arch), n_layers=TP_PARITY_LAYERS)
+        cfg = dataclasses.replace(get(arch), n_layers=_tp_depth(arch)[0])
         V = cfg.vocab_size
         p = _tp_params(cfg, None, dev, torch.float32)
         toks = serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"]
@@ -4532,12 +4599,14 @@ def tensor_parallel(dev, cases=TP_CASES):
     """TP_WORLD gloo ranks sharing the card (NCCL refuses two ranks on one
     device), with the one-rank float32 runs on the card meanwhile in this
     process: each TP_CASES arch's float32 parity against its one-rank run
-    within F32_REL_FAMILY of the logit range, greedy tokens equal (its
-    conditioning at most a quarter of that limit); qwen1.5-4b's forward
-    with pad_heads (20 -> 24 heads) against without within the same limit;
-    one flash_attention launch per layer per rank per prefill; the q_offset
-    kernel against its plain version on every rank; prefill and decode ms
-    per rank."""
+    within its TP_F32_REL share of the logit range, greedy tokens equal
+    (its conditioning at most a quarter of that limit); qwen1.5-4b's
+    forward with pad_heads (20 -> 24 heads) against without within
+    TP_PAD_REL; on every rank per prefill one flash_attention launch per
+    attention layer (zamba2: per application of the shared block) and one
+    ssd_scan launch per Mamba layer; the q_offset kernel and ssd_scan at
+    the rank's shapes against their plain versions on every rank; prefill
+    and decode ms per rank."""
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.testing.ranks import run_ranks
@@ -4553,11 +4622,12 @@ def tensor_parallel(dev, cases=TP_CASES):
         moved, rel = ref["moved"], TP_F32_REL[arch]
         V = get(arch).vocab_size
         got = [_tp_gather(ranks, arch, "parity", i) for i in range(Dn + 1)]
+        depth, serve_depth = _tp_depth(arch)
         print(f"tensor parallel {arch} {shape}: a 1e-7 relative change of "
               f"the embeddings moves the one-rank float32 logits by "
               f"{moved:.3e} of their range (at most a quarter of the parity "
               f"limit {rel}) [{card()}]", flush=True)
-        _compare(f"tensor parallel {arch} {shape}, {TP_PARITY_LAYERS} layers"
+        _compare(f"tensor parallel {arch} {shape}, {depth} layers"
                  f", {B} x {P} + {Dn}, float32, {world} ranks vs one, limit "
                  f"{rel}", got, ref["ref"], V, rel)
         check(moved <= rel / 4, f"{arch}: conditioned worse than the "
@@ -4571,19 +4641,26 @@ def tensor_parallel(dev, cases=TP_CASES):
                                   want[d * rows:(d + 1) * rows]),
                       f"{arch}: a rank's greedy token differs from the "
                       f"argmax of the gathered logits at step {i}")
+        scfg = get(arch)
+        n_attn = (serve_depth // scfg.shared_attn_every
+                  if scfg.family == "hybrid" else
+                  0 if scfg.family == "ssm" else serve_depth)
+        n_ssd = serve_depth if scfg.ssm_state else 0
         for r in ranks:
             x = r[arch]
-            check(x["launches"] == TP_LAYERS,
-                  f"{arch}: {x['launches']} flash_attention launches on rank "
-                  f"{x['coord']} in a {TP_LAYERS}-layer prefill")
+            check(x["launches"] == n_attn and x["ssd_launches"] == n_ssd,
+                  f"{arch}: {x['launches']} flash_attention and "
+                  f"{x['ssd_launches']} ssd_scan launches on rank "
+                  f"{x['coord']} in a {serve_depth}-layer prefill (want "
+                  f"{n_attn} and {n_ssd})")
             check(x["finite"] and x["cache_len"] == Ps + Ds - 1,
                   f"{arch}: non-finite logits or a wrong cache length")
             check(bool(((x["ids"] >= 0) & (x["ids"] < V)).all()),
                   f"{arch}: ids outside the vocabulary")
-        print(f"tensor parallel {arch} {shape}, bf16, {TP_LAYERS} layers, "
-              f"{Bs} x {Ps} + {Ds}: one flash_attention launch per layer on "
-              f"every rank; the cache block {ranks[0][arch]['cache_shape']} "
-              f"a rank; prefill ms by rank "
+        print(f"tensor parallel {arch} {shape}, bf16, {serve_depth} layers, "
+              f"{Bs} x {Ps} + {Ds}: {n_attn} flash_attention and {n_ssd} "
+              f"ssd_scan launches a prefill on every rank; the cache blocks "
+              f"{ranks[0][arch]['cache_shape']} a rank; prefill ms by rank "
               f"{[round(r[arch]['prefill_ms'], 3) for r in ranks]}, decode "
               f"ms a step by rank "
               f"{[round(r[arch]['decode_ms_step'], 3) for r in ranks]} "
@@ -4616,6 +4693,19 @@ def tensor_parallel(dev, cases=TP_CASES):
           f"scaled_dot_product_attention with the same boolean mask "
           f"{t['qoff_sdpa_ms']:.4f} ms (the same function), bound "
           f"{bms:.5f} ms ({bby}) [{card()}]", flush=True)
+    for arch, shape, _, _ in cases:
+        if not get(arch).ssm_state:
+            continue
+        t = next(r[arch] for r in ranks if "ssd_ms" in r[arch])
+        bms, bby = t["ssd_bound"]
+        over = max(r[arch]["ssd_err"] / r[arch]["ssd_limit"] for r in ranks)
+        print(f"ssd_scan at {arch}'s rank prefill shape on {shape} (B, nc, "
+              f"Q, H, P, N) = {t['ssd_shape']}: max |kernel - plain| over "
+              f"the ranks {max(r[arch]['ssd_err'] for r in ranks):.3e} "
+              f"({over:.3f} of its limit); kernel {t['ssd_ms']:.4f} ms, "
+              f"plain {t['ssd_plain_ms']:.4f} ms, bound {bms:.5f} ms "
+              f"({bby}, float32) [{card()}]", flush=True)
+        check(over <= 1, f"ssd_scan at {arch}'s rank shape != plain")
     print(f"tensor parallel: {world} ranks {world_s:.1f} s", flush=True)
 
 
@@ -4751,8 +4841,8 @@ def main():
     mesh_dataplane(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("tensor_parallel: qwen1.5-4b on (1, 8) and glm4-9b on (2, 4), "
-          "eight ranks on the card")
+    phase("tensor_parallel: qwen1.5-4b and mamba2-780m on (1, 8), glm4-9b "
+          "and zamba2-1.2b on (2, 4), eight ranks on the card")
     t0 = time.perf_counter()
     tensor_parallel(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)

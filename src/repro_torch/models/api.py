@@ -1,7 +1,7 @@
 """Family dispatcher (counterpart of ``repro/models/api.py``): ``dense``,
 ``moe`` and ``vlm`` (transformer), ``ssm`` (mamba2), ``hybrid`` (zamba) and
-``audio`` (whisper).  The transformer families run on a mesh; the others
-raise on one until their slices port them."""
+``audio`` (whisper).  Every family but the audio one runs on a mesh;
+whisper raises on one until slice 16 ports it."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -13,9 +13,7 @@ from repro_torch.parallel.sharding import ONE_DEVICE, Topology
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba, "audio": whisper}
 # the slice that ports each of the other families' mesh forward (ROADMAP.md)
-MESH_SLICE = {"ssm": "slice 15 (the SSM/hybrid mesh forward)",
-              "hybrid": "slice 15 (the SSM/hybrid mesh forward)",
-              "audio": "slice 16 (whisper on the mesh)"}
+MESH_SLICE = {"audio": "slice 16 (whisper on the mesh)"}
 
 
 def param_specs(cfg: ModelConfig):
@@ -37,15 +35,15 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None,
     (vlm) where the family takes them -> logits (B, S, V_padded) float32.
     ``opts``: ``transformer.RunOptions`` (tiles of the attention's backward,
     remat, ``pad_heads``, ``moe_mode``), the reference's default when None.
-    On a mesh (``topo``; transformer families only) ``params`` and the batch
-    are this rank's blocks and the logits its (B_r, S, V_padded / tp)
-    block."""
+    On a mesh (``topo``; every family but the audio one) ``params`` and
+    the batch are this rank's blocks and the logits its (B_r, S,
+    V_padded / tp) block."""
     tokens = batch["tokens"]
     one_device_only(cfg, topo)
     if cfg.family == "ssm":
-        return mamba2.forward(cfg, params, tokens, opts=opts)
+        return mamba2.forward(cfg, params, tokens, opts=opts, topo=topo)
     if cfg.family == "hybrid":
-        return zamba.forward(cfg, params, tokens, opts=opts)
+        return zamba.forward(cfg, params, tokens, opts=opts, topo=topo)
     if cfg.family == "audio":
         return whisper.forward(cfg, params, tokens, frames=batch.get("frames"),
                                opts=opts)

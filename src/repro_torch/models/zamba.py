@@ -19,8 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
-from repro_torch.models.embedding import embed_lookup, logits_of
-from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS
+from repro_torch.models.embedding import embed, logits_of
+from repro_torch.parallel.sharding import ONE_DEVICE, ParamSpec as PS, Topology
 
 
 def _shared_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -48,35 +48,43 @@ def param_specs(cfg: ModelConfig):
     return tree
 
 
-def shared_block(cfg: ModelConfig, p, h, cos, sin, opts=None):
+def shared_block(cfg: ModelConfig, p, h, cos, sin, opts=None,
+                 topo: Topology = ONE_DEVICE):
+    """The shared transformer block on h (B, S, d): on a mesh the rank's
+    blocks of its weights, in the attention branch ``attention_branch``
+    picks for its heads (``transformer.decoder_layer``; as in the
+    reference, without ``pad_heads``)."""
     opts = opts or T.RunOptions()
-    return T.decoder_layer(_shared_cfg(cfg), ONE_DEVICE, p, h, cos, sin,
+    return T.decoder_layer(_shared_cfg(cfg), topo, p, h, cos, sin,
                            local=False,
                            q_block=opts.q_block, kv_block=opts.kv_block)
 
 
-def forward(cfg: ModelConfig, params, tokens, opts=None):
+def forward(cfg: ModelConfig, params, tokens, opts=None,
+            topo: Topology = ONE_DEVICE):
     """tokens (B, S) -> logits (B, S, V_padded) float32.  As in the
     reference, a group of ``shared_attn_every`` Mamba layers and the shared
-    block is one rematerialised body, and each tail layer another."""
+    block is one rematerialised body, and each tail layer another.  On a
+    mesh the rank's blocks in and its logits block (B_r, S, V_padded / tp)
+    out."""
     opts = opts or T.RunOptions()
     S = tokens.shape[1]
     k = cfg.shared_attn_every
-    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
+    h = embed(cfg, params["embed"], tokens, topo)
     pos = torch.arange(S, device=tokens.device)
     cos, sin = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
     scan = L.layers(params["layers"])
 
     def group(hh, first):
         for p in scan[first:first + k]:
-            hh, _ = M.mamba_block(cfg, p, hh)
-        return shared_block(cfg, params["shared"], hh, cos, sin, opts)
+            hh, _ = M.mamba_block(cfg, p, hh, topo=topo)
+        return shared_block(cfg, params["shared"], hh, cos, sin, opts, topo)
     body = T.maybe_remat(group, opts)
     for first in range(0, n_scan_layers(cfg), k):
         h = body(h, first)
     if "tail_layers" in params:
-        tail = T.maybe_remat(lambda hh, p: M.mamba_block(cfg, p, hh)[0], opts)
+        tail = T.maybe_remat(
+            lambda hh, p: M.mamba_block(cfg, p, hh, topo=topo)[0], opts)
         for p in L.layers(params["tail_layers"]):
             h = tail(h, p)
-    return logits_of(cfg, params, h)
-
+    return logits_of(cfg, params, h, topo)

@@ -24,8 +24,8 @@ reference's ``.at[].set``: the new token's K/V at offset ``len`` of each row,
 each Mamba layer's new states over its old ones.  It returns the cache with
 ``len`` advanced; clone the tensors first to keep the old cache.
 
-On a mesh (``make_decode_step(cfg, topo=)``, the transformer families) a
-rank holds its blocks of the parameters, the batch and the cache: in
+On a mesh (``make_decode_step(cfg, topo=)``, every family but the audio
+one) a rank holds its blocks of the parameters, the batch and the cache: in
 "heads" mode it projects and attends its own query and kv heads and the
 output projection is row-parallel (one all-reduce over ``model``); in
 "seq" mode the query and the new K/V are every head's (the projections'
@@ -33,7 +33,10 @@ column blocks all-gathered), the rank that owns position ``len`` of a row
 writes it (the reference's ``.at[rows, lens].set`` on a sequence-sharded
 cache), the attention runs as ``_flash_decode_shardmap`` and the output
 projection row-parallel.  The FFN and the vocab-sharded LM head are the
-prefill's.
+prefill's.  A Mamba layer's step (``mamba2.mamba_block``) reads and writes
+the rank's blocks of its states (``conv_x`` its ``d_inner`` channels,
+``ssm`` its heads); the hybrid's shared block decodes as a transformer
+layer over the ``shared_k``/``shared_v`` region.
 """
 from __future__ import annotations
 
@@ -243,12 +246,12 @@ def _tf_decode_layer(cfg, topo, p, h, kc, vc, lens, *, local: bool):
     return T.ffn_block(cfg, topo, p, (h + o)[:, None])[:, 0]
 
 
-def _ssm_decode_layer(cfg, p, h, cache, i: int):
-    """Mamba layer ``i`` for one token from its cached states, which it
-    overwrites with the new ones.  h (B, d)."""
+def _ssm_decode_layer(cfg, topo, p, h, cache, i: int):
+    """Mamba layer ``i`` for one token from its cached states (on a mesh
+    the rank's blocks), which it overwrites with the new ones.  h (B, d)."""
     h2, ((cx, cb, cc), st) = M.mamba_block(
         cfg, p, h[:, None], conv_state=tuple(cache[n][i] for n in SSM_CACHE[:3]),
-        ssm_state=cache["ssm"][i], decode=True)
+        ssm_state=cache["ssm"][i], decode=True, topo=topo)
     for n, t in zip(SSM_CACHE, (cx, cb, cc, st)):
         cache[n][i].copy_(t)
     return h2[:, 0]
@@ -264,32 +267,38 @@ def _tf_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
     return logits_of(cfg, params, h, topo), dict(cache, len=lens + 1)
 
 
-def _ssm_decode(cfg: ModelConfig, params, cache, tokens):
-    h = embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
+def _ssm_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
+    h = embed(cfg, params["embed"], tokens[:, None], topo)[:, 0]
     for i in range(cfg.n_layers):
-        h = _ssm_decode_layer(cfg, L.layer(params["layers"], i), h, cache, i)
-    return logits_of(cfg, params, h), dict(cache, len=cache["len"] + 1)
+        h = _ssm_decode_layer(cfg, topo, L.layer(params["layers"], i), h,
+                              cache, i)
+    return (logits_of(cfg, params, h, topo),
+            dict(cache, len=cache["len"] + 1))
 
 
-def _hybrid_decode(cfg: ModelConfig, params, cache, tokens):
+def _hybrid_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
     """The shared block runs in its decode flavour (the reference's
-    ``_shared_decode_block``, whose config agrees with ``_shared_cfg``)."""
+    ``_shared_decode_block``, whose config agrees with ``_shared_cfg``):
+    on a mesh ``_tf_decode_layer``'s, so in "seq" cache mode only the
+    owner of position ``len`` appends (``append_kv_owned``)."""
     k = cfg.shared_attn_every
     n_scan = n_scan_layers(cfg)
     lens = cache["len"]
     scfg = _shared_cfg(cfg)
-    h = embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
+    h = embed(cfg, params["embed"], tokens[:, None], topo)[:, 0]
     for i in range(n_scan):
-        h = _ssm_decode_layer(cfg, L.layer(params["layers"], i), h, cache, i)
+        h = _ssm_decode_layer(cfg, topo, L.layer(params["layers"], i), h,
+                              cache, i)
         if i % k == k - 1:
             a = i // k
-            h = _tf_decode_layer(scfg, ONE_DEVICE, params["shared"], h,
+            h = _tf_decode_layer(scfg, topo, params["shared"], h,
                                  cache["shared_k"][a], cache["shared_v"][a],
                                  lens, local=False)
     for i in range(n_scan, cfg.n_layers):
-        h = _ssm_decode_layer(cfg, L.layer(params["tail_layers"], i - n_scan),
-                              h, cache, i)
-    return logits_of(cfg, params, h), dict(cache, len=lens + 1)
+        h = _ssm_decode_layer(cfg, topo,
+                              L.layer(params["tail_layers"], i - n_scan), h,
+                              cache, i)
+    return logits_of(cfg, params, h, topo), dict(cache, len=lens + 1)
 
 
 def _wh_decode_layer(cfg, p, h, kc, vc, xk, xv, lens, xlen):
@@ -328,27 +337,28 @@ def _wh_decode(cfg: ModelConfig, params, cache, tokens):
     return W.head(cfg, params, h), dict(cache, len=lens + 1)
 
 
-_DECODE = {"ssm": _ssm_decode, "hybrid": _hybrid_decode, "audio": _wh_decode}
+_DECODE = {"dense": _tf_decode, "moe": _tf_decode, "vlm": _tf_decode,
+           "ssm": _ssm_decode, "hybrid": _hybrid_decode}
 
 
 def make_decode_step(cfg: ModelConfig, topo: Topology = ONE_DEVICE):
     """decode_step(params, cache, tokens (B,)) -> (logits (B, V_padded) f32,
-    the cache, written in place, with ``len`` advanced).  On a mesh
-    (transformer families) the rank's blocks in and its logits block
+    the cache, written in place, with ``len`` advanced).  On a mesh (every
+    family but the audio one) the rank's blocks in and its logits block
     (B_r, V_padded / tp) out."""
     from repro_torch.models.api import one_device_only
     one_device_only(cfg, topo)
-    if cfg.family in ("dense", "moe", "vlm"):
-        return partial(_tf_decode, cfg, topo)
-    return partial(_DECODE[cfg.family], cfg)
+    if cfg.family == "audio":
+        return partial(_wh_decode, cfg)
+    return partial(_DECODE[cfg.family], cfg, topo)
 
 
 def make_prefill(cfg: ModelConfig, S: int, room: int = 0,
                  topo: Topology = ONE_DEVICE):
     """prefill(params, batch) -> (last-position logits (B, V_padded), cache
     holding S positions and ``room`` more, zeros, for decode).  On a mesh
-    (transformer families) the rank's blocks in, its logits and cache
-    blocks out; in "seq" cache mode the room is rounded up so that S +
+    (every family but the audio one) the rank's blocks in, its logits and
+    cache blocks out; in "seq" cache mode the room is rounded up so that S +
     room divides over the ``kv_seq`` axes."""
     from repro_torch.serving.prefill import prefill_fn
     return partial(prefill_fn, cfg, topo, S, room)

@@ -12,11 +12,14 @@ positions, and each layer's rows are written into them: at gemma2-27b's
 2 x 8,192 positions the region is 6.2 GB, so neither a stack of per-layer
 rows nor a later pad copies it.
 
-On a mesh (the transformer families, ``_tf_prefill``: the reference's
-``_attn_with_cache``) a rank's region is its block of the cache in
-``decode.kv_mode``'s layout: its kv heads in "heads" mode; in "seq" mode
-its rows of every head, positions [r L/tp, (r + 1) L/tp) of the L = S +
-room positions, where ``room`` is rounded up so that tp divides L.
+On a mesh (every family but the audio one; ``_tf_prefill`` and the
+hybrid's shared block run the reference's ``_attn_with_cache``) a rank's
+region is its block of the cache in ``decode.kv_mode``'s layout: its kv
+heads in "heads" mode; in "seq" mode its rows of every head, positions
+[r L/tp, (r + 1) L/tp) of the L = S + room positions, where ``room`` is
+rounded up so that tp divides L.  The Mamba layers' states come out as the
+rank's blocks of ``decode.cache_specs``: ``conv_x`` its ``d_inner``
+channels, ``conv_B`` and ``conv_C`` whole, ``ssm`` its heads.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
-from repro_torch.models.embedding import embed, embed_lookup, logits_of
+from repro_torch.models.embedding import embed, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
 from repro_torch.models.api import one_device_only
 from repro_torch.parallel.sharding import ONE_DEVICE, Topology
@@ -39,14 +42,10 @@ def _rope(cfg, S, device):
                          cfg.rope_theta)
 
 
-def _ssm_prefill_layer(cfg, p, h, states):
-    """A Mamba layer from zero conv states, appending its conv tails and final
-    SSM state to ``states``."""
-    B, K = h.shape[0], cfg.conv_width
-    GN = cfg.ssm_groups * cfg.ssm_state
-    zero = tuple(torch.zeros((B, K - 1, C), dtype=h.dtype, device=h.device)
-                 for C in (cfg.d_inner, GN, GN))
-    h, (ncs, nst) = M.mamba_block(cfg, p, h, conv_state=zero, ssm_state=None)
+def _ssm_prefill_layer(cfg, topo, p, h, states):
+    """A Mamba layer from zero states, appending its conv tails and final
+    SSM state (on a mesh the rank's blocks of the cache's) to ``states``."""
+    h, (ncs, nst) = M.mamba_block(cfg, p, h, return_state=True, topo=topo)
     for n, t in zip(SSM_CACHE, (*ncs, nst)):
         states[n].append(t)
     return h
@@ -69,6 +68,14 @@ def _kv_region(cfg, n, h, room, topo: Topology = ONE_DEVICE):
                  for _ in "kv")
 
 
+def _region_first(cfg, topo: Topology, kc) -> int:
+    """The first position of this rank's rows of a K/V region kc (n, B,
+    L_r, H, hd): its sequence block's start in "seq" mode, else 0."""
+    if kv_mode(cfg, topo) == "seq":
+        return seq_block(topo, kc.shape[2])[1]
+    return 0
+
+
 def _put_kv(kc, vc, k, v, first):
     """Rows [first, first + kc.shape[1]) of the prompt's K/V (B, S, H, hd)
     into this rank's region rows kc/vc (B, S_r, H, hd), as far as the prompt
@@ -88,9 +95,7 @@ def _tf_prefill(cfg: ModelConfig, topo: Topology, S, room, params, batch):
                        batch.get("patch_embeds"))
     cos, sin = _rope(cfg, S, tokens.device)
     kc, vc = _kv_region(cfg, cfg.n_layers, h, room, topo)
-    first = 0
-    if kv_mode(cfg, topo) == "seq":
-        first = seq_block(topo, kc.shape[2])[1]
+    first = _region_first(cfg, topo, kc)
     for i in range(cfg.n_layers):
         p = L.layer(params["layers"], i)
         window = cfg.sliding_window if T.is_local(cfg, i) else None
@@ -102,41 +107,52 @@ def _tf_prefill(cfg: ModelConfig, topo: Topology, S, room, params, batch):
     return logits_of(cfg, params, h[:, -1], topo), cache
 
 
-def _ssm_prefill(cfg: ModelConfig, S, room, params, batch):
-    tokens = batch["tokens"]
-    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
-    states = {n: [] for n in SSM_CACHE}
-    for i in range(cfg.n_layers):
-        h = _ssm_prefill_layer(cfg, L.layer(params["layers"], i), h, states)
+def _ssm_states(h, S, states):
     cache = {n: torch.stack(states[n]) for n in SSM_CACHE}
     cache["len"] = _lens(h.shape[0], S, h.device)
-    return logits_of(cfg, params, h[:, -1]), cache
+    return cache
 
 
-def _hybrid_prefill(cfg: ModelConfig, S, room, params, batch):
+def _ssm_prefill(cfg: ModelConfig, topo: Topology, S, room, params, batch):
+    h = embed(cfg, params["embed"], batch["tokens"], topo)
+    states = {n: [] for n in SSM_CACHE}
+    for i in range(cfg.n_layers):
+        h = _ssm_prefill_layer(cfg, topo, L.layer(params["layers"], i), h,
+                               states)
+    return logits_of(cfg, params, h[:, -1], topo), _ssm_states(h, S, states)
+
+
+def _hybrid_prefill(cfg: ModelConfig, topo: Topology, S, room, params,
+                    batch):
+    """The Mamba layers' states as in ``_ssm_prefill``; each application
+    of the shared block writes its K/V rows into the region as
+    ``_tf_prefill`` does (the rank's kv heads, or its sequence block in
+    "seq" mode)."""
     tokens = batch["tokens"]
     k = cfg.shared_attn_every
     n_scan = n_scan_layers(cfg)
-    h = embed_lookup(ONE_DEVICE, params["embed"], tokens)
+    h = embed(cfg, params["embed"], tokens, topo)
     cos, sin = _rope(cfg, S, tokens.device)
     scfg = _shared_cfg(cfg)
     states = {n: [] for n in SSM_CACHE}
-    kc, vc = _kv_region(scfg, cfg.n_layers // k, h, room)
+    kc, vc = _kv_region(scfg, cfg.n_layers // k, h, room, topo)
+    first = _region_first(scfg, topo, kc)
     for i in range(n_scan):
-        h = _ssm_prefill_layer(cfg, L.layer(params["layers"], i), h, states)
+        h = _ssm_prefill_layer(cfg, topo, L.layer(params["layers"], i), h,
+                               states)
         if i % k == k - 1:
             a = i // k
-            h, kc[a, :, :S], vc[a, :, :S] = T.attention_block(
-                scfg, ONE_DEVICE, params["shared"], h, cos, sin, window=None,
-                return_kv=True)
-            h = T.ffn_block(scfg, ONE_DEVICE, params["shared"], h)
+            h, sk, sv = T.attention_block(scfg, topo, params["shared"], h,
+                                          cos, sin, window=None,
+                                          return_kv=True)
+            _put_kv(kc[a], vc[a], sk, sv, first)
+            h = T.ffn_block(scfg, topo, params["shared"], h)
     for i in range(cfg.n_layers - n_scan):
-        h = _ssm_prefill_layer(cfg, L.layer(params["tail_layers"], i), h,
-                               states)
-    cache = {n: torch.stack(states[n]) for n in SSM_CACHE}
+        h = _ssm_prefill_layer(cfg, topo, L.layer(params["tail_layers"], i),
+                               h, states)
+    cache = _ssm_states(h, S, states)
     cache["shared_k"], cache["shared_v"] = kc, vc
-    cache["len"] = _lens(h.shape[0], S, h.device)
-    return logits_of(cfg, params, h[:, -1]), cache
+    return logits_of(cfg, params, h[:, -1], topo), cache
 
 
 def _wh_prefill(cfg: ModelConfig, S, room, params, batch):
@@ -162,13 +178,13 @@ def _wh_prefill(cfg: ModelConfig, S, room, params, batch):
     return W.head(cfg, params, h[:, -1]), cache
 
 
-_PREFILL = {"ssm": _ssm_prefill, "hybrid": _hybrid_prefill,
-            "audio": _wh_prefill}
+_PREFILL = {"dense": _tf_prefill, "moe": _tf_prefill, "vlm": _tf_prefill,
+            "ssm": _ssm_prefill, "hybrid": _hybrid_prefill}
 
 
 def prefill_fn(cfg: ModelConfig, topo: Topology, S: int, room: int, params,
                batch):
     one_device_only(cfg, topo)
-    if cfg.family in ("dense", "moe", "vlm"):
-        return _tf_prefill(cfg, topo, S, room, params, batch)
-    return _PREFILL[cfg.family](cfg, S, room, params, batch)
+    if cfg.family == "audio":
+        return _wh_prefill(cfg, S, room, params, batch)
+    return _PREFILL[cfg.family](cfg, topo, S, room, params, batch)

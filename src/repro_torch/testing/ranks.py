@@ -34,9 +34,11 @@ def foreign_modules():
 
 
 def _rank_main(fn, rank, world_size, device, backend, init_method, args,
-               out):
+               out, threads):
     try:
         import torch.distributed as dist
+        if threads is not None:
+            torch.set_num_threads(threads)
         from repro_torch.launch.mesh import init_group
         if isinstance(device, (list, tuple)):
             device = device[rank]
@@ -58,23 +60,25 @@ def _rank_main(fn, rank, world_size, device, backend, init_method, args,
 
 def run_ranks(fn, world_size: int, *, device, args=(),
               backend: Optional[str] = None, deadline_s: float = 120.0,
-              workdir=None, meanwhile=None):
+              workdir=None, meanwhile=None, threads: Optional[int] = None):
     """``fn(rank, world_size, *args)`` on ``world_size`` spawned ranks, each
     joined to the default process group on ``device`` (one for all ranks,
     or a sequence of one a rank; the backend from the device unless
     ``backend`` names one).  The rendezvous file and the
     results go in a new directory under ``workdir`` (default the temporary
     directory), removed after.  ``meanwhile``, if given, is called here
-    once the ranks have started.  Returns the results in rank order;
-    raises RuntimeError when a rank fails and TimeoutError when the world
-    outlives ``deadline_s``."""
+    once the ranks have started.  ``threads``, if given, pins each rank's
+    torch intra-op threads (several ranks sharing a few CPUs).  Returns the
+    results in rank order; raises RuntimeError when a rank fails and
+    TimeoutError when the world outlives ``deadline_s``."""
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks_", dir=workdir)
     init_method = "file://" + os.path.join(tmp, "rendezvous")
     outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world_size)]
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, world_size, device, backend,
-                               init_method, args, outs[r]), daemon=True)
+                               init_method, args, outs[r], threads),
+                         daemon=True)
              for r in range(world_size)]
     try:
         end = time.monotonic() + deadline_s

@@ -8,6 +8,7 @@ torch_parity.py), one float32 train step's moments, and the launcher.
 The reference's whisper runs with float32 weights only with its encoder's
 scan as a loop (torch_parity.reference_scan_as_loop); a test holds that
 loop to the scan in bf16, where the scan runs."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ the port from the same numpy inputs and held bit for bit: replies, arenas,
 probe outcomes, scan results and WireStats.  Also: keys above 2^31 in
 partitions that straddle it, the many-lane directory walk against the
 serial one, and the handler memo."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

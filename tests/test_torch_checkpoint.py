@@ -3,6 +3,7 @@ tests/test_checkpoint_data.py (atomic commit, restore onto a given device,
 gc, the resumable token stream), the Storm commit record word for word
 against the JAX package's manager, and checkpoints that cross between the
 two packages array for array."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ port's own forward, the launcher, and the sliced parameter draw.
 
 The prompt is 96 tokens, longer than gemma2's smoke window of 64, so its
 local layers see a window that bites (a test checks that they do)."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

@@ -5,6 +5,7 @@ equals ``fig6_tatp.traced_smoke`` (its metrics to 4 decimals, its trace row
 for row, its export document); the ported trace check accepts the port's
 export and rejects what the reference's rejects; the ``--trace`` entry point
 writes both artifacts and validates them."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import copy
 import json
 import pathlib

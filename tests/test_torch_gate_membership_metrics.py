@@ -3,6 +3,7 @@
 the registry that ``benchmarks/run.py --trace`` fills through the JAX
 package with ``membership_churn.fill_registry``.  The other keys are held
 in ``test_torch_gate_metrics.py``."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import pathlib
 import sys

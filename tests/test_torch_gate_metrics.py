@@ -5,6 +5,7 @@ through the JAX package with ``replication_cost.fill_registry`` (the f =
 0/1/2 sweep and the failover section) and ``fig6_tatp.traced_smoke``.  The
 ``membership.*`` keys, the rest of the file, are held in
 ``test_torch_gate_membership_metrics.py``."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import pathlib
 import sys

@@ -3,6 +3,7 @@ tests/test_hashtable_repair.py driven through BOTH packages with the same
 numpy inputs — every reply, overflow mask, WireStats and arena word must
 match the JAX package bit for bit — plus lookup_end / probe_end, the
 address cache and one-sided reads and writes."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

@@ -7,6 +7,7 @@ dataplane's contract (``probe_lines``) against a one-sided read followed by
 interpret mode and their oracles in ``ref``.  The tests marked ``cuda`` hold
 each CUDA kernel against its plain version on the card and skip where there
 is none."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

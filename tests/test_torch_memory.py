@@ -1,6 +1,7 @@
 """PyTorch port, memory layer: slots, wire protocol, regions and the word
 conversion, held against the JAX package on the same numpy inputs; and the
 port's independence from the reference (no module imports jax or repro)."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import ast
 import pathlib
 

@@ -19,6 +19,7 @@ decode attention and the MoE layer, float32, within 1e-5 of the largest
 outputs are exact functions of the routing, so a routing that differed
 would show far above that).
 """
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import importlib.util
 import json
 import os
@@ -202,7 +203,8 @@ def workdir(tmp_path_factory):
 
 def ranks(fn, world, workdir, *args):
     return run_ranks(fn, world, device="cpu", args=args,
-                     deadline_s=DEADLINE_S, workdir=workdir)
+                     deadline_s=DEADLINE_S, workdir=workdir,
+                     threads=torch_threads.RANK_THREADS)
 
 
 def stack(per_rank, key):

@@ -31,6 +31,7 @@ commit in rounds 0-3) and the draws matter; the stale cases run without a
 capacity bound, so each rank's lane 0 (a write to the handed-off partition)
 aborts stale in round 0.
 """
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import importlib.util
 import os
 import pathlib
@@ -209,7 +210,8 @@ def world(perms, tmp_path_factory):
     t0 = time.monotonic()
     res = run_ranks(MR.loops_rank, N, device="cpu", args=(INPUTS, perms),
                     deadline_s=DEADLINE_S,
-                    workdir=tmp_path_factory.mktemp("ranks"))
+                    workdir=tmp_path_factory.mktemp("ranks"),
+                    threads=torch_threads.RANK_THREADS)
     print(f"world of {N} ranks: {time.monotonic() - t0:.1f} s")
     return res
 

@@ -10,6 +10,7 @@ tolerance is a few bf16 ulps (2^-8 relative) of the largest value.  Through
 seven chained random layers those one-ulp differences grow about twofold per
 layer, so the whole model is held in float32 weights, where only the order
 of sums differs."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

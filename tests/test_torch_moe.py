@@ -9,6 +9,7 @@ assignments are kept) must be bit-equal to the reference's; outputs agree
 within 1e-5 relative in float32 and within 2 bf16 ulps of the largest value
 in bf16.  Cases force ties in the top-k (equal router columns, a zero hidden
 row), a capacity that drops assignments, and decode's capacity of 1."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

@@ -12,6 +12,7 @@ The reference's ``rpc_call`` and ``remote_read`` run jitted here, with its
 handler factories memoized so each compiled round is reused: the same
 computation, compiled once per shape instead of dispatched op by op
 (rereplication and migration are host-driven and cannot be jitted whole)."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import pathlib
 import sys

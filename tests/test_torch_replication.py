@@ -5,6 +5,7 @@ from the same numpy inputs: results, abort causes, WireStats, round trips,
 arenas and fail-over reads.  Retry rounds are fed the reference's own
 backoff permutations.  Also the bench gate's ``replication`` keys and the
 committed-version wrap."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import pathlib
 import sys

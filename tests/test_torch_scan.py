@@ -5,6 +5,7 @@ package from the same numpy inputs: committed lanes, commit rounds, abort
 causes, ``truncated``, ``scan_keys`` / ``scan_values`` / ``scan_mask``,
 WireStats, round trips and arenas.  Retry rounds are fed the reference's
 own backoff permutations.  Also the bench gate's ordered keys."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import pathlib
 import sys

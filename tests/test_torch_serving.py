@@ -9,6 +9,7 @@ of sums differs, so logits and caches agree to ~1e-4 of their range; in
 bf16 one-ulp differences grow through the chained random layers (see
 test_torch_models.py), so the bf16 path is held to its own teacher-forced
 forward with the JAX package's serving-test tolerances."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

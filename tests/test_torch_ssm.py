@@ -5,6 +5,7 @@ the bf16 serving path against the port's own forward, and the launcher.
 
 The prompt is 96 tokens, three SSD chunks of 32, so prefill carries the
 state across chunks through ``ssd_scan``'s plain version."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

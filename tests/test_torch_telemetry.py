@@ -13,6 +13,7 @@ permutations:
     appended as the reference's zero-wire rows;
   * saturation, export, the registry, and a recorder that reads no device
     value on the host."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import ast
 import dataclasses
 import inspect

@@ -1,9 +1,10 @@
-"""PyTorch port, tensor-parallel serving on the mesh: the transformer
-family's forward, prefill and decode on a rank's blocks of the parameters,
-the batch and the cache, in the reference's three attention branches
-(heads, padded heads, sequence-parallel), with the MoE modes, the rule
-sets, the query offset of the ``flash_attention`` kernel's plain version
-and the dry run, held against the JAX package.
+"""PyTorch port, tensor-parallel serving on the mesh: the transformer,
+SSM and hybrid families' forward, prefill and decode on a rank's blocks of
+the parameters, the batch and the cache, in the reference's three attention
+branches (heads, padded heads, sequence-parallel), with the MoE modes, the
+Mamba layer's channel and head layouts, the rule sets, the query offset of
+the ``flash_attention`` kernel's plain version and the dry run, held
+against the JAX package.
 
 The port runs in one world of 4 gloo ranks (``run_ranks``; what each rank
 runs is ``tests/torch_tp_ranks.tp_rank``, which imports no JAX), meshed
@@ -23,18 +24,24 @@ and with ``pad_heads``, each against the reference's forward with the same
 ``RunOptions``, and padded against unpadded (``test_pad_heads_is_exact``'s
 counterpart); (d) granite at capacity factor 16, ``moe_mode`` "rpc" and
 "onesided", routing equal (``test_moe_modes_agree``); (e)
-``WIDE_DP_RULES`` against ``DEFAULT_RULES`` on (2, 2) through granite (the
-reference's ``test_wide_dp_rules_forward_matches_default`` runs
-mamba2-780m, whose mesh forward is the next slice); (f) prefill 96 + 4
-decode steps under ``SERVE_RULES`` on (1, 4), qwen1.5-4b in "heads" cache
-mode and gemma2-27b in "seq" mode; (g) the dry run's shard shapes and
-bytes against ``NamedSharding(...).shard_shape`` on the production meshes.
+``WIDE_DP_RULES`` against ``DEFAULT_RULES`` on (2, 2) through granite and
+through mamba2-780m (the reference's
+``test_wide_dp_rules_forward_matches_default``); (f) prefill 96 + 4 decode
+steps under ``SERVE_RULES`` on (1, 4), qwen1.5-4b in "heads" cache mode,
+gemma2-27b in "seq" mode, mamba2-780m and zamba2-1.2b with every cache
+entry's block (conv tails, SSM states, the shared block's K/V); (g) the
+dry run's shard shapes and bytes against ``NamedSharding(...).shard_shape``
+on the production meshes; (h) mamba2-780m on (1, 4) and (2, 2), and at
+head dim 64 (2 heads over 4 ranks: ``heads`` dropped, ``ff`` kept),
+zamba2-1.2b on (1, 4) and (2, 2); ``launch.serve --mesh 1,4`` for
+qwen1.5-4b, mamba2-780m and zamba2-1.2b.
 
 Tolerances: logits within ``F32_REL_FAMILY`` (3e-4) of the reference's
 logit range (float32 weights: only the order of sums differs); K/V cache
 blocks within 1e-5 of their largest |value|; routing, greedy tokens, shard
 shapes and bytes equal.
 """
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 import json
 import math
@@ -149,7 +156,8 @@ def _world(oracles, tmp_path_factory):
             box["res"] = run_ranks(
                 TR.tp_rank, 4, device="cpu", args=(CASES, INPUTS),
                 deadline_s=DEADLINE_S,
-                workdir=tmp_path_factory.mktemp("tp_ranks"))
+                workdir=tmp_path_factory.mktemp("tp_ranks"),
+                threads=torch_threads.RANK_THREADS)
         except BaseException as e:          # re-raised by the tests
             box["err"] = e
     t = threading.Thread(target=run, daemon=True)
@@ -168,7 +176,7 @@ def world(_world):
         raise box["err"]
     res = box["res"]
     out = {name: [r[name] for r in res] for name in CASES}
-    for k in ("helpers", "cli"):
+    for k in ("helpers", "cli", "cli_ssm"):
         out[k] = [r[k] for r in res]
     return out
 
@@ -339,21 +347,53 @@ def test_moe_modes_agree(world):
         assert torch.equal(torch.cat(parts), rpc[0][1]["routing"][i])
 
 
+def _wide_against_default(world, wide_case, default_case):
+    """The WIDE_DP_RULES case's logits (one batch row a rank, data-major,
+    the whole vocab) against the DEFAULT_RULES case's, gathered: the
+    largest difference and the default's logit range."""
+    wide = sorted(world[wide_case],
+                  key=lambda x: (x[0]["data"], x[0]["model"]))
+    full = torch.cat([r["logits"] for _, r in wide])
+    default = _gathered(world[default_case])
+    V = TR.case_cfg(TR.FWD[wide_case]).vocab_size
+    a, b = full[..., :V], default[..., :V]
+    return float((a - b).abs().max()), float(b.max() - b.min())
+
+
 def test_wide_dp_rules_forward_matches_default(world):
     """WIDE_DP_RULES (batch over every axis, experts replicated, ZeRO over
     data and model) against DEFAULT_RULES on (2, 2) through granite: the
     same function, so the same logits within F32_REL_FAMILY.  The
-    reference's test of this runs mamba2-780m, whose mesh forward is the
-    next slice; here the MoE family stands in."""
-    # wide-DP: one batch row a rank (data-major), the whole vocab
-    wide = sorted(world["granite_wide_2x2"],
-                  key=lambda x: (x[0]["data"], x[0]["model"]))
-    full = torch.cat([r["logits"] for _, r in wide])
-    default = _gathered(world["granite_default_2x2"])
-    V = TR.case_cfg(TR.FWD["granite_wide_2x2"]).vocab_size
-    a, b = full[..., :V], default[..., :V]
-    assert float((a - b).abs().max()) <= F32_REL_FAMILY * float(
-        b.max() - b.min())
+    reference's test of this runs mamba2-780m: that case is
+    ``test_wide_dp_rules_ssm_forward_matches_default``."""
+    err, span = _wide_against_default(world, "granite_wide_2x2",
+                                      "granite_default_2x2")
+    assert err <= F32_REL_FAMILY * span
+
+
+def test_wide_dp_rules_ssm_forward_matches_default(world):
+    """The reference's ``test_wide_dp_rules_forward_matches_default``
+    itself: mamba2-780m on (2, 2) under WIDE_DP_RULES (batch over every
+    axis, ZeRO over data and model, no ``ff`` or ``heads`` split) against
+    DEFAULT_RULES, within F32_REL_FAMILY of the logit range."""
+    err, span = _wide_against_default(world, "mamba2_wide_2x2",
+                                      "mamba2_2x2")
+    assert err <= F32_REL_FAMILY * span
+
+
+def test_ssm_layouts_are_reached(world):
+    """The Mamba cases reach the layouts they ask for: channels and heads
+    split alike over model (1, 4); at head dim 64 the 2 heads dropped and
+    the 128 channels kept, so the rank gathers them before the scan; under
+    WIDE_DP_RULES nothing split."""
+    lay = {name: world[name][0][1]["layout"] for name in TR.FWD
+           if name.startswith(("mamba2", "zamba2"))}
+    for name in ("mamba2_1x4", "mamba2_2x2", "zamba2_1x4", "zamba2_2x2"):
+        assert lay[name].ef == lay[name].eh == "model", name
+    d = lay["mamba2_heads_dropped"]
+    assert (d.ef, d.fn, d.eh, d.hlo, d.hn) == ("model", 32, None, 0, 2)
+    w = lay["mamba2_wide_2x2"]
+    assert (w.ef, w.eh, w.fn, w.hn) == (None, None, 128, 8)
 
 
 # --- (f) serving ---------------------------------------------------------------
@@ -369,7 +409,8 @@ def test_serving_matches_reference(case, world, oracles):
     topo = topo_of(c)
     for coord, r in world[case]:
         assert r["kv_mode"] == {"qwen15_heads": "heads",
-                                "gemma2_seq": "seq"}[case]
+                                "gemma2_seq": "seq", "mamba2_serve": "heads",
+                                "zamba2_serve": "heads"}[case]
         for i in range(TR.DECODE + 1):
             want = o[f"{case}/logits{i}"]
             assert_logits_block(cfg, topo, coord, r["logits"][i], want)
@@ -382,10 +423,12 @@ def test_serving_matches_reference(case, world, oracles):
 @pytest.mark.parametrize("stage", ["prefill_cache", "cache"])
 @pytest.mark.parametrize("case", list(TR.SERVE))
 def test_cache_blocks_match_reference(case, stage, world, oracles):
-    """Each rank's block of the K/V cache (after the prefill, with the
+    """Each rank's block of every cache entry (after the prefill, with the
     decode steps' room, and after the last step) against the block of the
-    reference's cache under ``cache_shardings``, within KV_REL of its
-    largest |value|; ``len`` exactly."""
+    reference's cache under ``cache_shardings``: the K/V (the shared
+    block's too), the conv tails on their ``ff`` channels and whole, the
+    SSM states on their heads, each within KV_REL of its largest |value|;
+    ``len`` exactly."""
     c = TR.SERVE[case]
     cfg = TR.case_cfg(c)
     o = oracles.get("serve")
@@ -394,7 +437,8 @@ def test_cache_blocks_match_reference(case, stage, world, oracles):
     specs = D.cache_specs(cfg, c["B"], L_, topo)
     for coord, r in world[case]:
         got = r[stage]
-        for name in ("k", "v", "len"):
+        assert set(got) == set(specs)
+        for name in specs:
             want_full = o[f"{case}/{stage}/{name}"]
             shape, axes, _ = specs[name]
             assert want_full.shape == shape
@@ -440,20 +484,39 @@ def test_serve_cli_on_a_mesh(world):
     assert torch.equal(ranks[0][1][:, 0], one[:, 0])
 
 
-# --- the families without a mesh path ------------------------------------------
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", list(TR.CLI_SSM))
+def test_serve_cli_on_a_mesh_ssm_hybrid(arch, world):
+    """``launch.serve --mesh 1,4``'s rank for mamba2-780m and zamba2-1.2b
+    at smoke() size (bf16 seeded weights cut to each rank's blocks, 2 x 64
+    + 3 greedy tokens): the ids of every rank the same, and equal to the
+    one-device launcher's."""
+    from repro_torch.launch import serve
+    c = TR.CLI_SSM[arch]
+    ranks = world["cli_ssm"]
+    for r in ranks:
+        coord, ids, st = r[arch]
+        assert tuple(ids.shape) == (c["batch"], c["decode"])
+        assert torch.equal(ids, ranks[0][arch][1])
+        assert st["prefill_ms"] > 0 and "cache" not in st
+    one = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                      "--batch", str(c["batch"]), "--prompt",
+                      str(c["prompt"]), "--decode", str(c["decode"])])
+    assert torch.equal(ranks[0][arch][1], one)
+
+
+# --- the family without a mesh path ------------------------------------------
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_other_families_raise_on_a_mesh(arch):
-    """The SSM, hybrid and audio families refuse a topology with an axis
-    above 1 (nothing runs silently unsharded) and run on ONE_DEVICE."""
+    """The audio family refuses a topology with an axis above 1 (nothing
+    runs silently unsharded) until slice 16 ports it."""
     cfg = get(arch).smoke()
     topo = S.Topology(S.AbstractMesh(("data", "model"), (1, 2)))
     batch = {"tokens": torch.ones((1, 32), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="slice 1[56]"):
+    with pytest.raises(NotImplementedError, match="slice 16"):
         api.forward(cfg, {}, batch, topo=topo)
-    with pytest.raises(NotImplementedError, match="slice 1[56]"):
+    with pytest.raises(NotImplementedError, match="slice 16"):
         D.make_prefill(cfg, 32, 0, topo)({}, batch)
-    with pytest.raises(NotImplementedError, match="slice 1[56]"):
+    with pytest.raises(NotImplementedError, match="slice 16"):
         D.make_decode_step(cfg, topo)
 
 

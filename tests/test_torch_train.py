@@ -3,6 +3,7 @@ CPU) and the tests that need the card (the kernels' gradients against
 their backwards).  This file imports no JAX, so the card's machine runs it;
 the other training tests are in ``tests/test_torch_train_*.py``, their
 limits in ``tests/torch_train_common.py``."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import json
 import os
 import pathlib

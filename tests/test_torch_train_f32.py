@@ -6,6 +6,7 @@ held to its own measured limit (``torch_train_common.check_train_step``;
 one microbatch: ``tests/test_torch_train_smoke.py``; limits:
 ``tests/torch_train_common.py``)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ attention and the SSD scan against ``jax.grad`` of the reference's plain
 functions, MoE capacity drops, the autograd wrappers); limits in
 ``tests/torch_train_common.py``."""
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

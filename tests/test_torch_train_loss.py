@@ -1,6 +1,7 @@
 """PyTorch port, training: ``lm_loss`` and AdamW (``apply_updates``) against
 the JAX package (limits: ``tests/torch_train_common.py``)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

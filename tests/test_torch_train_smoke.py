@@ -5,6 +5,7 @@ reference's at one microbatch, zamba2-1.2b and granite-moe-1b-a400m
 (``torch_train_common.check_train_step``; two microbatches:
 ``tests/test_torch_train_f32.py``)."""
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,7 @@
 """PyTorch port, transport layer: route_by_dest, pick_replies, placement_dest,
 the WireStats accounting and the NIC model, held against the JAX package on
 the same numpy inputs (bit for bit, float32 counts included)."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

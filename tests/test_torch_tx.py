@@ -4,6 +4,7 @@ hybrid lookup with its address cache, and run_transactions on both
 schedules — each held against the JAX package from the same state (the
 reference's arenas carried across as word images), bit for bit: results,
 abort causes, WireStats and final arenas."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 
 import numpy as np

@@ -4,6 +4,7 @@ held bit for bit against the JAX package — populated arenas, final arenas,
 commit masks, abort causes, WireStats and round counts.  The TATP mix runs
 retry rounds, fed the reference's own backoff permutations through
 ``perms`` (torch cannot reproduce ``jax.random``)."""
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 import json
 import pathlib

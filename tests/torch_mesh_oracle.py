@@ -25,7 +25,11 @@ import os
 import sys
 
 KIND, INPUTS, OUT = sys.argv[1:4]
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%d" % (
+# no Eigen thread pool inside an op: the oracle runs beside the suite's
+# workers
+os.environ["XLA_FLAGS"] = (
+    "--xla_cpu_multi_thread_eigen=false "
+    "--xla_force_host_platform_device_count=%d") % (
     512 if KIND == "specs" else 8)
 os.environ["JAX_PLATFORMS"] = "cpu"
 

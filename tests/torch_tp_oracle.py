@@ -8,9 +8,9 @@ KIND is ``fwd`` (``api.forward`` of each case on its (data, model) mesh of
 forced host devices with Auto axes, as ``repro.launch.mesh.make_smoke_mesh``
 builds them, under the case's rules and ``RunOptions``), ``serve``
 (``make_prefill`` over the prompt, then ``make_decode_step`` teacher-forced
-under ``SERVE_RULES``: the logits of each step, the prefill's cache padded
-by the decode steps' room, and the last cache) or ``dryrun`` (the
-production meshes on 512 forced devices: every leaf's
+under ``SERVE_RULES``: the logits of each step, the prefill's cache with
+its K/V padded by the decode steps' room, and the last cache) or
+``dryrun`` (the production meshes on 512 forced devices: every leaf's
 ``NamedSharding(...).shard_shape`` of the parameters under DEFAULT_RULES
 and SERVE_RULES, of the AdamW state under DEFAULT_RULES, of the batch and
 the cache of every shape under its cell's rules; INPUTS.npz is ignored).
@@ -23,7 +23,11 @@ import os
 import sys
 
 KIND, INPUTS, OUT = sys.argv[1:4]
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%d" % (
+# no Eigen thread pool inside an op: the oracle runs beside the suite's
+# workers
+os.environ["XLA_FLAGS"] = (
+    "--xla_cpu_multi_thread_eigen=false "
+    "--xla_force_host_platform_device_count=%d") % (
     512 if KIND == "dryrun" else 8)
 os.environ["JAX_PLATFORMS"] = "cpu"
 
@@ -89,7 +93,8 @@ def serve(inp, cases, prompt, decode):
         logits, cache = jax.jit(D.make_prefill(cfg, topo, prompt, opts))(
             params, {"tokens": toks[:, :prompt]})
         pad = ((0, 0), (0, 0), (0, decode), (0, 0), (0, 0))
-        cache = {k: jnp.pad(v, pad) if k in ("k", "v") else v
+        cache = {k: jnp.pad(v, pad) if k in ("k", "v", "shared_k",
+                                             "shared_v") else v
                  for k, v in cache.items()}
         for k, v in cache.items():
             out[f"{name}/prefill_cache/{k}"] = np.asarray(v)

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.registry import get
 from repro_torch.convert import params_block, params_from_numpy
-from repro_torch.models import api, moe, transformer
+from repro_torch.models import api, mamba2, moe, transformer
 from repro_torch.models.embedding import greedy
 from repro_torch.parallel import sharding as S
 from repro_torch.serving import decode as D
@@ -55,6 +55,20 @@ FWD = {
     "granite_wide_2x2": _fwd("granite-moe-1b-a400m", (2, 2), 6, B=4,
                              over=dict(capacity_factor=16.0),
                              rules="WIDE_DP_RULES"),
+    # (h) the SSM and hybrid families: mamba2's 8 smoke heads and 128
+    # d_inner channels split alike over model 4; at head dim 64 its 2 heads
+    # do not divide 4 ("heads" dropped, "ff" kept: the channels gathered
+    # before the scan); the batch over data and the fsdp gathers on
+    # (2, 2); WIDE_DP_RULES against DEFAULT_RULES; zamba2's 7 smoke layers,
+    # 6 Mamba layers, the shared block once and 1 tail layer
+    "mamba2_1x4": _fwd("mamba2-780m", (1, 4), 9),
+    "mamba2_2x2": _fwd("mamba2-780m", (2, 2), 10, B=4),
+    "mamba2_heads_dropped": _fwd("mamba2-780m", (1, 4), 11,
+                                 over=dict(ssm_head_dim=64)),
+    "mamba2_wide_2x2": _fwd("mamba2-780m", (2, 2), 10, B=4,
+                            rules="WIDE_DP_RULES"),
+    "zamba2_1x4": _fwd("zamba2-1.2b", (1, 4), 12),
+    "zamba2_2x2": _fwd("zamba2-1.2b", (2, 2), 13, B=4),
 }
 # (f) serving under SERVE_RULES: qwen1.5's 4 kv heads split ("heads" cache
 # mode), gemma2's 2 do not ("seq" mode, with its window and softcaps)
@@ -63,12 +77,18 @@ SERVE = {
                          rules="SERVE_RULES", B=2, seed=7),
     "gemma2_seq": dict(kind="serve", arch="gemma2-27b", mesh=(1, 4),
                        rules="SERVE_RULES", B=2, seed=8),
+    # the SSM states (conv_x on ff, ssm on heads) and the shared block's K/V
+    "mamba2_serve": dict(kind="serve", arch="mamba2-780m", mesh=(1, 4),
+                         rules="SERVE_RULES", B=2, seed=14),
+    "zamba2_serve": dict(kind="serve", arch="zamba2-1.2b", mesh=(1, 4),
+                         rules="SERVE_RULES", B=2, seed=15),
 }
 
 
 # launch.serve --mesh 1,4's rank function, on this world
 CLI = dict(arch="qwen1.5-4b", smoke=True, device="cpu", batch=2, prompt=64,
            decode=3)
+CLI_SSM = {a: dict(CLI, arch=a) for a in ("mamba2-780m", "zamba2-1.2b")}
 
 
 def case_cfg(c):
@@ -144,6 +164,7 @@ def _fwd_rank(topo, c, inp):
         restore()
     T = batch["tokens"].numel()
     return dict(logits=logits, routing=calls,
+                layout=(mamba2.layout(cfg, topo) if cfg.ssm_state else None),
                 branch=transformer.attention_branch(
                     cfg, topo, c.get("pad_heads", False)),
                 moe_mode=(moe.moe_dispatch(cfg, topo, T,
@@ -193,9 +214,10 @@ def helpers_rank(topo):
 
 def tp_rank(rank, world, cases, inputs):
     """Every case on its mesh of this world (meshed (1, 4) and (2, 2) over
-    the one process group), then the helpers on (2, 2)."""
+    the one process group), then the helpers on (2, 2), then
+    ``launch.serve --mesh 1,4``'s rank for qwen1.5-4b, mamba2-780m and
+    zamba2-1.2b."""
     from repro_torch.launch.mesh import make_mesh
-    torch.set_num_threads(1)      # four ranks beside the suite's workers
     meshes = {m: make_mesh(m, ("data", "model"), CPU) for m in MESHES}
     out = {}
     for name, c in cases.items():
@@ -207,4 +229,7 @@ def tp_rank(rank, world, cases, inputs):
     from repro_torch.launch import serve
     out["cli"] = serve.mesh_rank(rank, world, (1, 4),
                                  argparse.Namespace(**CLI))
+    out["cli_ssm"] = {a: serve.mesh_rank(rank, world, (1, 4),
+                                         argparse.Namespace(**c))
+                      for a, c in CLI_SSM.items()}
     return out
