@@ -4320,14 +4320,19 @@ TP_DEADLINE_S, TP_SEED = 300, 31
 # so ssd_scan runs at 6 heads a rank; zamba2-1.2b's 64 SSM heads run 16 a
 # rank and its shared block's 32 heads split by heads, the batch over data
 # (one row a rank)
+# (a rank); whisper-medium's 16 heads split 8 ways, 2 a rank, in all three
+# attentions, its self cache by heads ("heads") and its cross cache by kv
+# heads, over the stub frontend's 1,500 frames
 TP_CASES = (("qwen1.5-4b", (1, 8), (1, 512, 4), (2, 2048, 8)),
             ("glm4-9b", (2, 4), (2, 512, 4), (4, 2048, 8)),
             ("mamba2-780m", (1, 8), (1, 512, 4), (2, 2048, 8)),
-            ("zamba2-1.2b", (2, 4), (2, 512, 4), (2, 2048, 8)))
+            ("zamba2-1.2b", (2, 4), (2, 512, 4), (2, 2048, 8)),
+            ("whisper-medium", (1, 8), (1, 416, 4), (2, 416, 8)))
 TP_LAYERS, TP_PARITY_LAYERS = 4, 2
 # (float32 parity, bf16 serving) layers where an arch takes others than
 # (TP_PARITY_LAYERS, TP_LAYERS): zamba2's 6 Mamba layers, the shared block
-# once and 1 tail layer in both
+# once and 1 tail layer in both.  whisper's encoder is cut to as many
+# layers as its decoder (2 + 2, 4 + 4: _tp_cfg)
 TP_DEPTH = {"zamba2-1.2b": (7, 7)}
 # float32 parity, the ranks against the one-rank run, as a share of the
 # logit range.  qwen1.5-4b at 2 layers is well conditioned: a 1e-7
@@ -4345,8 +4350,21 @@ TP_DEPTH = {"zamba2-1.2b": (7, 7)}
 # 6), above a quarter of F32_REL_FAMILY, so its limit is 1e-3, ten times
 # that conditioning (set after the run that measured it, whose parity read
 # 1.243e-4).  zamba2-1.2b's is its card-against-CPU limit F32_REL.
+# whisper-medium at 2 + 2 layers (at its 24-layer init scale) is not well
+# conditioned either.  A 1e-7 change of its frames crosses the encoder's
+# bf16 input rounding (2.445e-2 of the logit range; every rank rounds the
+# same frames as the one-rank run does), so its conditioning changes the
+# encoder's first continuous values instead, the first layer's q, k and v
+# weights, with the embeddings: 2.263e-4 of the range (a second draw,
+# seed 32: 2.596e-4), while the decoder path alone (the encoder output
+# held, as whisper_card_vs_cpu holds it) read 2.081e-5; its weights at
+# the reference's init scale make the encoder's attention sharp (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6).  Its limit is 2e-3, ~9x
+# that conditioning by the rule above, set after the first parity run,
+# which read 2.907e-4 against F32_REL_FAMILY with the held conditioning.
 TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3,
-              "mamba2-780m": 1e-3, "zamba2-1.2b": F32_REL}
+              "mamba2-780m": 1e-3, "zamba2-1.2b": F32_REL,
+              "whisper-medium": 2e-3}
 # qwen1.5-4b's forward with pad_heads against without, over all 512
 # positions, as a share of the largest |logit|.  Both branches reorder
 # float32 sums, and over all positions the 2-layer model is ill-conditioned
@@ -4360,13 +4378,14 @@ TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3,
 TP_PAD_REL = 5e-3
 
 
-def _tp_steps(cfg, topo, params, tokens, prompt, decode):
+def _tp_steps(cfg, topo, params, tokens, prompt, decode, extra=None):
     """Prefill logits, then ``decode`` teacher-forced steps' logits, each
-    the rank's block, with the greedy tokens across the vocab blocks."""
+    the rank's block, with the greedy tokens across the vocab blocks.
+    ``extra``: the audio family's frames, {"frames": tensor}."""
     from repro_torch.models.embedding import greedy
     from repro_torch.serving.decode import make_decode_step, make_prefill
     logits, cache = make_prefill(cfg, prompt, decode, topo)(
-        params, {"tokens": tokens[:, :prompt]})
+        params, dict(extra or {}, tokens=tokens[:, :prompt]))
     out = [logits]
     step = make_decode_step(cfg, topo)
     for t in range(prompt, prompt + decode):
@@ -4380,10 +4399,35 @@ def _tp_depth(arch):
     return TP_DEPTH.get(arch, (TP_PARITY_LAYERS, TP_LAYERS))
 
 
+def _tp_cfg(arch, depth):
+    """``arch`` cut to ``depth`` layers (whisper: as many encoder layers)."""
+    import dataclasses
+    from repro_torch.configs.registry import get
+    full = get(arch)
+    return dataclasses.replace(full, n_layers=depth, **(
+        {"encoder_layers": depth} if full.family == "audio" else {}))
+
+
+@contextlib.contextmanager
+def kept_encoder(box):
+    """whisper's ``encode`` keeping its output in ``box["enc"]``."""
+    from repro_torch.models import whisper
+    saved = whisper.encode
+
+    def encode(*args, **kw):
+        box["enc"] = out = saved(*args, **kw)
+        return out
+    whisper.encode = encode
+    try:
+        yield box
+    finally:
+        whisper.encode = saved
+
+
 def _tp_params(cfg, topo, dev, dtype=None):
     """The seeded tree (TP_SEED) drawn leaf by leaf on the card and cut to
     this rank's blocks (topo None: the whole tree), in ``dtype`` if given;
-    an SSM or hybrid cut's stacks rescaled to the full depth's init
+    an SSM, hybrid or audio cut's stacks rescaled to the full depth's init
     (full_scale_stacks), its blocks as the whole tree's."""
     import torch
     from repro_torch.configs.registry import get
@@ -4393,7 +4437,7 @@ def _tp_params(cfg, topo, dev, dtype=None):
         device=dev).manual_seed(TP_SEED), dev, topo=topo)
     if dtype is not None:
         p = _map_tree(p, lambda t: t.to(dtype))
-    if cfg.ssm_state:
+    if cfg.ssm_state or cfg.family == "audio":
         full_scale_stacks(cfg, get(cfg.name), p)
     return p
 
@@ -4472,18 +4516,68 @@ def tp_qoffset(topo, B, S, Hq, D, dev):
     return out
 
 
+def tp_whisper_flash(topo, cfg, B, S, dev):
+    """flash_attention (bf16) at whisper's three rank shapes in its serving
+    prefill (B rows, the rank's heads, D 64): the encoder's self-attention
+    over the frames (non-causal), the decoder's causal self-attention over
+    the S-token prompt and its cross-attention (S queries over the frames),
+    each with diffuse and sharp scores against its plain version within
+    flash_checks' limits on every rank; then each timed on rank 0 alone,
+    beside its plain version, its bound and scaled_dot_product_attention
+    (the same function), while the other ranks wait."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import whisper
+    r = dist.get_rank()
+    (_, _, H), (_, _, Hkv) = whisper.heads(cfg, topo)
+    D, F = cfg.head_dim, cfg.encoder_seq
+    shapes = (("encoder", F, F, False), ("decoder self", S, S, True),
+              ("cross", S, F, False))
+    out = {"wflash_err": 0.0, "wflash": []}
+    for i, (label, Sq, Sk, causal) in enumerate(shapes):
+        kw = dict(causal=causal, group=H // Hkv)
+        for scale in (0.5, 1.5):
+            q, k, v = flash_inputs(B, Sq, Sk, H, Hkv, D, "bfloat16", dev,
+                                   70 + 8 * i + r, qk_scale=scale)
+            tag = (f"flash_attention at whisper's {label} rank shape on rank "
+                   f"{r} (BH={B * H}, Sq={Sq}, Sk={Sk}, D={D}, "
+                   f"{'causal' if causal else 'non-causal'}, bf16, scores "
+                   f"of std {scale * scale})")
+            out["wflash_err"] = max(out["wflash_err"], _flash_compare(
+                tag, fa.flash_attention_bhsd(q, k, v, **kw),
+                fa.flash_attention_plain(q, k, v, **kw), "bfloat16"))
+        dist.barrier()
+        if r == 0:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            q4 = q.reshape(B, H, Sq, D)
+            k4, v4 = (t.reshape(B, Hkv, Sk, D) for t in (k, v))
+            out["wflash"].append(dict(
+                label=label, shape=(B * H, Sq, Sk, D, causal),
+                ms=_mean(time_cuda(lambda: fa.flash_attention_bhsd(
+                    q, k, v, **kw), 20)),
+                plain_ms=_mean(time_cuda(lambda: fa.flash_attention_plain(
+                    q, k, v, **kw), 3)),
+                sdpa_ms=_mean(time_cuda(lambda: sdpa(
+                    q4, k4, v4, is_causal=causal, enable_gqa=H > Hkv), 20)),
+                bound=flash_bound(B * H, Sq, Sk, D, causal, 2,
+                                  group=H // Hkv)))
+        dist.barrier()
+    return out
+
+
 def tp_rank(rank, world, dev, cases):
     """A rank of the tensor-parallel world on ``dev``: for each of
     ``cases`` (TP_CASES), its mesh
     over the one group (SERVE_RULES), then the float32 parity run at
     its parity depth (prefill and teacher-forced decode; qwen1.5-4b's
-    forward with and without pad_heads), then bf16 serving at its serving
-    depth through launch.serve with flash_attention's and ssd_scan's
-    launches counted, qwen1.5-4b's q_offset kernel and the SSM archs'
-    ssd_scan at the rank's shape."""
-    import dataclasses
+    forward with and without pad_heads; whisper's frames, its encoder
+    output and flash_attention's launches kept), then bf16 serving at its
+    serving depth through launch.serve with flash_attention's and
+    ssd_scan's launches counted, qwen1.5-4b's q_offset kernel, the SSM
+    archs' ssd_scan and whisper's three attentions at the rank's
+    shapes."""
     import torch
-    from repro_torch.configs.registry import get
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import serve
@@ -4500,11 +4594,18 @@ def tp_rank(rank, world, dev, cases):
                         dict(SERVE_RULES))
         res = out[arch] = {"coord": topo.coordinate()}
         depth, serve_depth = _tp_depth(arch)
-        cfg = dataclasses.replace(get(arch), n_layers=depth)
+        cfg = _tp_cfg(arch, depth)
         t0 = time.perf_counter()
         p = _tp_params(cfg, topo, dev, torch.float32)
-        toks = blk(serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"], topo)
-        steps, greedy = _tp_steps(cfg, topo, p, toks, P, Dn)
+        batch = serve.prompt_batch(cfg, B, P, Dn, dev)
+        toks = blk(batch["tokens"], topo)
+        extra = {k: blk(v, topo) for k, v in _stub_inputs(batch).items()}
+        fa.launches = 0
+        with kept_encoder({}) as box:
+            steps, greedy = _tp_steps(cfg, topo, p, toks, P, Dn, extra)
+        res["parity_launches"] = fa.launches
+        if "enc" in box:
+            res["enc"] = box["enc"].cpu()
         res["parity"] = [s.cpu() for s in steps]
         res["greedy"] = [x.cpu() for x in greedy]
         if arch == cases[0][0]:
@@ -4520,7 +4621,7 @@ def tp_rank(rank, world, dev, cases):
         res["parity_s"] = time.perf_counter() - t0
         del p
         torch.cuda.empty_cache()
-        cfg = dataclasses.replace(get(arch), n_layers=serve_depth)
+        cfg = _tp_cfg(arch, serve_depth)
         p = _tp_params(cfg, topo, dev)
         batch = {k: blk(v, topo) for k, v in serve.prompt_batch(
             cfg, Bs, Ps, Ds, dev).items()}
@@ -4542,45 +4643,77 @@ def tp_rank(rank, world, dev, cases):
                                   dev))
         if cfg.ssm_state:
             res.update(tp_ssd(topo, cfg, batch["tokens"].shape[0], Ps, dev))
+        if cfg.family == "audio":
+            res.update(tp_whisper_flash(topo, cfg, batch["tokens"].shape[0],
+                                        Ps, dev))
     return out
 
 
 def tp_one_rank(dev, cases):
     """The one-rank float32 runs the ranks' parity runs are held to, on the
     card, with each model's conditioning: the logit change for a 1e-7
-    relative change of the embeddings."""
-    import dataclasses
+    relative change of the embeddings (whisper: and of its first encoder
+    layer's q, k and v weights; for information the same change of the
+    embeddings with the encoder output held, and with the frames)."""
     import torch
-    from repro_torch.configs.registry import get
     from repro_torch.launch import serve
     from repro_torch.parallel.sharding import ONE_DEVICE
     from repro_torch.models import api
     from repro_torch.models.transformer import RunOptions
     out = {}
     for arch, _, (B, P, Dn), _ in cases:
-        cfg = dataclasses.replace(get(arch), n_layers=_tp_depth(arch)[0])
+        cfg = _tp_cfg(arch, _tp_depth(arch)[0])
         V = cfg.vocab_size
         p = _tp_params(cfg, None, dev, torch.float32)
-        toks = serve.prompt_batch(cfg, B, P, Dn, dev)["tokens"]
-        run = lambda q: _tp_steps(cfg, ONE_DEVICE, q, toks, P, Dn)[0]
+        batch = serve.prompt_batch(cfg, B, P, Dn, dev)
+        toks, extra = batch["tokens"], _stub_inputs(batch)
+        run = lambda q, x=extra: _tp_steps(cfg, ONE_DEVICE, q, toks, P, Dn,
+                                           x)[0]
         fwd = lambda q: api.forward(cfg, q, {"tokens": toks[:, :P]},
                                     opts=RunOptions(remat=False))[..., :V]
         first = arch == cases[0][0]
-        ref = run(p)
+        with kept_encoder({}) as box:
+            ref = run(p)
         f0 = fwd(p) if first else None
         g = torch.Generator(device=dev).manual_seed(2)
+        shake = lambda t: t.float() * (1 + 1e-7 * torch.randn(
+            t.shape, generator=g, device=dev))
+        moved = lambda got: max(float((a - b)[:, :V].abs().max()
+                                      / b[:, :V].abs().max())
+                                for a, b in zip(got, ref))
         e = p["embed"]
-        p["embed"] = e * (1 + 1e-7 * torch.randn(e.shape, generator=g,
-                                                 device=dev))
-        moved = max(float((a - b)[:, :V].abs().max() / b[:, :V].abs().max())
-                    for a, b in zip(run(p), ref))
-        out[arch] = dict(ref=[x.cpu() for x in ref], moved=moved)
+        p["embed"] = shake(e)
+        out[arch] = dict(ref=[x.cpu() for x in ref])
+        if "enc" in box:
+            # whisper, for information: the encoder output held, then the
+            # frames unheld; then the limit's: its first continuous values
+            # after the bf16 input rounding, the first layer's q, k and v
+            with held_encoder(shake(box["enc"])):
+                out[arch]["moved_held"] = moved(run(p))
+            out[arch]["moved_frames"] = moved(run(p, {
+                k: shake(v) for k, v in extra.items()}))
+            out[arch]["enc"] = box["enc"].cpu()
+            for n in ("s_wq", "s_wk", "s_wv"):
+                w = p["enc_layers"][n]
+                w[0] = shake(w[0])
+        out[arch]["moved"] = moved(run(p))
         if first:                   # the forward over every position
             out[arch]["fwd_moved"] = float((fwd(p) - f0).abs().max()
                                            / f0.abs().max())
-        del p, e, f0
+        del p, e, f0, box
         torch.cuda.empty_cache()
     return out
+
+
+def _tp_launches(cfg):
+    """(flash_attention, ssd_scan) launches of one prefill of a TP_CASES
+    cut: an attention a dense layer, an application of zamba2's shared
+    block, whisper's three a layer pair (_family_launches); a scan a Mamba
+    layer."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    n = _family_launches(cfg)
+    return n["flash_attention"], n["ssd_scan"]
 
 
 def _tp_gather(ranks, arch, key, i):
@@ -4600,13 +4733,15 @@ def tensor_parallel(dev, cases=TP_CASES):
     device), with the one-rank float32 runs on the card meanwhile in this
     process: each TP_CASES arch's float32 parity against its one-rank run
     within its TP_F32_REL share of the logit range, greedy tokens equal
-    (its conditioning at most a quarter of that limit); qwen1.5-4b's
+    (its conditioning at most a quarter of that limit; whisper's encoder
+    output block of each rank printed beside it); qwen1.5-4b's
     forward with pad_heads (20 -> 24 heads) against without within
-    TP_PAD_REL; on every rank per prefill one flash_attention launch per
-    attention layer (zamba2: per application of the shared block) and one
-    ssd_scan launch per Mamba layer; the q_offset kernel and ssd_scan at
-    the rank's shapes against their plain versions on every rank; prefill
-    and decode ms per rank."""
+    TP_PAD_REL; on every rank per prefill, of the parity run and of the
+    serving run, one flash_attention launch per attention layer (zamba2:
+    per application of the shared block; whisper: three per layer pair)
+    and one ssd_scan launch per Mamba layer; the q_offset kernel, ssd_scan
+    and whisper's three attentions at the rank's shapes against their
+    plain versions on every rank; prefill and decode ms per rank."""
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.testing.ranks import run_ranks
@@ -4623,15 +4758,29 @@ def tensor_parallel(dev, cases=TP_CASES):
         V = get(arch).vocab_size
         got = [_tp_gather(ranks, arch, "parity", i) for i in range(Dn + 1)]
         depth, serve_depth = _tp_depth(arch)
+        enc = ("and the first encoder layer's q, k and v weights "
+               if "enc" in ref else "")
         print(f"tensor parallel {arch} {shape}: a 1e-7 relative change of "
-              f"the embeddings moves the one-rank float32 logits by "
+              f"the embeddings {enc}moves the one-rank float32 logits by "
               f"{moved:.3e} of their range (at most a quarter of the parity "
               f"limit {rel}) [{card()}]", flush=True)
-        _compare(f"tensor parallel {arch} {shape}, {depth} layers"
-                 f", {B} x {P} + {Dn}, float32, {world} ranks vs one, limit "
-                 f"{rel}", got, ref["ref"], V, rel)
         check(moved <= rel / 4, f"{arch}: conditioned worse than the "
               "tensor-parallel parity limit assumes")
+        if "enc" in ref:
+            far = [float((r[arch]["enc"] - ref["enc"]).abs().max()
+                         / ref["enc"].abs().max()) for r in ranks]
+            print(f"tensor parallel {arch} {shape}, information: the same "
+                  f"change of the embeddings with the encoder output held "
+                  f"(and changed alike) moves them by "
+                  f"{ref['moved_held']:.3e}, with the frames (it crosses the "
+                  f"encoder's bf16 input rounding) by "
+                  f"{ref['moved_frames']:.3e}; each rank's encoder output "
+                  f"from the one-rank run's, of its largest |value|: "
+                  f"{[f'{x:.3e}' for x in far]}", flush=True)
+        _compare(f"tensor parallel {arch} {shape}, {depth} layers"
+                 f"{' + ' + str(depth) if 'enc' in ref else ''}"
+                 f", {B} x {P} + {Dn}, float32, {world} ranks vs one, limit "
+                 f"{rel}", got, ref["ref"], V, rel)
         rows = B // shape[0]               # a rank's batch rows
         for i in range(Dn + 1):
             want = got[i][:, :V].argmax(-1)
@@ -4641,11 +4790,8 @@ def tensor_parallel(dev, cases=TP_CASES):
                                   want[d * rows:(d + 1) * rows]),
                       f"{arch}: a rank's greedy token differs from the "
                       f"argmax of the gathered logits at step {i}")
-        scfg = get(arch)
-        n_attn = (serve_depth // scfg.shared_attn_every
-                  if scfg.family == "hybrid" else
-                  0 if scfg.family == "ssm" else serve_depth)
-        n_ssd = serve_depth if scfg.ssm_state else 0
+        n_attn, n_ssd = _tp_launches(_tp_cfg(arch, serve_depth))
+        p_attn = _tp_launches(_tp_cfg(arch, depth))[0]
         for r in ranks:
             x = r[arch]
             check(x["launches"] == n_attn and x["ssd_launches"] == n_ssd,
@@ -4653,13 +4799,19 @@ def tensor_parallel(dev, cases=TP_CASES):
                   f"{x['ssd_launches']} ssd_scan launches on rank "
                   f"{x['coord']} in a {serve_depth}-layer prefill (want "
                   f"{n_attn} and {n_ssd})")
+            check(x["parity_launches"] == p_attn,
+                  f"{arch}: {x['parity_launches']} flash_attention launches "
+                  f"on rank {x['coord']} in the {depth}-layer float32 "
+                  f"parity run (want {p_attn})")
             check(x["finite"] and x["cache_len"] == Ps + Ds - 1,
                   f"{arch}: non-finite logits or a wrong cache length")
             check(bool(((x["ids"] >= 0) & (x["ids"] < V)).all()),
                   f"{arch}: ids outside the vocabulary")
-        print(f"tensor parallel {arch} {shape}, bf16, {serve_depth} layers, "
+        print(f"tensor parallel {arch} {shape}, bf16, {serve_depth} layers"
+              f"{' + ' + str(serve_depth) if 'enc' in ref else ''}, "
               f"{Bs} x {Ps} + {Ds}: {n_attn} flash_attention and {n_ssd} "
-              f"ssd_scan launches a prefill on every rank; the cache blocks "
+              f"ssd_scan launches a prefill on every rank ({p_attn} in the "
+              f"float32 parity prefill); the cache blocks "
               f"{ranks[0][arch]['cache_shape']} a rank; prefill ms by rank "
               f"{[round(r[arch]['prefill_ms'], 3) for r in ranks]}, decode "
               f"ms a step by rank "
@@ -4706,6 +4858,22 @@ def tensor_parallel(dev, cases=TP_CASES):
               f"plain {t['ssd_plain_ms']:.4f} ms, bound {bms:.5f} ms "
               f"({bby}, float32) [{card()}]", flush=True)
         check(over <= 1, f"ssd_scan at {arch}'s rank shape != plain")
+    for arch, shape, _, _ in cases:
+        if get(arch).family != "audio":
+            continue
+        err = max(r[arch]["wflash_err"] for r in ranks)
+        for t in next(r[arch] for r in ranks if r[arch]["wflash"]
+                      )["wflash"]:
+            BH, Sq, Sk, D, causal = t["shape"]
+            bms, bby = t["bound"]
+            print(f"flash_attention at {arch}'s {t['label']} rank shape on "
+                  f"{shape} (BH={BH}, Sq={Sq}, Sk={Sk}, D={D}, "
+                  f"{'causal' if causal else 'non-causal'}, bf16): kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"scaled_dot_product_attention(is_causal={causal}) "
+                  f"{t['sdpa_ms']:.4f} ms (the same function), bound "
+                  f"{bms:.5f} ms ({bby}); max |kernel - plain| of the three "
+                  f"shapes over the ranks {err:.3e} [{card()}]", flush=True)
     print(f"tensor parallel: {world} ranks {world_s:.1f} s", flush=True)
 
 
@@ -4841,8 +5009,9 @@ def main():
     mesh_dataplane(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    phase("tensor_parallel: qwen1.5-4b and mamba2-780m on (1, 8), glm4-9b "
-          "and zamba2-1.2b on (2, 4), eight ranks on the card")
+    phase("tensor_parallel: qwen1.5-4b, mamba2-780m and whisper-medium on "
+          "(1, 8), glm4-9b and zamba2-1.2b on (2, 4), eight ranks on the "
+          "card")
     t0 = time.perf_counter()
     tensor_parallel(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)

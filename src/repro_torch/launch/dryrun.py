@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs import SHAPES, shape_applicable
 from repro_torch.configs.registry import ARCHS, get
 from repro_torch.data.pipeline import batch_specs
-from repro_torch.models import api, moe, transformer
+from repro_torch.models import api, moe, transformer, whisper
 from repro_torch.models.zamba import _shared_cfg
 from repro_torch.optim.adamw import opt_state_specs
 from repro_torch.parallel.sharding import (DEFAULT_RULES, SERVE_RULES,
@@ -93,7 +93,11 @@ def rules_for(cfg, shape, opt: str = "baseline"):
 
 def attention_branches(cfg, topo: Topology, pad_heads: bool):
     """The attention branch of each layer kind that takes
-    ``transformer.attention_block``."""
+    ``transformer.attention_block``; the audio family's three attentions
+    (``whisper.attention_branch``: the rank's heads, or every head)."""
+    if cfg.family == "audio":
+        br = whisper.attention_branch(cfg, topo)
+        return {k: br for k in ("encoder", "self", "cross")}
     if cfg.family in ("dense", "moe", "vlm"):
         kinds = (("local", "global") if cfg.local_global_pattern == 2
                  else ("global",))

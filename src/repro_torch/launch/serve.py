@@ -17,9 +17,8 @@ the prompt's first positions).  Runs on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --smoke --device cpu
 
-``--mesh D,M`` serves an arch of every family but the audio one (whisper
-waits for slice 16) tensor-parallel on a (data D, model M) mesh under
-``SERVE_RULES`` (the reference's launcher builds
+``--mesh D,M`` serves any arch tensor-parallel on a (data D, model M) mesh
+under ``SERVE_RULES`` (the reference's launcher builds
 ``Topology(mesh, SERVE_RULES)``): D x M ranks through
 ``testing.ranks.run_ranks``, gloo on the CPU, NCCL one card a rank where
 the machine has D x M cards, else gloo with every rank on the one card.
@@ -32,6 +31,8 @@ counts a rank's batch block (the reference's per-device capacity).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
         --smoke --device cpu --batch 2 --prompt 96 --decode 4 --mesh 1,4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke --device cpu --batch 2 --prompt 96 --decode 4 --mesh 1,4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
         --smoke --device cpu --batch 2 --prompt 96 --decode 4 --mesh 1,4
 """
 from __future__ import annotations
@@ -167,8 +168,7 @@ def main(argv=None):
     ap.add_argument("--decode", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
-                    help="D,M: serve on a (data D, model M) mesh of ranks "
-                         "(every family but the audio one, slice 16's)")
+                    help="D,M: serve on a (data D, model M) mesh of ranks")
     args = ap.parse_args(argv)
 
     if args.mesh:

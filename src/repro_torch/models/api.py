@@ -1,7 +1,6 @@
 """Family dispatcher (counterpart of ``repro/models/api.py``): ``dense``,
 ``moe`` and ``vlm`` (transformer), ``ssm`` (mamba2), ``hybrid`` (zamba) and
-``audio`` (whisper).  Every family but the audio one runs on a mesh;
-whisper raises on one until slice 16 ports it."""
+``audio`` (whisper).  Every family runs on a mesh."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -12,21 +11,10 @@ from repro_torch.parallel.sharding import ONE_DEVICE, Topology
 
 FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": mamba2, "hybrid": zamba, "audio": whisper}
-# the slice that ports each of the other families' mesh forward (ROADMAP.md)
-MESH_SLICE = {"audio": "slice 16 (whisper on the mesh)"}
 
 
 def param_specs(cfg: ModelConfig):
     return FAMILIES[cfg.family].param_specs(cfg)
-
-
-def one_device_only(cfg: ModelConfig, topo: Topology):
-    """Raise NotImplementedError where ``cfg``'s family has no mesh path and
-    ``topo`` has an axis above 1: nothing runs silently unsharded."""
-    if cfg.family in MESH_SLICE and topo.sharded():
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) has no mesh path yet: "
-            f"{MESH_SLICE[cfg.family]} ports it")
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None,
@@ -35,17 +23,15 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, opts=None,
     (vlm) where the family takes them -> logits (B, S, V_padded) float32.
     ``opts``: ``transformer.RunOptions`` (tiles of the attention's backward,
     remat, ``pad_heads``, ``moe_mode``), the reference's default when None.
-    On a mesh (``topo``; every family but the audio one) ``params`` and
-    the batch are this rank's blocks and the logits its (B_r, S,
-    V_padded / tp) block."""
+    On a mesh (``topo``) ``params`` and the batch are this rank's blocks
+    and the logits its (B_r, S, V_padded / tp) block."""
     tokens = batch["tokens"]
-    one_device_only(cfg, topo)
     if cfg.family == "ssm":
         return mamba2.forward(cfg, params, tokens, opts=opts, topo=topo)
     if cfg.family == "hybrid":
         return zamba.forward(cfg, params, tokens, opts=opts, topo=topo)
     if cfg.family == "audio":
         return whisper.forward(cfg, params, tokens, frames=batch.get("frames"),
-                               opts=opts)
+                               opts=opts, topo=topo)
     return transformer.forward(cfg, topo, params, tokens, opts=opts,
                                extra_embeds=batch.get("patch_embeds"))

@@ -35,6 +35,14 @@ def layers(stack):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def dot(x, w):
+    """x @ w in the promoted dtype (a bf16 activation against float32
+    weights runs in float32, as jnp's einsum does); x @ w itself where the
+    dtypes agree."""
+    t = torch.promote_types(x.dtype, w.dtype)
+    return x.to(t) @ w.to(t)
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
     """Scales by ``1 + weight`` (zero-centred weights), so it is not
     ``torch.nn.RMSNorm``."""
@@ -243,9 +251,12 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down
 
 
+def gelu(h):
+    """``jax.nn.gelu``'s default, the tanh approximation (not torch's
+    default erf), in float32 and rounded to h's dtype."""
+    return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+
+
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
-    """Whisper's MLP: ``jax.nn.gelu``'s default, the tanh approximation (not
-    torch's default erf), in float32 and rounded to x's dtype."""
-    h = x @ w_in + b_in
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ w_out + b_out
+    """Whisper's MLP, :func:`gelu` between the two products."""
+    return gelu(x @ w_in + b_in) @ w_out + b_out

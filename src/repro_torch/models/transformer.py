@@ -105,50 +105,59 @@ def is_local(cfg: ModelConfig, i: int) -> bool:
     return cfg.local_global_pattern == 2 and i % 2 == 0
 
 
+_BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Leaves:
+    """One layer's leaves as the mesh helpers below read them: each leaf's
+    ParamSpec (unstacked) by name, so a rank's block of a stacked leaf is a
+    block of it layer by layer, and the bias leaf that follows each
+    projection (``bq`` after ``wq``; whisper's ``s_bq`` after ``s_wq``,
+    ``b_in`` after ``w_in``).  The transformer's is :func:`leaves`;
+    ``whisper.leaves`` is the audio family's."""
+    specs: dict
+    bias: dict
+
+
 @functools.lru_cache(maxsize=None)
-def _leaf_specs(cfg: ModelConfig):
-    """One layer's ParamSpecs (unstacked) by leaf name: a rank's blocks of
-    the stacked leaves are blocks of these, layer by layer."""
-    return layer_param_specs(cfg, stacked=False)
+def leaves(cfg: ModelConfig) -> Leaves:
+    """The transformer layer's :class:`Leaves`: ``layer_param_specs``, with
+    the qkv biases where the config has them."""
+    return Leaves(layer_param_specs(cfg, stacked=False),
+                  dict(_BIAS) if cfg.qkv_bias else {})
 
 
-def _w(topo: Topology, cfg: ModelConfig, p, name: str, keep=()):
+def _w(topo: Topology, lv: Leaves, p, name: str, keep=()):
     """Leaf ``name`` of layer ``p`` with every sharded dimension gathered
     but those in ``keep`` (the fsdp dimension is always gathered: the
     reference's ZeRO-3 gather before use)."""
     if not topo.sharded():
         return p[name]
-    s = _leaf_specs(cfg)[name]
+    s = lv.specs[name]
     return topo.full(p[name], s.shape, s.logical_axes, keep=keep)
 
 
-def _entry(topo: Topology, cfg: ModelConfig, name: str, dim: int):
-    s = _leaf_specs(cfg)[name]
+def _entry(topo: Topology, lv: Leaves, name: str, dim: int):
+    s = lv.specs[name]
     return topo.spec_for(s.shape, s.logical_axes)[dim]
 
 
-_BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
-
-
-def _bias(cfg: ModelConfig, name: str):
-    return _BIAS.get(name) if cfg.qkv_bias else None
-
-
-def _whole(topo: Topology, cfg: ModelConfig, p, names):
+def _whole(topo: Topology, lv: Leaves, p, names):
     """Leaves ``names`` of layer ``p`` gathered whole: the fsdp dimension
     leaf by leaf, then the head dimensions of all of them that the rank
     holds a block of in one collective an entry and dtype
     (``Topology.gather_many``)."""
     out, groups = {}, {}
     for n in names:
-        s = _leaf_specs(cfg)[n]
+        s = lv.specs[n]
         dim = next((d for d, ax in enumerate(s.logical_axes)
                     if ax in ("heads", "kv_heads")), None)
-        w = _w(topo, cfg, p, n, keep=() if dim is None else (dim,))
+        w = _w(topo, lv, p, n, keep=() if dim is None else (dim,))
         if dim is None or w.shape[dim] == s.shape[dim]:
             out[n] = w
         else:
-            groups.setdefault((_entry(topo, cfg, n, dim), w.dtype),
+            groups.setdefault((_entry(topo, lv, n, dim), w.dtype),
                               []).append((n, w, dim))
     for (e, _), items in groups.items():
         got = topo.gather_many([w for _, w, _ in items],
@@ -157,63 +166,67 @@ def _whole(topo: Topology, cfg: ModelConfig, p, names):
     return out
 
 
-def _project(topo: Topology, cfg: ModelConfig, p, x, names):
+def _project(topo: Topology, lv: Leaves, p, x, names):
     """x (..., d), the same on every rank of the group, times every column
-    of each leaf in ``names`` (d, N), plus its bias where the config has
-    one (``bq``/``bk``/``bv`` follow ``wq``/``wk``/``wv``), in one
-    collective: the products of the stored column blocks all-gathered
-    where x has fewer rows than d (decode), else the weights gathered
-    whole (:func:`_whole`)."""
-    d = _leaf_specs(cfg)[names[0]].shape[0]
-    ws = {n: _w(topo, cfg, p, n, keep=(1,)) for n in names}
-    part = [n for n in names
-            if ws[n].shape[1] != _leaf_specs(cfg)[n].shape[1]]
-    bias = lambda n, W: 0 if _bias(cfg, n) is None else W[_bias(cfg, n)]
+    of each leaf in ``names`` (d, N), plus its bias where the layer has
+    one (``lv.bias``), in one collective: the products of the stored
+    column blocks all-gathered where x has fewer rows than d (decode), else
+    the weights gathered whole (:func:`_whole`)."""
+    d = lv.specs[names[0]].shape[0]
+    ws = {n: _w(topo, lv, p, n, keep=(1,)) for n in names}
+    part = [n for n in names if ws[n].shape[1] != lv.specs[n].shape[1]]
+    bias = lambda n, W: 0 if n not in lv.bias else W[lv.bias[n]]
     if part and x[..., 0].numel() < d:
-        ys = {n: x @ ws[n] + bias(n, p) for n in names}
+        ys = {n: L.dot(x, ws[n]) + bias(n, p) for n in names}
         groups = {}
         for n in part:
-            groups.setdefault(_entry(topo, cfg, n, 1), []).append(n)
+            groups.setdefault(_entry(topo, lv, n, 1), []).append(n)
         for e, ns in groups.items():
             ys.update(zip(ns, topo.gather_many(
                 [ys[n] for n in ns], [ys[n].dim() - 1 for n in ns], e)))
         return [ys[n] for n in names]
-    W = _whole(topo, cfg, p, list(names) + [
-        _bias(cfg, n) for n in names if _bias(cfg, n)])
-    return [x @ W[n] + bias(n, W) for n in names]
+    W = _whole(topo, lv, p, list(names) + [
+        lv.bias[n] for n in names if n in lv.bias])
+    return [L.dot(x, W[n]) + bias(n, W) for n in names]
 
 
-def _local_cols(topo: Topology, cfg: ModelConfig, p, name: str, x,
+def _local_cols(topo: Topology, lv: Leaves, p, name: str, x,
                 lo: int, n: int, entry):
     """x (..., d) times columns [lo, lo + n) of leaf ``name`` (plus bias):
-    the rank's share of the heads under ``entry``, which its stored block
-    holds (the heads branch: whole heads of the rank) unless the leaf is
-    stored whole."""
-    w = _w(topo, cfg, p, name, keep=(1,))
-    b = p[_bias(cfg, name)] if _bias(cfg, name) else None
-    if not topo.sharded() or w.shape[1] == _leaf_specs(cfg)[name].shape[1]:
+    the rank's share of the heads (or ``ff`` columns) under ``entry``,
+    which its stored block holds (the heads branch: whole heads of the
+    rank) unless the leaf is stored whole."""
+    w = _w(topo, lv, p, name, keep=(1,))
+    b = p[lv.bias[name]] if name in lv.bias else None
+    if not topo.sharded() or w.shape[1] == lv.specs[name].shape[1]:
         if n != w.shape[1]:             # a whole leaf: the rank's columns
             w = w[:, lo:lo + n]
             b = None if b is None else b[lo:lo + n]
-    elif w.shape[1] != n or _entry(topo, cfg, name, 1) != entry:
+    elif w.shape[1] != n or _entry(topo, lv, name, 1) != entry:
         raise ValueError(f"{name}: the rank's columns are not its heads")
-    y = x @ w
+    y = L.dot(x, w)
     return y if b is None else y + b
 
 
-def _local_rows(topo: Topology, cfg: ModelConfig, p, name: str, x,
-                lo: int, n: int, entry):
+def _local_rows(topo: Topology, lv: Leaves, p, name: str, x,
+                lo: int, n: int, entry, f32_sum: bool = False):
     """x (..., n) times rows [lo, lo + n) of leaf ``name`` (N, d), x's
     columns the rank's share of the heads under ``entry``, the partial sum
     all-reduced over it; the stored block holds those rows unless the leaf
-    is stored whole."""
-    w = _w(topo, cfg, p, name, keep=(0,))
-    if not topo.sharded() or w.shape[0] == _leaf_specs(cfg)[name].shape[0]:
+    is stored whole.  With ``f32_sum`` a partial sum over more than one
+    rank goes in float32 and is rounded once after the all-reduce, so a
+    bf16 product rounds as on one device up to the order of float32
+    sums."""
+    w = _w(topo, lv, p, name, keep=(0,))
+    if not topo.sharded() or w.shape[0] == lv.specs[name].shape[0]:
         if n != w.shape[0]:             # a whole leaf: the rank's rows
             w = w[lo:lo + n]
-    elif w.shape[0] != n or _entry(topo, cfg, name, 0) != entry:
+    elif w.shape[0] != n or _entry(topo, lv, name, 0) != entry:
         raise ValueError(f"{name}: the rank's rows are not its heads")
-    return topo.all_reduce(x @ w, entry)
+    if f32_sum and n != lv.specs[name].shape[0]:
+        t = torch.promote_types(x.dtype, w.dtype)
+        return topo.all_reduce(x.float() @ w.float(), entry).to(t)
+    return topo.all_reduce(L.dot(x, w), entry)
 
 
 def _heads(topo: Topology, logical: str, n: int):
@@ -276,6 +289,7 @@ def attention_block(cfg: ModelConfig, topo: Topology, p, h, cos, sin, *,
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     G = Hq // Hkv
     hn = L.rms_norm(h, p["attn_norm"])
+    lv = leaves(cfg)
     branch = attention_branch(cfg, topo, pad_heads)
     gather_seq = None
     attn = functools.partial(L.block_attention, causal=True, window=window,
@@ -284,29 +298,29 @@ def attention_block(cfg: ModelConfig, topo: Topology, p, h, cos, sin, *,
     if branch == "heads":
         eq, lo, nh = _heads(topo, "heads", Hq)
         ekv, klo, nk = _heads(topo, "kv_heads", Hkv)
-        q = _local_cols(topo, cfg, p, "wq", hn, lo * hd, nh * hd, eq)
+        q = _local_cols(topo, lv, p, "wq", hn, lo * hd, nh * hd, eq)
         if nh == Hq or (ekv == eq and nk * G == nh):
             if nh == Hq:
                 ekv, klo, nk = None, 0, Hkv
-            k = _local_cols(topo, cfg, p, "wk", hn, klo * hd, nk * hd, ekv)
-            v = _local_cols(topo, cfg, p, "wv", hn, klo * hd, nk * hd, ekv)
+            k = _local_cols(topo, lv, p, "wk", hn, klo * hd, nk * hd, ekv)
+            v = _local_cols(topo, lv, p, "wv", hn, klo * hd, nk * hd, ekv)
             q, k = _rope_qk(q, k, cos, sin, hd)
             v = v.reshape(B, S, nk, hd)
             ka, va = k, v
         else:                       # repeat K/V to the rank's query heads
-            k, v = _project(topo, cfg, p, hn, ("wk", "wv"))
+            k, v = _project(topo, lv, p, hn, ("wk", "wv"))
             q, k = _rope_qk(q, k, cos, sin, hd)
             v = v.reshape(B, S, Hkv, hd)
             idx = torch.arange(lo, lo + nh, device=h.device) // G
             ka, va = k[:, :, idx], v[:, :, idx]
         out = attn(q, ka, va)
-        o = _local_rows(topo, cfg, p, "wo", out.reshape(B, S, nh * hd),
+        o = _local_rows(topo, lv, p, "wo", out.reshape(B, S, nh * hd),
                         lo * hd, nh * hd, eq)
     else:
         names = ["wq", "wk", "wv", "wo"] + [
-            _bias(cfg, n) for n in ("wq", "wk", "wv") if _bias(cfg, n)]
-        W = _whole(topo, cfg, p, names)
-        proj = lambda x, n: x @ W[n] + (W[_bias(cfg, n)] if _bias(cfg, n)
+            lv.bias[n] for n in ("wq", "wk", "wv") if n in lv.bias]
+        W = _whole(topo, lv, p, names)
+        proj = lambda x, n: x @ W[n] + (W[lv.bias[n]] if n in lv.bias
                                         else 0)
         k = L.apply_rope(proj(hn, "wk").reshape(B, S, Hkv, hd), cos, sin)
         v = proj(hn, "wv").reshape(B, S, Hkv, hd)
@@ -316,7 +330,7 @@ def attention_block(cfg: ModelConfig, topo: Topology, p, h, cos, sin, *,
             real = max(0, min(lo + nh, Hq) - lo)      # the rank's real heads
             c0 = min(lo, Hq) * hd
             W["wq"] = W["wq"][:, c0:c0 + real * hd]
-            if _bias(cfg, "wq"):
+            if "wq" in lv.bias:
                 W["bq"] = W["bq"][c0:c0 + real * hd]
             q = L.apply_rope(proj(hn, "wq").reshape(B, S, real, hd), cos,
                              sin)
@@ -343,10 +357,11 @@ def attention_block(cfg: ModelConfig, topo: Topology, p, h, cos, sin, *,
 def _swiglu(topo: Topology, cfg: ModelConfig, p, x, gate, up, down):
     """SwiGLU with ``gate``/``up`` column-parallel and ``down`` row-parallel
     on ``ff``: one all-reduce over the axes ``ff`` is split over."""
-    e = _entry(topo, cfg, gate, 1) if topo.sharded() else None
-    y = L.swiglu(x, _w(topo, cfg, p, gate, keep=(1,)),
-                 _w(topo, cfg, p, up, keep=(1,)),
-                 _w(topo, cfg, p, down, keep=(0,)))
+    lv = leaves(cfg)
+    e = _entry(topo, lv, gate, 1) if topo.sharded() else None
+    y = L.swiglu(x, _w(topo, lv, p, gate, keep=(1,)),
+                 _w(topo, lv, p, up, keep=(1,)),
+                 _w(topo, lv, p, down, keep=(0,)))
     return topo.all_reduce(y, e)
 
 
@@ -363,7 +378,7 @@ def ffn_block(cfg: ModelConfig, topo: Topology, p, h,
         B, S = hn.shape[:2]
         mode = moe_dispatch(cfg, topo, B * S, moe_mode)
         keep = () if mode in ("local", "replicated") else (0,)
-        ws = [_w(topo, cfg, p, n, keep=keep)
+        ws = [_w(topo, leaves(cfg), p, n, keep=keep)
               for n in ("we_gate", "we_up", "we_down")]
         out = moe_ffn(cfg, topo, hn, p["router"], *ws, mode=mode)
         if cfg.n_shared_experts:

@@ -24,8 +24,8 @@ reference's ``.at[].set``: the new token's K/V at offset ``len`` of each row,
 each Mamba layer's new states over its old ones.  It returns the cache with
 ``len`` advanced; clone the tensors first to keep the old cache.
 
-On a mesh (``make_decode_step(cfg, topo=)``, every family but the audio
-one) a rank holds its blocks of the parameters, the batch and the cache: in
+On a mesh (``make_decode_step(cfg, topo=)``) a rank holds its blocks of
+the parameters, the batch and the cache: in
 "heads" mode it projects and attends its own query and kv heads and the
 output projection is row-parallel (one all-reduce over ``model``); in
 "seq" mode the query and the new K/V are every head's (the projections'
@@ -36,7 +36,10 @@ projection row-parallel.  The FFN and the vocab-sharded LM head are the
 prefill's.  A Mamba layer's step (``mamba2.mamba_block``) reads and writes
 the rank's blocks of its states (``conv_x`` its ``d_inner`` channels,
 ``ssm`` its heads); the hybrid's shared block decodes as a transformer
-layer over the ``shared_k``/``shared_v`` region.
+layer over the ``shared_k``/``shared_v`` region.  The audio family's
+self-attention decodes as the transformer's (without rotation, with its
+biases), its cross-attention always on the rank's heads of ``xk``/``xv``,
+which are split by kv heads in either mode (``XKV_AXES``).
 """
 from __future__ import annotations
 
@@ -74,6 +77,10 @@ def _kv_axes(mode: str):
             else (None, "batch", "kv_seq", None, None))
 
 
+# the audio family's cross K/V (xk, xv): split by kv heads in either mode
+XKV_AXES = (None, "batch", None, "kv_heads", None)
+
+
 def cache_specs(cfg: ModelConfig, B: int, S: int,
                 topo: Topology = ONE_DEVICE) -> Dict[str, Tuple]:
     """{name: (shape, logical axes, dtype)} of the cache for B rows of S
@@ -86,9 +93,8 @@ def cache_specs(cfg: ModelConfig, B: int, S: int,
         out["v"] = (kv, kv_ax, torch.bfloat16)
         if cfg.family == "audio":
             x = (cfg.n_layers, B, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
-            x_ax = (None, "batch", None, "kv_heads", None)
-            out["xk"] = (x, x_ax, torch.bfloat16)
-            out["xv"] = (x, x_ax, torch.bfloat16)
+            out["xk"] = (x, XKV_AXES, torch.bfloat16)
+            out["xv"] = (x, XKV_AXES, torch.bfloat16)
         return out
     nl, K = cfg.n_layers, cfg.conv_width
     GN = cfg.ssm_groups * cfg.ssm_state
@@ -207,40 +213,58 @@ def hybrid_decode_attention(cfg: ModelConfig, topo: Topology, q, kc, vc,
     return _flash_decode_shardmap(cfg, topo, q, kc, vc, lens, window)
 
 
-def _tf_decode_layer(cfg, topo, p, h, kc, vc, lens, *, local: bool):
-    """Dense or MoE decoder layer for one token.  h (B, d); the token's K/V
-    go into kc/vc (this rank's cache block) at ``lens``.  The FFN is the
-    prefill's (``transformer.ffn_block``) over the B tokens."""
-    B = h.shape[0]
+def _self_attention_decode(cfg, topo, lv, p, hn, kc, vc, lens, *, pre="",
+                           rope=None, window=None, f32_sum=False):
+    """One token's self-attention on a rank, up to the output projection
+    (no output bias): hn (B, d) normed; the token's K/V go into kc/vc (this
+    rank's cache block) at ``lens``.  Leaves ``{pre}wq`` ... ``{pre}wo`` of
+    ``lv`` (the layer's ``transformer.Leaves``); ``rope`` turns q and k
+    (B, H, hd) where the family rotates them.  In "heads" cache mode the
+    rank's query and kv heads and ``wo`` row-parallel; in "seq" mode every
+    head's q/k/v (the projections' column blocks all-gathered), the append
+    at the owner of position ``len`` only, ``_flash_decode_shardmap`` and
+    ``wo`` row-parallel over the rank's rows.  ``f32_sum`` as in
+    ``transformer._local_rows``."""
+    B = hn.shape[0]
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    hn = L.rms_norm(h, p["attn_norm"])
-    window = cfg.sliding_window if local else None
+    wq, wk, wv, wo = (pre + n for n in ("wq", "wk", "wv", "wo"))
+    rope = rope or (lambda x: x)
     if kv_mode(cfg, topo) == "heads":
         eq, lo, nh = T._heads(topo, "heads", Hq)
         ekv, klo, nk = T._heads(topo, "kv_heads", Hkv)
-        q = T._local_cols(topo, cfg, p, "wq", hn, lo * hd, nh * hd, eq)
-        k = T._local_cols(topo, cfg, p, "wk", hn, klo * hd, nk * hd, ekv)
-        v = T._local_cols(topo, cfg, p, "wv", hn, klo * hd, nk * hd, ekv)
-        q = _rope_single(q.reshape(B, nh, hd), lens, cfg.rope_theta)
-        k = _rope_single(k.reshape(B, nk, hd), lens, cfg.rope_theta)
+        q = T._local_cols(topo, lv, p, wq, hn, lo * hd, nh * hd, eq)
+        k = T._local_cols(topo, lv, p, wk, hn, klo * hd, nk * hd, ekv)
+        v = T._local_cols(topo, lv, p, wv, hn, klo * hd, nk * hd, ekv)
+        q = rope(q.reshape(B, nh, hd))
+        k = rope(k.reshape(B, nk, hd))
         append_kv(kc, vc, k, v.reshape(B, nk, hd), lens)
         att = decode_attention(cfg, q, kc, vc, lens + 1, window=window)
-        o = T._local_rows(topo, cfg, p, "wo", att.reshape(B, nh * hd),
-                          lo * hd, nh * hd, eq)
-    else:
-        q, k, v = T._project(topo, cfg, p, hn, ("wq", "wk", "wv"))
-        q = _rope_single(q.reshape(B, Hq, hd), lens, cfg.rope_theta)
-        k = _rope_single(k.reshape(B, Hkv, hd), lens, cfg.rope_theta)
-        es, first, _ = seq_block(topo, kc.shape[1])
-        append_kv_owned(kc, vc, k, v.reshape(B, Hkv, hd), lens - first)
-        att = (decode_attention(cfg, q, kc, vc, lens + 1, window=window)
-               if es is None else
-               _flash_decode_shardmap(cfg, topo, q, kc, vc, lens + 1, window))
-        er = T._entry(topo, cfg, "wo", 0)
-        rlo, rn = topo.extent(er, Hq * hd)
-        o = T._local_rows(topo, cfg, p, "wo",
-                          att.reshape(B, Hq * hd)[:, rlo:rlo + rn], rlo, rn,
-                          er)
+        return T._local_rows(topo, lv, p, wo, att.reshape(B, nh * hd),
+                             lo * hd, nh * hd, eq, f32_sum=f32_sum)
+    q, k, v = T._project(topo, lv, p, hn, (wq, wk, wv))
+    q = rope(q.reshape(B, Hq, hd))
+    k = rope(k.reshape(B, Hkv, hd))
+    es, first, _ = seq_block(topo, kc.shape[1])
+    append_kv_owned(kc, vc, k, v.reshape(B, Hkv, hd), lens - first)
+    att = (decode_attention(cfg, q, kc, vc, lens + 1, window=window)
+           if es is None else
+           _flash_decode_shardmap(cfg, topo, q, kc, vc, lens + 1, window))
+    er = T._entry(topo, lv, wo, 0)
+    rlo, rn = topo.extent(er, Hq * hd)
+    return T._local_rows(topo, lv, p, wo,
+                         att.reshape(B, Hq * hd)[:, rlo:rlo + rn], rlo, rn,
+                         er, f32_sum=f32_sum)
+
+
+def _tf_decode_layer(cfg, topo, p, h, kc, vc, lens, *, local: bool):
+    """Dense or MoE decoder layer for one token.  h (B, d); the token's K/V
+    go into kc/vc (this rank's cache block) at ``lens``
+    (:func:`_self_attention_decode`).  The FFN is the prefill's
+    (``transformer.ffn_block``) over the B tokens."""
+    o = _self_attention_decode(
+        cfg, topo, T.leaves(cfg), p, L.rms_norm(h, p["attn_norm"]), kc, vc,
+        lens, rope=lambda x: _rope_single(x, lens, cfg.rope_theta),
+        window=cfg.sliding_window if local else None)
     if cfg.post_norms:
         o = L.rms_norm(o, p["attn_post_norm"])
     return T.ffn_block(cfg, topo, p, (h + o)[:, None])[:, 0]
@@ -301,55 +325,56 @@ def _hybrid_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
     return logits_of(cfg, params, h, topo), dict(cache, len=lens + 1)
 
 
-def _wh_decode_layer(cfg, p, h, kc, vc, xk, xv, lens, xlen):
+def _wh_decode_layer(cfg, topo, p, h, kc, vc, xk, xv, lens, xlen):
     """Whisper decoder layer for one token: self-attention over its cache
-    (the token's K/V go in at ``lens``), cross-attention over all the
-    frames' K/V, MLP.  h (B, d).  The residual adds run as the reference's
-    decode writes them, ``(h + o) + b``."""
-    B = h.shape[0]
-    hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    (:func:`_self_attention_decode`: the token's K/V go in at ``lens``),
+    cross-attention over all the frames' K/V (the reference's
+    ``mode="heads"``: the rank's heads of the cross cache, every head where
+    it is not split), MLP.  h (B, d).  The residual adds run as the
+    reference's decode writes them, ``(h + o) + b``, each row-parallel
+    output's bias added once after its all-reduce."""
+    B, hd = h.shape[0], cfg.head_dim
     hn = L.layer_norm(h, p["s_ln_w"], p["s_ln_b"])
-    q = (W.dot(hn, p["s_wq"]) + p["s_bq"]).reshape(B, Hq, hd)
-    k = W.dot(hn, p["s_wk"]).reshape(B, Hkv, hd)
-    v = (W.dot(hn, p["s_wv"]) + p["s_bv"]).reshape(B, Hkv, hd)
-    append_kv(kc, vc, k, v, lens)
-    att = decode_attention(cfg, q, kc, vc, lens + 1)
-    h = h + W.dot(att.reshape(B, Hq * hd), p["s_wo"]) + p["s_bo"]
+    h = h + _self_attention_decode(cfg, topo, W.leaves(cfg), p, hn, kc, vc,
+                                   lens, pre="s_", f32_sum=True) + p["s_bo"]
     hn = L.layer_norm(h, p["x_ln_w"], p["x_ln_b"])
-    q = (W.dot(hn, p["x_wq"]) + p["x_bq"]).reshape(B, Hq, hd)
-    att = decode_attention(cfg, q, xk, xv, xlen)
-    h = h + W.dot(att.reshape(B, Hq * hd), p["x_wo"]) + p["x_bo"]
+    (eq, lo, nh), _ = W.heads(cfg, topo)
+    q, = W.project_heads(cfg, topo, p, hn, ["x_wq"], lo * hd, nh * hd, eq)
+    att = hybrid_decode_attention(cfg, topo, q.reshape(B, nh, hd), xk, xv,
+                                  xlen, mode="heads")
+    h = h + W.out_proj(cfg, topo, p, "x_wo", att.reshape(B, nh * hd),
+                       lo * hd, nh * hd, eq) + p["x_bo"]
     hn = L.layer_norm(h, p["m_ln_w"], p["m_ln_b"])
-    return h + L.gelu_mlp(hn, p["w_in"], p["b_in"], p["w_out"], p["b_out"])
+    return h + W.mlp(cfg, topo, p, hn)
 
 
-def _wh_decode(cfg: ModelConfig, params, cache, tokens):
-    """The token's position is row ``len`` of the sinusoid table."""
+def _wh_decode(cfg: ModelConfig, topo: Topology, params, cache, tokens):
+    """The token's position is row ``len`` of the sinusoid table, taken at
+    the cache's global length (on a "seq" rank its block holds L/tp of
+    them)."""
     lens = cache["len"]
-    pos = W.sinusoid(cache["k"].shape[2], cfg.d_model, device=tokens.device)
-    h = (embed_lookup(ONE_DEVICE, params["embed"], tokens[:, None])[:, 0]
-         + pos[lens.long()])
+    rows = cache["k"].shape[2]
+    if kv_mode(cfg, topo) == "seq":
+        rows *= seq_block(topo, rows)[2]
+    pos = W.sinusoid(rows, cfg.d_model, device=tokens.device)
+    h = (embed_lookup(topo, params["embed"], tokens[:, None],
+                      vocab=cfg.vocab_padded)[:, 0] + pos[lens.long()])
     xlen = torch.full_like(lens, cache["xk"].shape[2])     # every frame
     for i in range(cfg.n_layers):
-        h = _wh_decode_layer(cfg, L.layer(params["dec_layers"], i), h,
+        h = _wh_decode_layer(cfg, topo, L.layer(params["dec_layers"], i), h,
                              cache["k"][i], cache["v"][i], cache["xk"][i],
                              cache["xv"][i], lens, xlen)
-    return W.head(cfg, params, h), dict(cache, len=lens + 1)
+    return W.head(cfg, params, h, topo), dict(cache, len=lens + 1)
 
 
 _DECODE = {"dense": _tf_decode, "moe": _tf_decode, "vlm": _tf_decode,
-           "ssm": _ssm_decode, "hybrid": _hybrid_decode}
+           "ssm": _ssm_decode, "hybrid": _hybrid_decode, "audio": _wh_decode}
 
 
 def make_decode_step(cfg: ModelConfig, topo: Topology = ONE_DEVICE):
     """decode_step(params, cache, tokens (B,)) -> (logits (B, V_padded) f32,
-    the cache, written in place, with ``len`` advanced).  On a mesh (every
-    family but the audio one) the rank's blocks in and its logits block
-    (B_r, V_padded / tp) out."""
-    from repro_torch.models.api import one_device_only
-    one_device_only(cfg, topo)
-    if cfg.family == "audio":
-        return partial(_wh_decode, cfg)
+    the cache, written in place, with ``len`` advanced).  On a mesh the
+    rank's blocks in and its logits block (B_r, V_padded / tp) out."""
     return partial(_DECODE[cfg.family], cfg, topo)
 
 
@@ -357,8 +382,7 @@ def make_prefill(cfg: ModelConfig, S: int, room: int = 0,
                  topo: Topology = ONE_DEVICE):
     """prefill(params, batch) -> (last-position logits (B, V_padded), cache
     holding S positions and ``room`` more, zeros, for decode).  On a mesh
-    (every family but the audio one) the rank's blocks in, its logits and
-    cache blocks out; in "seq" cache mode the room is rounded up so that S +
+    the rank's blocks in, its logits and cache blocks out; in "seq" cache mode the room is rounded up so that S +
     room divides over the ``kv_seq`` axes."""
     from repro_torch.serving.prefill import prefill_fn
     return partial(prefill_fn, cfg, topo, S, room)

@@ -12,14 +12,16 @@ positions, and each layer's rows are written into them: at gemma2-27b's
 2 x 8,192 positions the region is 6.2 GB, so neither a stack of per-layer
 rows nor a later pad copies it.
 
-On a mesh (every family but the audio one; ``_tf_prefill`` and the
-hybrid's shared block run the reference's ``_attn_with_cache``) a rank's
-region is its block of the cache in ``decode.kv_mode``'s layout: its kv
-heads in "heads" mode; in "seq" mode its rows of every head, positions
-[r L/tp, (r + 1) L/tp) of the L = S + room positions, where ``room`` is
-rounded up so that tp divides L.  The Mamba layers' states come out as the
-rank's blocks of ``decode.cache_specs``: ``conv_x`` its ``d_inner``
-channels, ``conv_B`` and ``conv_C`` whole, ``ssm`` its heads.
+On a mesh (``_tf_prefill`` and the hybrid's shared block run the
+reference's ``_attn_with_cache``, ``_wh_prefill`` its ``_wh_prefill``) a
+rank's self-attention region is its block of the cache in
+``decode.kv_mode``'s layout: its kv heads in "heads" mode; in "seq" mode
+its rows of every head, positions [r L/tp, (r + 1) L/tp) of the L = S +
+room positions, where ``room`` is rounded up so that tp divides L.  The
+audio family's cross region is its kv heads in either mode.  The Mamba
+layers' states come out as the rank's blocks of ``decode.cache_specs``:
+``conv_x`` its ``d_inner`` channels, ``conv_B`` and ``conv_C`` whole,
+``ssm`` its heads.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models import whisper as W
 from repro_torch.models.embedding import embed, logits_of
 from repro_torch.models.zamba import _shared_cfg, n_scan_layers
-from repro_torch.models.api import one_device_only
 from repro_torch.parallel.sharding import ONE_DEVICE, Topology
-from repro_torch.serving.decode import SSM_CACHE, _kv_axes, kv_mode, seq_block
+from repro_torch.serving.decode import (SSM_CACHE, XKV_AXES, _kv_axes, kv_mode,
+                                        seq_block)
 
 
 def _rope(cfg, S, device):
@@ -51,13 +53,14 @@ def _ssm_prefill_layer(cfg, topo, p, h, states):
     return h
 
 
-def _kv_region(cfg, n, h, room, topo: Topology = ONE_DEVICE):
+def _kv_region(cfg, n, h, room, topo: Topology = ONE_DEVICE, axes=None):
     """K and V regions of ``n`` attention layers of ``cfg``: (n, B, S + room,
     Hkv, hd) zeros in the dtype of the activations h (B, S, d) they are
     projected from; on a mesh the rank's block of them in the cache's
-    layout, with room rounded up in "seq" mode (see the module)."""
+    layout (``axes``; the self-attention cache's ``kv_mode`` layout when
+    None), with room rounded up in "seq" mode (see the module)."""
     B, S = h.shape[:2]
-    axes = list(_kv_axes(kv_mode(cfg, topo)))
+    axes = list(axes or _kv_axes(kv_mode(cfg, topo)))
     if "kv_seq" in axes:
         tp = seq_block(topo, 0)[2]
         room = -(-(S + room) // tp) * tp - S
@@ -155,36 +158,40 @@ def _hybrid_prefill(cfg: ModelConfig, topo: Topology, S, room, params,
     return logits_of(cfg, params, h[:, -1], topo), cache
 
 
-def _wh_prefill(cfg: ModelConfig, S, room, params, batch):
+def _wh_prefill(cfg: ModelConfig, topo: Topology, S, room, params, batch):
     """Encode the frames (zeros when the batch has none), then the decoder
     layers over the prompt, emitting their self-attention K/V into the
-    region of S + ``room`` positions and their cross K/V."""
+    region of S + ``room`` positions (on a mesh the rank's block in
+    ``kv_mode``'s layout) and their cross K/V, whose region is always split
+    by kv heads (``XKV_AXES``: in "seq" mode too the 1,500 frames stay
+    whole on a rank).  Each rank projects its heads' cross K/V from its
+    batch block of the encoder output, with no collective."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     frames = batch.get("frames")
     if frames is None:
         frames = W.no_frames(cfg, B, tokens.device)
     opts = T.RunOptions()
-    enc = W.encode(cfg, params, frames, opts)
-    h = W.embed_tokens(cfg, params, tokens)
-    kc, vc = _kv_region(cfg, cfg.n_layers, h, room)
-    xk, xv = _kv_region(cfg, cfg.n_layers, enc, 0)
+    enc = W.encode(cfg, params, frames, opts, topo)
+    h = W.embed_tokens(cfg, params, tokens, topo)
+    kc, vc = _kv_region(cfg, cfg.n_layers, h, room, topo)
+    first = _region_first(cfg, topo, kc)
+    xk, xv = _kv_region(cfg, cfg.n_layers, enc, 0, topo, axes=XKV_AXES)
     for i in range(cfg.n_layers):
-        h, kc[i, :, :S], vc[i, :, :S], xk[i], xv[i] = W.decoder_layer(
+        h, k, v, xk[i], xv[i] = W.decoder_layer(
             cfg, L.layer(params["dec_layers"], i), h, enc, opts,
-            return_kv=True)
+            return_kv=True, topo=topo)
+        _put_kv(kc[i], vc[i], k, v, first)
     cache = {"k": kc, "v": vc, "xk": xk, "xv": xv,
              "len": _lens(B, S, h.device)}
-    return W.head(cfg, params, h[:, -1]), cache
+    return W.head(cfg, params, h[:, -1], topo), cache
 
 
 _PREFILL = {"dense": _tf_prefill, "moe": _tf_prefill, "vlm": _tf_prefill,
-            "ssm": _ssm_prefill, "hybrid": _hybrid_prefill}
+            "ssm": _ssm_prefill, "hybrid": _hybrid_prefill,
+            "audio": _wh_prefill}
 
 
 def prefill_fn(cfg: ModelConfig, topo: Topology, S: int, room: int, params,
                batch):
-    one_device_only(cfg, topo)
-    if cfg.family == "audio":
-        return _wh_prefill(cfg, S, room, params, batch)
     return _PREFILL[cfg.family](cfg, topo, S, room, params, batch)

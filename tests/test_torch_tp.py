@@ -1,10 +1,11 @@
-"""PyTorch port, tensor-parallel serving on the mesh: the transformer,
-SSM and hybrid families' forward, prefill and decode on a rank's blocks of
-the parameters, the batch and the cache, in the reference's three attention
-branches (heads, padded heads, sequence-parallel), with the MoE modes, the
-Mamba layer's channel and head layouts, the rule sets, the query offset of
-the ``flash_attention`` kernel's plain version and the dry run, held
-against the JAX package.
+"""PyTorch port, tensor-parallel serving on the mesh: every family's
+forward, prefill and decode (the transformer, SSM, hybrid and audio
+families) on a rank's blocks of the parameters, the batch and the cache,
+in the reference's three attention branches (heads, padded heads,
+sequence-parallel), with the MoE modes, the Mamba layer's channel and head
+layouts, whisper's heads (or every head) and its cross cache, the rule
+sets, the query offset of the ``flash_attention`` kernel's plain version
+and the dry run, held against the JAX package.
 
 The port runs in one world of 4 gloo ranks (``run_ranks``; what each rank
 runs is ``tests/torch_tp_ranks.tp_rank``, which imports no JAX), meshed
@@ -13,7 +14,9 @@ from ``tests/torch_tp_oracle.py`` in three subprocesses started when this
 module starts: the forwards and the serving runs on 8 forced host devices
 with Auto axes (as ``repro.launch.mesh.make_smoke_mesh`` builds them), the
 production meshes' shard shapes on 512.  Inputs are seeded numpy (float32
-weights of each arch's ``smoke()`` config, tokens, patch embeddings).
+weights of each arch's ``smoke()`` config, tokens, patch embeddings,
+frames); the audio cases' reference runs its encoder's scans as loops with
+the bf16 roundings it writes kept (the oracle's docstring).
 
 Cases: (a) the query offset (causal, window, softcap, GQA) against
 ``layers.block_attention(q_offset=)``; (b) glm4-9b's heads branch with K/V
@@ -33,8 +36,12 @@ entry's block (conv tails, SSM states, the shared block's K/V); (g) the
 dry run's shard shapes and bytes against ``NamedSharding(...).shard_shape``
 on the production meshes; (h) mamba2-780m on (1, 4) and (2, 2), and at
 head dim 64 (2 heads over 4 ranks: ``heads`` dropped, ``ff`` kept),
-zamba2-1.2b on (1, 4) and (2, 2); ``launch.serve --mesh 1,4`` for
-qwen1.5-4b, mamba2-780m and zamba2-1.2b.
+zamba2-1.2b on (1, 4) and (2, 2); (i) whisper-medium on (1, 4), on (2, 2)
+under DEFAULT_RULES (the batch over data, the fsdp gathers) and at 6 heads
+over 4 ranks (every head on every rank, ``wo`` whole), served in "heads"
+cache mode and at 6 heads in "seq" mode (the self cache split by sequence,
+the cross cache ``xk``/``xv`` whole); ``launch.serve --mesh 1,4`` for
+qwen1.5-4b, mamba2-780m, zamba2-1.2b and whisper-medium.
 
 Tolerances: logits within ``F32_REL_FAMILY`` (3e-4) of the reference's
 logit range (float32 weights: only the order of sums differs); K/V cache
@@ -176,7 +183,7 @@ def world(_world):
         raise box["err"]
     res = box["res"]
     out = {name: [r[name] for r in res] for name in CASES}
-    for k in ("helpers", "cli", "cli_ssm"):
+    for k in ("helpers", "cli", "cli_ssm", "cli_audio"):
         out[k] = [r[k] for r in res]
     return out
 
@@ -291,11 +298,14 @@ def test_forward_matches_reference(case, world, oracles):
 
 
 def test_attention_branches_are_reached(world):
-    """The cases reach each of the reference's three branches, and the
-    MoE cases the modes they ask for."""
+    """The cases reach each of the reference's three branches (whisper its
+    heads, and every head where 6 heads do not divide 4), and the MoE cases
+    the modes they ask for."""
     branch = {name: world[name][0][1]["branch"] for name in TR.FWD}
     assert branch["glm4_1x4"] == branch["glm4_2x2"] == "heads"
     assert branch["qwen25_seq"] == "seq" and branch["qwen25_pad"] == "padded"
+    assert branch["whisper_1x4"] == branch["whisper_2x2"] == "heads"
+    assert branch["whisper_6h"] == "every head"
     modes = {name: world[name][0][1]["moe_mode"] for name in TR.FWD
              if name.startswith("granite")}
     assert modes["granite_rpc"] == "rpc"
@@ -410,7 +420,9 @@ def test_serving_matches_reference(case, world, oracles):
     for coord, r in world[case]:
         assert r["kv_mode"] == {"qwen15_heads": "heads",
                                 "gemma2_seq": "seq", "mamba2_serve": "heads",
-                                "zamba2_serve": "heads"}[case]
+                                "zamba2_serve": "heads",
+                                "whisper_heads": "heads",
+                                "whisper_seq": "seq"}[case]
         for i in range(TR.DECODE + 1):
             want = o[f"{case}/logits{i}"]
             assert_logits_block(cfg, topo, coord, r["logits"][i], want)
@@ -426,9 +438,9 @@ def test_cache_blocks_match_reference(case, stage, world, oracles):
     """Each rank's block of every cache entry (after the prefill, with the
     decode steps' room, and after the last step) against the block of the
     reference's cache under ``cache_shardings``: the K/V (the shared
-    block's too), the conv tails on their ``ff`` channels and whole, the
-    SSM states on their heads, each within KV_REL of its largest |value|;
-    ``len`` exactly."""
+    block's too, whisper's cross K/V by kv heads or whole), the conv tails
+    on their ``ff`` channels and whole, the SSM states on their heads, each
+    within KV_REL of its largest |value|; ``len`` exactly."""
     c = TR.SERVE[case]
     cfg = TR.case_cfg(c)
     o = oracles.get("serve")
@@ -484,40 +496,38 @@ def test_serve_cli_on_a_mesh(world):
     assert torch.equal(ranks[0][1][:, 0], one[:, 0])
 
 
+def _cli_matches_one_device(ranks, c):
+    """Each rank's ``launch.serve --mesh`` result (coordinate, ids, stats)
+    for the case ``c``: the ids of every rank the same, and equal to the
+    one-device launcher's."""
+    from repro_torch.launch import serve
+    for coord, ids, st in ranks:
+        assert tuple(ids.shape) == (c["batch"], c["decode"])
+        assert torch.equal(ids, ranks[0][1])
+        assert st["prefill_ms"] > 0 and "cache" not in st
+    one = serve.main(["--arch", c["arch"], "--smoke", "--device", "cpu",
+                      "--batch", str(c["batch"]), "--prompt",
+                      str(c["prompt"]), "--decode", str(c["decode"])])
+    assert torch.equal(ranks[0][1], one)
+
+
 @pytest.mark.parametrize("arch", list(TR.CLI_SSM))
 def test_serve_cli_on_a_mesh_ssm_hybrid(arch, world):
     """``launch.serve --mesh 1,4``'s rank for mamba2-780m and zamba2-1.2b
     at smoke() size (bf16 seeded weights cut to each rank's blocks, 2 x 64
     + 3 greedy tokens): the ids of every rank the same, and equal to the
     one-device launcher's."""
-    from repro_torch.launch import serve
-    c = TR.CLI_SSM[arch]
-    ranks = world["cli_ssm"]
-    for r in ranks:
-        coord, ids, st = r[arch]
-        assert tuple(ids.shape) == (c["batch"], c["decode"])
-        assert torch.equal(ids, ranks[0][arch][1])
-        assert st["prefill_ms"] > 0 and "cache" not in st
-    one = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--batch", str(c["batch"]), "--prompt",
-                      str(c["prompt"]), "--decode", str(c["decode"])])
-    assert torch.equal(ranks[0][arch][1], one)
+    _cli_matches_one_device([r[arch] for r in world["cli_ssm"]],
+                            TR.CLI_SSM[arch])
 
 
-# --- the family without a mesh path ------------------------------------------
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_other_families_raise_on_a_mesh(arch):
-    """The audio family refuses a topology with an axis above 1 (nothing
-    runs silently unsharded) until slice 16 ports it."""
-    cfg = get(arch).smoke()
-    topo = S.Topology(S.AbstractMesh(("data", "model"), (1, 2)))
-    batch = {"tokens": torch.ones((1, 32), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        api.forward(cfg, {}, batch, topo=topo)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        D.make_prefill(cfg, 32, 0, topo)({}, batch)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        D.make_decode_step(cfg, topo)
+def test_serve_cli_on_a_mesh_audio(world):
+    """``launch.serve --mesh 1,4``'s rank for whisper-medium at smoke() size
+    (its synthetic frames, bf16 seeded weights cut to each rank's blocks,
+    one head a rank, 2 x 64 + 3 greedy tokens): the ids of every rank the
+    same, and equal to the one-device launcher's (row-parallel partial sums
+    go in float32, rounded once as on one device)."""
+    _cli_matches_one_device(world["cli_audio"], TR.CLI_AUDIO)
 
 
 # --- (g) the dry run -----------------------------------------------------------
@@ -580,7 +590,8 @@ def test_dryrun_records_layouts():
     """The branches, cache modes and MoE modes the production cells take:
     qwen2.5-32b (40 heads over 16) and qwen1.5-4b (20) sequence-parallel,
     padded under ``--opt tuned``; gemma2-27b's local and global layers by
-    heads; glm4-9b heads with a "seq" cache; the MoE archs' dispatch."""
+    heads; glm4-9b heads with a "seq" cache; whisper-medium's three
+    attentions by heads with a "heads" cache; the MoE archs' dispatch."""
     br = lambda a, s, m="single", opt="baseline": dryrun.build_cell(
         a, s, m, opt)
     assert br("qwen2.5-32b", "prefill_32k")["attention_branch"] == {
@@ -592,6 +603,10 @@ def test_dryrun_records_layouts():
     g = br("glm4-9b", "decode_32k")
     assert g["attention_branch"] == {"global": "heads"}
     assert g["kv_mode"] == "seq"
+    w = br("whisper-medium", "decode_32k")        # 16 heads over 16
+    assert w["attention_branch"] == dict.fromkeys(
+        ("encoder", "self", "cross"), "heads")
+    assert w["kv_mode"] == "heads"
     for arch in ("granite-moe-1b-a400m", "deepseek-moe-16b"):
         rec = br(arch, "prefill_32k")
         assert rec["moe_dispatch_mode"] in ("rpc", "onesided")

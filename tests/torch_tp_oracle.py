@@ -17,6 +17,13 @@ the cache of every shape under its cell's rules; INPUTS.npz is ignored).
 Each case's inputs come in INPUTS.npz as ``<case>/<key>`` arrays (the
 parameter tree flattened as ``<case>/params/<path>``) beside a JSON
 ``cases``.  Everything goes to OUT.npz.
+
+The audio family's encoder rounds its input to bf16, so with float32
+weights its ``lax.scan`` carry changes dtype and JAX refuses it: its cases
+run that module's scans as Python loops and are jitted with
+``xla_allow_excess_precision`` off, which keeps the bf16 roundings the code
+writes (``tests/torch_parity.py``'s ``reference_scan_as_loop`` and
+``jit``).
 """
 import json
 import os
@@ -31,7 +38,9 @@ os.environ["XLA_FLAGS"] = (
     512 if KIND == "dryrun" else 8)
 os.environ["JAX_PLATFORMS"] = "cpu"
 
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
+import types  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -40,12 +49,48 @@ from jax.sharding import AxisType, NamedSharding  # noqa: E402
 
 from repro.configs.registry import ARCHS  # noqa: E402
 from repro.models import api  # noqa: E402
+from repro.models import whisper as jW  # noqa: E402
 from repro.models.transformer import RunOptions  # noqa: E402
 from repro.parallel import sharding as S  # noqa: E402
 from repro.serving import decode as D  # noqa: E402
 
 out = {}
 TILE = 16
+STUB = ("patch_embeds", "frames")
+
+
+def loop_scan(f, init, xs):
+    """``lax.scan`` as a Python loop over the leading axis of xs: the same
+    steps, but the carry may change dtype."""
+    n = jax.tree.leaves(xs)[0].shape[0]
+    carry, ys = init, []
+    for i in range(n):
+        carry, y = f(carry, jax.tree.map(lambda a: a[i], xs))
+        ys.append(y)
+    if ys[0] is None:
+        return carry, None
+    return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+
+@contextlib.contextmanager
+def audio_scans(cfg):
+    """While tracing an audio case, ``repro.models.whisper``'s scans as
+    :func:`loop_scan`."""
+    saved = jW.lax
+    if cfg.family == "audio":
+        jW.lax = types.SimpleNamespace(scan=loop_scan)
+    try:
+        yield
+    finally:
+        jW.lax = saved
+
+
+def jit(cfg, f):
+    """``jax.jit``; for an audio case with every bf16 rounding the code
+    writes kept."""
+    if cfg.family != "audio":
+        return jax.jit(f)
+    return jax.jit(f, compiler_options={"xla_allow_excess_precision": False})
 
 
 def mesh_of(shape):
@@ -79,19 +124,23 @@ def fwd(inp, cases):
     for name, c in cases.items():
         cfg, topo, opts, params = setup(inp, name, c)
         batch = {k: jnp.asarray(inp[f"{name}/{k}"])
-                 for k in ("tokens", "patch_embeds")
+                 for k in ("tokens",) + STUB
                  if f"{name}/{k}" in inp.files}
-        out[name + "/logits"] = np.asarray(jax.jit(
-            lambda p, b: api.forward(cfg, topo, p, b, opts=opts))(
-                params, batch))
+        with audio_scans(cfg):
+            out[name + "/logits"] = np.asarray(jit(
+                cfg, lambda p, b: api.forward(cfg, topo, p, b, opts=opts))(
+                    params, batch))
 
 
 def serve(inp, cases, prompt, decode):
     for name, c in cases.items():
         cfg, topo, opts, params = setup(inp, name, c)
         toks = jnp.asarray(inp[f"{name}/tokens"])
-        logits, cache = jax.jit(D.make_prefill(cfg, topo, prompt, opts))(
-            params, {"tokens": toks[:, :prompt]})
+        stub = {k: jnp.asarray(inp[f"{name}/{k}"]) for k in STUB
+                if f"{name}/{k}" in inp.files}
+        with audio_scans(cfg):
+            logits, cache = jit(cfg, D.make_prefill(cfg, topo, prompt, opts))(
+                params, dict(stub, tokens=toks[:, :prompt]))
         pad = ((0, 0), (0, 0), (0, decode), (0, 0), (0, 0))
         cache = {k: jnp.pad(v, pad) if k in ("k", "v", "shared_k",
                                              "shared_v") else v
@@ -99,7 +148,7 @@ def serve(inp, cases, prompt, decode):
         for k, v in cache.items():
             out[f"{name}/prefill_cache/{k}"] = np.asarray(v)
         out[f"{name}/logits0"] = np.asarray(logits)
-        step = jax.jit(D.make_decode_step(cfg, topo))
+        step = jit(cfg, D.make_decode_step(cfg, topo))
         for i in range(decode):
             logits, cache = step(params, cache, toks[:, prompt + i])
             out[f"{name}/logits{i + 1}"] = np.asarray(logits)

@@ -4,7 +4,8 @@ package; ``ranks.run_ranks`` asserts it on every rank).
 
 Every case's inputs are seeded numpy: float32 weights drawn leaf by leaf
 from the port's ``param_specs`` (norm weights and biases drawn too, so no
-leaf is a constant), tokens and, for the VLM, patch embeddings.  A rank
+leaf is a constant), tokens and, for the VLM, patch embeddings, for the
+audio family frames (float32 values rounded to bf16).  A rank
 carries the whole tree across with ``params_from_numpy`` and keeps its
 blocks (``params_block``), takes its batch block, and returns its outputs'
 blocks on the CPU with its mesh coordinate.
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.configs.registry import get
 from repro_torch.convert import params_block, params_from_numpy
-from repro_torch.models import api, mamba2, moe, transformer
+from repro_torch.models import api, mamba2, moe, transformer, whisper
 from repro_torch.models.embedding import greedy
 from repro_torch.parallel import sharding as S
 from repro_torch.serving import decode as D
@@ -38,6 +39,7 @@ def _fwd(arch, mesh, seed, B=2, S_=64, rules="DEFAULT_RULES", **kw):
 # data, llava's patch embeddings; (c) the sequence-parallel and padded
 # branches (5 heads over 4); (d) the MoE modes; (e) the rule sets
 QWEN_5H = dict(n_heads=5, n_kv_heads=1)
+WHISPER_6H = dict(n_heads=6, n_kv_heads=6)
 FWD = {
     "glm4_1x4": _fwd("glm4-9b", (1, 4), 1),
     "glm4_2x2": _fwd("glm4-9b", (2, 2), 2, B=4),
@@ -69,6 +71,12 @@ FWD = {
                             rules="WIDE_DP_RULES"),
     "zamba2_1x4": _fwd("zamba2-1.2b", (1, 4), 12),
     "zamba2_2x2": _fwd("zamba2-1.2b", (2, 2), 13, B=4),
+    # the audio family: whisper's 4 smoke heads one a rank; the batch over
+    # data and the fsdp gathers on (2, 2); 6 heads over 4 ranks, which do
+    # not divide, so every rank computes every head and wo is whole
+    "whisper_1x4": _fwd("whisper-medium", (1, 4), 16),
+    "whisper_2x2": _fwd("whisper-medium", (2, 2), 17, B=4),
+    "whisper_6h": _fwd("whisper-medium", (1, 4), 18, over=WHISPER_6H),
 }
 # (f) serving under SERVE_RULES: qwen1.5's 4 kv heads split ("heads" cache
 # mode), gemma2's 2 do not ("seq" mode, with its window and softcaps)
@@ -82,6 +90,12 @@ SERVE = {
                          rules="SERVE_RULES", B=2, seed=14),
     "zamba2_serve": dict(kind="serve", arch="zamba2-1.2b", mesh=(1, 4),
                          rules="SERVE_RULES", B=2, seed=15),
+    # whisper's self cache by heads; at 6 heads by sequence, its cross
+    # cache then whole on every rank
+    "whisper_heads": dict(kind="serve", arch="whisper-medium", mesh=(1, 4),
+                          rules="SERVE_RULES", B=2, seed=19),
+    "whisper_seq": dict(kind="serve", arch="whisper-medium", mesh=(1, 4),
+                        rules="SERVE_RULES", B=2, seed=20, over=WHISPER_6H),
 }
 
 
@@ -89,6 +103,7 @@ SERVE = {
 CLI = dict(arch="qwen1.5-4b", smoke=True, device="cpu", batch=2, prompt=64,
            decode=3)
 CLI_SSM = {a: dict(CLI, arch=a) for a in ("mamba2-780m", "zamba2-1.2b")}
+CLI_AUDIO = dict(CLI, arch="whisper-medium")
 
 
 def case_cfg(c):
@@ -120,7 +135,7 @@ def np_params(cfg, seed):
 
 
 def case_inputs(c):
-    """Weights, tokens (and patch embeddings) of a case."""
+    """Weights, tokens (and patch embeddings or frames) of a case."""
     cfg = case_cfg(c)
     rng = np.random.RandomState(1000 + c["seed"])
     S_ = c.get("S", PROMPT + DECODE)
@@ -130,7 +145,21 @@ def case_inputs(c):
     if cfg.family == "vlm":
         out["patch_embeds"] = (rng.standard_normal(
             (c["B"], cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.family == "audio":
+        x = rng.standard_normal((c["B"], cfg.encoder_seq, cfg.d_model))
+        out["frames"] = torch.from_numpy((x * 0.5).astype(np.float32)).to(
+            torch.bfloat16).float().numpy()
     return out
+
+
+STUB = ("patch_embeds", "frames")
+
+
+def attention_branch(cfg, topo, pad_heads=False):
+    """The attention branch a case's family takes on ``topo``."""
+    if cfg.family == "audio":
+        return whisper.attention_branch(cfg, topo)
+    return transformer.attention_branch(cfg, topo, pad_heads)
 
 
 def routed():
@@ -152,7 +181,7 @@ def _fwd_rank(topo, c, inp):
                       params_from_numpy(inp["params"], CPU))
     batch = {k: topo.block(torch.from_numpy(inp[k]), "batch",
                            *(None,) * (inp[k].ndim - 1))
-             for k in ("tokens", "patch_embeds") if k in inp}
+             for k in ("tokens",) + STUB if k in inp}
     batch["tokens"] = batch["tokens"].long()
     opts = transformer.RunOptions(q_block=TILE, kv_block=TILE, remat=False,
                                   pad_heads=c.get("pad_heads", False),
@@ -165,8 +194,7 @@ def _fwd_rank(topo, c, inp):
     T = batch["tokens"].numel()
     return dict(logits=logits, routing=calls,
                 layout=(mamba2.layout(cfg, topo) if cfg.ssm_state else None),
-                branch=transformer.attention_branch(
-                    cfg, topo, c.get("pad_heads", False)),
+                branch=attention_branch(cfg, topo, c.get("pad_heads", False)),
                 moe_mode=(moe.moe_dispatch(cfg, topo, T,
                                            c.get("moe_mode", "auto"))
                           if cfg.is_moe else None))
@@ -177,8 +205,10 @@ def _serve_rank(topo, c, inp):
     pb = params_block(topo, api.param_specs(cfg),
                       params_from_numpy(inp["params"], CPU))
     toks = topo.block(torch.from_numpy(inp["tokens"]).long(), "batch", None)
+    stub = {k: topo.block(torch.from_numpy(inp[k]), "batch", None, None)
+            for k in STUB if k in inp}
     logits, cache = D.make_prefill(cfg, PROMPT, DECODE, topo)(
-        pb, {"tokens": toks[:, :PROMPT]})
+        pb, dict(stub, tokens=toks[:, :PROMPT]))
     out = dict(logits=[logits], greedy=[greedy(cfg, logits, topo)],
                prefill_cache={k: v.clone() for k, v in cache.items()},
                kv_mode=D.kv_mode(cfg, topo))
@@ -215,8 +245,8 @@ def helpers_rank(topo):
 def tp_rank(rank, world, cases, inputs):
     """Every case on its mesh of this world (meshed (1, 4) and (2, 2) over
     the one process group), then the helpers on (2, 2), then
-    ``launch.serve --mesh 1,4``'s rank for qwen1.5-4b, mamba2-780m and
-    zamba2-1.2b."""
+    ``launch.serve --mesh 1,4``'s rank for qwen1.5-4b, mamba2-780m,
+    zamba2-1.2b and whisper-medium."""
     from repro_torch.launch.mesh import make_mesh
     meshes = {m: make_mesh(m, ("data", "model"), CPU) for m in MESHES}
     out = {}
@@ -232,4 +262,6 @@ def tp_rank(rank, world, cases, inputs):
     out["cli_ssm"] = {a: serve.mesh_rank(rank, world, (1, 4),
                                          argparse.Namespace(**c))
                       for a, c in CLI_SSM.items()}
+    out["cli_audio"] = serve.mesh_rank(rank, world, (1, 4),
+                                       argparse.Namespace(**CLI_AUDIO))
     return out
