@@ -232,7 +232,25 @@ Phases (any failure exits non-zero):
      commit record an OCC transaction on the card, read back through
      ``hybrid_lookup`` and the ``hash_probe`` kernel), every array read
      back bit for bit, then a resumed third step equal to the
-     uninterrupted run's.
+     uninterrupted run's;
+ 27. training on the mesh (``train_on_the_mesh``): zamba2-1.2b at full
+     width cut to 7 layers, B 2 x 512, first one rank on the card in
+     float32 (its conditioning at both steps' states, every leaf and
+     then the Mamba layers' ``wdt`` changed by 1e-7, held to a quarter of
+     each limit), then eight gloo ranks
+     sharing the card on (2, 4) under DEFAULT_RULES: two float32 steps,
+     each from the one-rank run's state, every rank's gradient and
+     master-update blocks, the loss and the grad norm against it; the
+     replicated leaves' bits equal on every rank; ``flash_attention`` and
+     ``ssd_scan`` launches a rank a step, and both kernels against their
+     plain versions at the rank's shapes; one bf16 step against the
+     one-rank bf16 step; the bf16 state saved on (2, 4) and restored onto
+     (1, 8), checksums equal, the committed step read back.
+
+``python3 chip_smoke.py --mesh-conditioning`` builds the kernels and runs
+only phase 27's probe of the one-rank float32 run (tm_conditioning_probe):
+what a 1e-7 change of every leaf, of the embeddings and of each leaf alone
+moves at the two steps' states, and the step on the CPU against the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  Without CUDA the script exits
@@ -2422,13 +2440,14 @@ def flash_flops(BH, Sq, Sk, D, causal, window=None, q_offset=0):
 
 
 def flash_bound(BH, Sq, Sk, D, causal, elem_bytes, window=None, group=1,
-                q_offset=0):
+                q_offset=0, flop_per_s=BF16_FLOP_PER_S):
     """Least time (ms) for one call and what bounds it: the two products
-    over the pairs the mask keeps, at the bf16 tensor-core peak, against
-    q, k, v (BH / group kv heads) read once and out written once."""
+    over the pairs the mask keeps, at ``flop_per_s`` (the bf16 tensor-core
+    peak by default), against q, k, v (BH / group kv heads) read once and
+    out written once."""
     flops = flash_flops(BH, Sq, Sk, D, causal, window, q_offset)
     byts = elem_bytes * D * (2 * BH * Sq + 2 * (BH // group) * Sk)
-    t_ops, t_mem = flops / BF16_FLOP_PER_S, byts / HBM_BYTES_PER_S
+    t_ops, t_mem = flops / flop_per_s, byts / HBM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
 
 
@@ -4877,6 +4896,664 @@ def tensor_parallel(dev, cases=TP_CASES):
     print(f"tensor parallel: {world} ranks {world_s:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# training on the mesh: eight gloo ranks sharing the card, zamba2-1.2b at
+# full width on (2, 4) under DEFAULT_RULES
+# ---------------------------------------------------------------------------
+# zamba2-1.2b cut to TP_DEPTH's 7 layers (6 Mamba layers, the shared block
+# once, 1 tail layer) at the full depth's init (full_scale_stacks), B 2 x
+# 512 tokens: one row a data rank, 8 of the shared block's 32 heads and 16
+# of the 64 SSM heads a model rank; the reference's RunOptions (remat of
+# each layer body saving the weight products, so the backward re-enters
+# the forward's collectives); AdamW as the CPU tests hold it (eps 1, lr 0.1
+# from the first step, no decay: the update is the gradient's arithmetic)
+TM_ARCH, TM_SHAPE, TM_BATCH, TM_SEQ = "zamba2-1.2b", (2, 4), 2, 512
+TM_ADAM = dict(lr=0.1, eps=1.0, warmup_steps=1, weight_decay=0.0)
+TM_DEADLINE_S = 600
+# float32, each step from the same state on both sides (the second from
+# the one-rank run's state after the first, handed to the ranks): every
+# rank's gradient blocks (the first step's) and master-update blocks (both
+# steps') against the one-rank run's, as a share of each leaf's largest
+# |value| (an update: plus two float32 spacings of the leaf's largest
+# weight), held to TM_GRAD_REL; the loss held to TM_LOSS_REL and the grad
+# norm to TM_GNORM_REL at both steps.  The one-rank run first measures its
+# conditioning at both steps' states, how far a TM_COND_REL relative
+# change moves the gradients' worst leaf, the loss and the grad norm: of
+# every leaf of the parameters, and of TM_COND_LEAF alone (the larger of
+# the two); the phase fails, before any parity reading is printed, if one
+# passes a quarter of its limit.  The limits come from
+# tm_conditioning_probe (``python3 chip_smoke.py --mesh-conditioning``;
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6), each at least 4x
+# the largest reading at either state of: a 1e-7 change of every leaf, of
+# each leaf alone, and the same one-rank step on the CPU in float32
+# against the card's.  Those were the gradients 1.514e-2 (card vs CPU at
+# the second state, `layers/wdt`), the loss 5.051e-6 (card vs CPU, second
+# state) and the grad norm 1.007e-3 (TM_COND_LEAF alone, second state:
+# the second state's grad norm is 4.8x as sensitive to it as the first's,
+# and the embeddings, all the earlier probe changed, move it 1.276e-4).
+# The probe ran after earlier runs' parity readings had been seen.  bf16
+# (one step from the bf16 tree): the loss within BF16_LOSS_REL, the CPU
+# tests' limit
+TM_GRAD_REL = 6.5e-2
+TM_LOSS_REL, TM_GNORM_REL = 2.5e-5, 5e-3
+TM_COND_REL, TM_COND_LEAF = 1e-7, "layers/wdt"
+BF16_LOSS_REL = 3e-3
+
+
+def _tm_cfg():
+    return _tp_cfg(TM_ARCH, _tp_depth(TM_ARCH)[0])
+
+
+def _tm_batch(cfg, dev, topo=None):
+    """The synthetic stream's step-0 batch of TM_BATCH x TM_SEQ tokens (the
+    rank's rows on a mesh)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    b = synthetic_batch(cfg, ShapeConfig("train", TM_SEQ, TM_BATCH, "train"),
+                        DataConfig(), 0, dev)
+    if topo is None:
+        return b
+    return {k: topo.block(v, "batch", *(None,) * (v.dim() - 1))
+            for k, v in b.items()}
+
+
+def _tm_hparams(dtype):
+    import torch
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainHparams
+    return TrainHparams(opts=RunOptions(), optimizer=(
+        AdamWConfig(**TM_ADAM) if dtype == torch.float32 else AdamWConfig()))
+
+
+def _timed_step(step, state, batch):
+    """One train step: (metrics as floats, wall ms ending in a
+    synchronise, its (flash_attention, ssd_scan) launches)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    torch.cuda.synchronize()
+    fa.launches = ss.launches = 0
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ({k: float(v) for k, v in m.items()}, ms,
+            (fa.launches, ss.launches))
+
+
+def _replicas_equal(topo, tree, entries):
+    """Does every leaf stored whole on several ranks hold the same bits on
+    each of them?  Per set of axes the leaves are stored whole on
+    (``entries``: the tree's ``spec_for`` entries), their bit images side
+    by side as int32 on the host, all-reduced with MAX and with MIN over
+    those axes: equal where every copy is.  (leaves checked, equal)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import tree_leaves
+    groups = {}
+    for x, spec in zip(tree_leaves(tree), tree_leaves(entries)):
+        axes = topo.replicated_axes(spec)
+        if axes:
+            groups.setdefault(axes, []).append(x)
+    ok, n = True, 0
+    for axes, xs in groups.items():
+        bits = torch.cat([(x.view(torch.int16) if x.element_size() == 2
+                           else x.view(torch.int32)).reshape(-1).int()
+                          for x in xs]).cpu()
+        hi = topo.all_reduce(bits.clone(), axes, op=dist.ReduceOp.MAX)
+        lo = topo.all_reduce(bits, axes, op=dist.ReduceOp.MIN)
+        ok &= bool(torch.equal(hi, lo))
+        n += len(xs)
+    return n, ok
+
+
+def _checksums(topo, tree, spec_tree):
+    """A 64-bit checksum of every leaf's global array from the ranks'
+    blocks, position by position: each element's bit image times a mixed
+    64-bit weight of its global flat index, summed (wrapping) over the
+    rank's block, counted on one rank of the ranks that store the block,
+    all-reduced over the world.  (The world's vector of checksums, leaf
+    by leaf in sorted order.)"""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import ParamSpec
+    sums = []
+
+    def walk(t, s):
+        if isinstance(s, ParamSpec):
+            spec = topo.spec_for(s.shape, s.logical_axes)
+            idx = torch.zeros((), dtype=torch.int64, device=t.device)
+            stride = 1
+            for d in reversed(range(len(s.shape))):
+                lo, n = topo.extent(spec[d], s.shape[d])
+                ar = torch.arange(lo, lo + n, dtype=torch.int64,
+                                  device=t.device) * stride
+                idx = ar.view((n,) + (1,) * idx.dim()) + idx
+                stride *= s.shape[d]
+            w = idx * 0x5DEECE66D + 0x2545F491
+            w = (w ^ (w >> 29)) * 0x27BB2EE687B0B0FD
+            w = w ^ (w >> 32)
+            bits = (t.view(torch.int16) if t.element_size() == 2
+                    else t.view(torch.int32)).long()
+            first = all(topo.axis_index(a) == 0
+                        for a in topo.replicated_axes(spec))
+            sums.append((bits * w).sum() if first else
+                        torch.zeros((), dtype=torch.int64, device=t.device))
+            return
+        for k in sorted(s):
+            walk(t[k], s[k])
+    walk(tree, spec_tree)
+    out = torch.stack(sums).cpu()
+    dist.all_reduce(out)
+    return out
+
+
+def tm_kernel_checks(topo, cfg, dev):
+    """flash_attention (float32 and bf16) and ssd_scan at a rank's shapes in
+    the training world's step (its batch rows of TM_SEQ tokens, its heads of
+    the shared block and of a Mamba layer; causal, no window or softcap):
+    against their plain versions on every rank, flash with diffuse and
+    sharp scores within flash_checks' limits and ssd_scan within SSD_RTOL;
+    then timed on rank 0 alone, beside their plain versions, their bounds
+    and scaled_dot_product_attention (the same function), while the other
+    ranks wait (the bounds at the peak of each dtype's kernel: float32 on
+    the CUDA cores, bf16 on the tensor cores)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import transformer as T
+    r = dist.get_rank()
+    B = TM_BATCH // topo._prod(topo.batch_axes())
+    hq = T._heads(topo, "heads", cfg.n_heads)[2]
+    hkv = T._heads(topo, "kv_heads", cfg.n_kv_heads)[2]
+    D, group = cfg.head_dim, hq // hkv
+    Q = min(cfg.ssm_chunk, TM_SEQ)
+    sshape = (B, TM_SEQ // Q, Q, M.layout(cfg, topo).hn, cfg.ssm_head_dim,
+              cfg.ssm_state)
+    out = {"flash_shape": (B * hq, TM_SEQ, D, group), "ssd_shape": sshape,
+           "flash_over": {}, "flash_err": {}}
+    for dt in ("float32", "bfloat16"):
+        for qs in (0.5, 1.5):
+            q, k, v = flash_inputs(B, TM_SEQ, TM_SEQ, hq, hkv, D, dt, dev,
+                                   70 + r, qk_scale=qs)
+            got = fa.flash_attention_bhsd(q, k, v, causal=True, group=group)
+            want = fa.flash_attention_plain(q, k, v, causal=True,
+                                            group=group)
+            key = f"{dt} scores of std {qs ** 2}"
+            out["flash_over"][key] = float(flash_excess(got, want,
+                                                        dt)[0].max())
+            out["flash_err"][key] = float((got.float() - want.float())
+                                          .abs().max())
+    x = ssd_inputs(*sshape, dev, 80 + r)
+    y, st = ss.ssd_scan(*x, h_tile=1)
+    yp, sp = ss.ssd_scan_plain(*x)
+    out["ssd_err"] = max(float((y - yp).abs().max()),
+                         float((st - sp).abs().max()))
+    out["ssd_limit"] = SSD_RTOL * max(1.0, float(yp.abs().max()),
+                                      float(sp.abs().max()))
+    dist.barrier()
+    if r == 0:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out["flash_ms"] = {}
+        for dt, nbytes, peak in (("float32", 4, F32_FLOP_PER_S),
+                                 ("bfloat16", 2, BF16_FLOP_PER_S)):
+            q, k, v = flash_inputs(B, TM_SEQ, TM_SEQ, hq, hkv, D, dt, dev, 70)
+            q4, k4, v4 = (t.reshape(B, -1, TM_SEQ, D) for t in (q, k, v))
+            out["flash_ms"][dt] = dict(
+                ms=_mean(time_cuda(lambda: fa.flash_attention_bhsd(
+                    q, k, v, causal=True, group=group), 20)),
+                plain_ms=_mean(time_cuda(lambda: fa.flash_attention_plain(
+                    q, k, v, causal=True, group=group), 5)),
+                library_ms=_mean(time_cuda(lambda: sdpa(
+                    q4, k4, v4, is_causal=True, enable_gqa=group > 1), 20)),
+                bound=flash_bound(B * hq, TM_SEQ, TM_SEQ, D, True, nbytes,
+                                  group=group, flop_per_s=peak))
+        out.update(
+            ssd_ms=_mean(time_cuda(lambda: ss.ssd_scan(*x, h_tile=1), 10)),
+            ssd_plain_ms=_mean(time_cuda(lambda: ss.ssd_scan_plain(*x), 5)),
+            ssd_bound=ssd_bound(*sshape))
+    dist.barrier()
+    return out
+
+
+def train_mesh_rank(rank, world, dev, ckpt_dir, handoff):
+    """A rank of the training world on ``dev``: its mesh (TM_SHAPE, and
+    (1, 8) over the same group for the restore), its blocks of the seeded
+    float32 tree and of the batch; a float32 step (timed, its kernel
+    launches read), returning its blocks of the first moment and of the
+    master update; then its blocks of the one-rank run's state after that
+    step (``handoff``) and a second step from them, returning its
+    master-update blocks; the replicated leaves' bits compared across the
+    ranks; the kernels at the rank's shapes (tm_kernel_checks); one bf16
+    step from the bf16 tree (timed), its state saved on TM_SHAPE and
+    restored onto (1, 8), checksummed on both meshes, the committed step
+    read back."""
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel.sharding import DEFAULT_RULES, Topology
+    from repro_torch.train.step import (make_train_state_specs,
+                                        make_train_step, state_shardings)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    topo = Topology(make_mesh(TM_SHAPE, ("data", "model"), dev),
+                    dict(DEFAULT_RULES))
+    flat = Topology(make_mesh((1, world), ("data", "model"), dev),
+                    dict(DEFAULT_RULES))
+    cfg = _tm_cfg()
+    specs = _flat(api.param_specs(cfg))
+    spec_tree = make_train_state_specs(cfg)
+    res = {"coord": topo.coordinate()}
+    t0 = time.perf_counter()
+    batch = _tm_batch(cfg, dev, topo)
+    p = _tp_params(cfg, topo, dev, torch.float32)
+    state = {"params": p, "opt": init_opt_state(p)}
+    step = make_train_step(cfg, _tm_hparams(torch.float32), topo)
+    res["init_s"] = time.perf_counter() - t0
+    res["f32"], res["update"] = [], []
+    for s in range(2):
+        if s:               # the one-rank run's state after the first step
+            t1 = time.perf_counter()
+            ref = torch.load(handoff, mmap=True)
+            for part in ("master", "m", "v"):
+                mine = _flat(state["opt"][part])
+                for k, sp in specs.items():
+                    mine[k].copy_(topo.block(ref[part][k], *sp.logical_axes))
+            master = _flat(state["opt"]["master"])
+            for k, w in _flat(state["params"]).items():
+                w.copy_(master[k])
+            del ref
+            res["handoff_s"] = time.perf_counter() - t1
+        before = {k: v.clone() for k, v in
+                  _flat(state["opt"]["master"]).items()}
+        m, ms, launches = _timed_step(step, state, batch)
+        res["f32"].append(dict(metrics=m, ms=ms, launches=launches))
+        if s == 0:
+            res["m"] = {k: v.cpu() for k, v in
+                        _flat(state["opt"]["m"]).items()}
+        res["update"].append({k: (v - before[k]).cpu() for k, v in
+                              _flat(state["opt"]["master"]).items()})
+        res[f"w{s}_max"] = {k: float(v.abs().max())
+                            for k, v in before.items()}
+    res["replicas"] = _replicas_equal(topo, state,
+                                      state_shardings(topo, spec_tree))
+    res["f32_s"] = time.perf_counter() - t0 - res["init_s"]
+    del state, p, step, before
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    res["kernels"] = tm_kernel_checks(topo, cfg, dev)
+    res["kernels_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    p16 = _tp_params(cfg, topo, dev)
+    state = {"params": p16, "opt": init_opt_state(p16)}
+    step = make_train_step(cfg, _tm_hparams(torch.bfloat16), topo)
+    m, ms, launches = _timed_step(step, state, batch)
+    res["bf16"] = dict(metrics=m, ms=ms, launches=launches)
+    res["bf16_s"] = time.perf_counter() - t1
+    mgr = CheckpointManager(ckpt_dir, device=dev)
+    t1 = time.perf_counter()
+    mgr.save(1, state, topo=topo, spec_tree=spec_tree)
+    res["save_s"] = time.perf_counter() - t1
+    hp.launches = 0
+    res["latest"] = mgr.latest_committed_step()
+    res["read_back_launches"] = hp.launches
+    want = _checksums(topo, state, spec_tree)
+    del state, p16
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    at, restored = CheckpointManager(ckpt_dir, device=dev).restore(
+        topo=flat, spec_tree=spec_tree)
+    res["restore_s"] = time.perf_counter() - t1
+    got = _checksums(flat, restored, spec_tree)
+    res["restored_step"] = at
+    res["checksums_equal"] = bool(torch.equal(want, got))
+    res["n_leaves"] = int(want.numel())
+    res["shapes_right"] = all(
+        tuple(t.shape) == tuple(flat.block(torch.empty(s.shape,
+                                                       device="meta"),
+                                           *s.logical_axes).shape)
+        and t.dtype == s.dtype
+        for t, s in zip(_leaves_sorted(restored), _leaves_sorted(spec_tree)))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _leaves_sorted(tree):
+    """Leaves of nested dicts (tensors or ParamSpecs) in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_sorted(tree[k])]
+    return [tree]
+
+
+def _tm_moves(cfg, hp, p, batch, base, leaves, seed=2):
+    """How far a TM_COND_REL relative change of the ``leaves`` of ``p``
+    (names of _flat(p); ``p`` put back after) moves the one-rank float32
+    gradients (the worst leaf, as a share of its largest |grad|), the loss
+    and the grad norm (relative) from ``base`` = (metrics, gradients) at
+    ``p``."""
+    import torch
+    from repro_torch.train.step import loss_and_grads
+    flat = _flat(p)
+    saved = {k: flat[k].clone() for k in leaves}
+    g = torch.Generator(device=flat[leaves[0]].device).manual_seed(seed)
+    for k in leaves:
+        x = flat[k]
+        x.mul_(1 + TM_COND_REL * torch.randn(x.shape, generator=g,
+                                             device=x.device))
+    m1, g1 = loss_and_grads(cfg, hp, p, batch)
+    for k in leaves:
+        flat[k].copy_(saved[k])
+    m0, g0 = base
+    return _tm_gap(m1, g1, m0, g0)
+
+
+def _tm_gap(m1, g1, m0, g0):
+    """(metrics, gradients) ``m1, g1`` against ``m0, g0``: the gradients'
+    worst leaf as a share of its largest |grad| in ``g0``, the loss and the
+    grad norm relative."""
+    from repro_torch.optim.adamw import global_norm
+    a, b = _flat(g1), _flat(g0)
+    rel = lambda x, y: abs(float(x) - float(y)) / abs(float(y))
+    worst = max((float((a[k].cpu() - b[k].cpu()).abs().max()
+                       / b[k].abs().max().cpu()), k) for k in b)
+    return {"grad": worst[0], "grad_leaf": worst[1],
+            "loss": rel(m1["loss"], m0["loss"]),
+            "grad_norm": rel(global_norm(g1), global_norm(g0))}
+
+
+def _tm_conditioning(cfg, hp, p, batch):
+    """The one-rank float32 run's conditioning at parameters ``p``: how far
+    a TM_COND_REL relative change of every leaf, and of TM_COND_LEAF
+    alone, moves it (_tm_moves), the larger of the two for each metric."""
+    from repro_torch.train.step import loss_and_grads
+    base = loss_and_grads(cfg, hp, p, batch)
+    moves = [_tm_moves(cfg, hp, p, batch, base, leaves)
+             for leaves in (list(_flat(p)), [TM_COND_LEAF])]
+    out = {k: max(m[k] for m in moves) for k in ("grad", "loss",
+                                                 "grad_norm")}
+    out["grad_leaf"] = max(moves, key=lambda m: m["grad"])["grad_leaf"]
+    return out
+
+
+def train_mesh_one_rank(dev, handoff):
+    """The one-rank float32 run the ranks are held to, on the card from the
+    same seeded tree and batch: the conditioning at the first step's state,
+    a step (its first moment and master update), its state after it written
+    to ``handoff`` for the ranks, the conditioning there, a second step.
+    Returns metrics, moments, updates, conditioning, seconds."""
+    import torch
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    cfg = _tm_cfg()
+    batch = _tm_batch(cfg, dev)
+    hp = _tm_hparams(torch.float32)
+    p = _tp_params(cfg, None, dev, torch.float32)
+    state = {"params": p, "opt": init_opt_state(p)}
+    step = make_train_step(cfg, hp)
+    box = {"f32": [], "update": [], "cond": []}
+    for s in range(2):
+        before = {k: v.clone() for k, v in
+                  _flat(state["opt"]["master"]).items()}
+        if s:
+            torch.save({part: {k: v.cpu() for k, v in
+                               _flat(state["opt"][part]).items()}
+                        for part in ("master", "m", "v")}, handoff)
+        box["cond"].append(_tm_conditioning(cfg, hp, state["params"], batch))
+        _, m = step(state, batch)
+        box["f32"].append({k: float(v) for k, v in m.items()})
+        if s == 0:
+            box["m"] = {k: v.cpu() for k, v in
+                        _flat(state["opt"]["m"]).items()}
+        box["update"].append({k: (v - before[k]).cpu() for k, v in
+                              _flat(state["opt"]["master"]).items()})
+    del state, p, before
+    torch.cuda.empty_cache()
+    box["seconds"] = time.perf_counter() - t0
+    return box
+
+
+def train_mesh_one_rank_bf16(dev):
+    """The one-rank bf16 step from the bf16 tree, alone on the card: a
+    warm-up step, then the timed step from a fresh state (metrics, ms,
+    launches)."""
+    import torch
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = _tm_cfg()
+    batch = _tm_batch(cfg, dev)
+    step = make_train_step(cfg, _tm_hparams(torch.bfloat16))
+    p = _tp_params(cfg, None, dev)
+    fresh = lambda: (lambda q: {"params": q, "opt": init_opt_state(q)})(
+        _map_tree(p, lambda t: t.clone()))
+    step(fresh(), batch)
+    out = _timed_step(step, fresh(), batch)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_on_the_mesh(dev, rows):
+    """The one-rank float32 run on the card first (train_mesh_one_rank),
+    its conditioning at both steps' states checked against a quarter of
+    each limit; then TM_SHAPE's gloo ranks sharing the card (NCCL refuses
+    two ranks on one device) train TM_ARCH at full width on their blocks:
+    each rank's gradient blocks (the first moment after the first step
+    over (1 - b1) x the clip's scale) and both steps' master-update blocks
+    against the one-rank run's within TM_GRAD_REL, the loss within
+    TM_LOSS_REL and the grad norm within TM_GNORM_REL; the replicated
+    leaves' bits equal across the ranks; flash_attention and ssd_scan
+    launched as a one-device step launches them, per rank per step, and
+    each against its plain version at the rank's shapes
+    (tm_kernel_checks), whose readings go into ``rows``; the bf16 step's
+    loss within BF16_LOSS_REL of the one-rank bf16 step's, ms a step per
+    rank beside it; the bf16 state saved on TM_SHAPE and restored onto
+    (1, 8) with equal checksums of every leaf, the committed step read back
+    on every rank."""
+    import shutil
+    import numpy as np
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import AbstractMesh, Topology
+    from repro_torch.testing.ranks import run_ranks
+    t0 = time.perf_counter()
+    cfg = _tm_cfg()
+    world = TM_SHAPE[0] * TM_SHAPE[1]
+    tag = (f"training on the mesh, {TM_ARCH} at full width, "
+           f"{cfg.n_layers} layers, {TM_SHAPE}, {TM_BATCH} x {TM_SEQ}")
+    work = ROOT / "build" / "chip_smoke_mesh_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    handoff = str(work / "state.pt")
+    ref = train_mesh_one_rank(dev, handoff)
+    print(f"{tag}: a {TM_COND_REL} relative change of every leaf, or of "
+          f"{TM_COND_LEAF} alone, moves the "
+          f"one-rank float32 run (gradients: the worst leaf's share of its "
+          f"largest |grad|; loss and grad norm: relative) at the first and "
+          f"the second step's states by " + json.dumps(ref["cond"]) +
+          f" (at most a quarter of the limits {TM_GRAD_REL}, "
+          f"{TM_LOSS_REL} and {TM_GNORM_REL}) [{card()}]", flush=True)
+    for c in ref["cond"]:
+        for k, lim in (("grad", TM_GRAD_REL), ("loss", TM_LOSS_REL),
+                       ("grad_norm", TM_GNORM_REL)):
+            check(c[k] <= lim / 4, f"{TM_ARCH}: the {k} is conditioned "
+                  f"worse than its mesh training limit {lim} assumes")
+    ranks = run_ranks(train_mesh_rank, world, device=dev, backend="gloo",
+                      args=(dev, str(work / "ckpt"), handoff),
+                      deadline_s=TM_DEADLINE_S)
+    world_s = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"{tag}, seconds: " + json.dumps({
+        "phase_to_here": world_s, "one_rank_float32": ref["seconds"],
+        "by_rank": {k: [round(r[k], 2) for r in ranks] for k in (
+            "init_s", "f32_s", "handoff_s", "kernels_s", "bf16_s", "save_s",
+            "restore_s", "seconds")}, "card": card()}), flush=True)
+    topo = Topology(AbstractMesh(("data", "model"), TM_SHAPE))
+    specs = _flat(api.param_specs(cfg))
+    scale = lambda gn: (1 - 0.9) * min(1.0, 1.0 / max(gn, 1e-12))
+    s_ref = scale(ref["f32"][0]["grad_norm"])
+    worst = {"grad": (0.0, ""), "update1": (0.0, ""), "update2": (0.0, "")}
+    for k, sp in specs.items():     # each reference leaf once, every rank
+        g_ref = ref["m"][k] / s_ref
+        g_max = float(g_ref.abs().max())
+        u_max = [float(u[k].abs().max()) for u in ref["update"]]
+        for r in ranks:
+            blk = lambda t: topo.block(t, *sp.logical_axes, coord=r["coord"])
+            s_rank = scale(r["f32"][0]["metrics"]["grad_norm"])
+            err = float((r["m"][k] / s_rank - blk(g_ref)).abs().max())
+            worst["grad"] = max(worst["grad"], (err / g_max, k))
+            for i in range(2):
+                floor = 2 * float(np.spacing(np.float32(
+                    r[f"w{i}_max"][k])))
+                err = float((r["update"][i][k] - blk(ref["update"][i][k]))
+                            .abs().max())
+                # an update below the float32 spacing of its weights is 0
+                excess = max(err - floor, 0.0)
+                worst[f"update{i + 1}"] = max(worst[f"update{i + 1}"], (
+                    excess / u_max[i] if u_max[i]
+                    else float(excess > 0) * 1e30, k))
+    metric_rel = {k: [max(abs(r["f32"][s]["metrics"][k] - ref["f32"][s][k])
+                          / abs(ref["f32"][s][k]) for r in ranks)
+                      for s in range(2)]
+                  for k in ("loss", "grad_norm")}
+    one16, one_ms, one_launches = train_mesh_one_rank_bf16(dev)
+    bf16_rel = max(abs(r["bf16"]["metrics"]["loss"] - one16["loss"])
+                   / abs(one16["loss"]) for r in ranks)
+    expect = _train_launches(cfg)
+    expect = (expect["flash_attention"], expect["ssd_scan"])
+    print(f"{tag}, float32, {world} ranks vs one, each step from the same "
+          f"state: " + json.dumps({
+              **{f"{k}_block_rel": v for k, v in worst.items()},
+              "limit": TM_GRAD_REL, "loss_rel_by_step": metric_rel["loss"],
+              "loss_limit": TM_LOSS_REL,
+              "grad_norm_rel_by_step": metric_rel["grad_norm"],
+              "grad_norm_limit": TM_GNORM_REL, "one_rank": ref["f32"],
+              "rank0": [x["metrics"] for x in ranks[0]["f32"]]}),
+          flush=True)
+    for k, (v, leaf) in worst.items():
+        check(v <= TM_GRAD_REL, f"{TM_ARCH}: a rank's {k} block ({leaf}) "
+              f"differs from the one-rank run's")
+    check(max(metric_rel["loss"]) <= TM_LOSS_REL and
+          max(metric_rel["grad_norm"]) <= TM_GNORM_REL,
+          f"{TM_ARCH}: the mesh's loss or grad norm differs {metric_rel}")
+    reps = [r["replicas"] for r in ranks]
+    check(all(ok for _, ok in reps) and reps[0][0] > 0,
+          f"{TM_ARCH}: a replicated leaf differs across the ranks {reps}")
+    for r in ranks:
+        for x in r["f32"] + [r["bf16"]]:
+            check(tuple(x["launches"]) == expect, f"{TM_ARCH}: launches "
+                  f"{x['launches']} on rank {r['coord']} in a step, "
+                  f"expected {expect}")
+    tm_kernel_report(tag, [r["kernels"] for r in ranks], rows)
+    check(bf16_rel <= BF16_LOSS_REL, f"{TM_ARCH}: the bf16 step's loss "
+          f"differs from the one-rank step's by {bf16_rel:.3e}")
+    ck = [(r["latest"], r["restored_step"], r["checksums_equal"],
+           r["shapes_right"], r["read_back_launches"]) for r in ranks]
+    check(all(c == (1, 1, True, True, c[4]) and c[4] >= 1 for c in ck),
+          f"{TM_ARCH}: the checkpoint saved on {TM_SHAPE} did not restore "
+          f"onto (1, {world}) whole {ck}")
+    print(f"{tag}: " + json.dumps({
+        "replicated_leaves_checked": reps[0][0],
+        "launches_per_rank_per_step": {"flash_attention": expect[0],
+                                       "ssd_scan": expect[1]},
+        "f32_ms_per_step_by_rank": [[round(x["ms"], 1) for x in r["f32"]]
+                                    for r in ranks],
+        "bf16_ms_per_step_by_rank": [round(r["bf16"]["ms"], 1)
+                                     for r in ranks],
+        "bf16_one_rank_ms": one_ms, "bf16_one_rank_launches": one_launches,
+        "bf16_loss_rel": bf16_rel, "bf16_limit": BF16_LOSS_REL,
+        "checkpoint_leaves": ranks[0]["n_leaves"],
+        "hash_probe_launches_read_back": ranks[0]["read_back_launches"],
+        "note": f"{world} ranks time-slice one card: not {world} cards' "
+                f"times", "card": card()}), flush=True)
+
+
+def tm_kernel_report(tag, outs, rows):
+    """Print and check tm_kernel_checks' readings from every rank (each
+    kernel within its limit on every rank); the largest errors go into the
+    kernels rows' max_abs_err (kernel_rows(): unset before the kernel
+    phases)."""
+    t = outs[0]
+    BH, S, D, group = t["flash_shape"]
+    for key in t["flash_over"]:
+        over = max(o["flash_over"][key] for o in outs)
+        err = max(o["flash_err"][key] for o in outs)
+        print(f"{tag}: flash_attention at a rank's shape (BH={BH}, Sq = Sk "
+              f"= {S}, D={D}, group {group}, causal), {key}: max |kernel - "
+              f"plain| over the ranks {err:.3e}, {over:.3f} of its limit "
+              f"({FLASH_ULPS[key.split()[0]]} ulps of |plain| + row rms)",
+              flush=True)
+        check(over <= 1, f"{tag}: flash_attention at the rank's shape, "
+              f"{key}: kernel != plain")
+        rows["flash_attention"]["max_abs_err"] = max(
+            rows["flash_attention"]["max_abs_err"] or 0.0, err)
+    for dt, m in t["flash_ms"].items():
+        bms, bby = m["bound"]
+        print(f"{tag}: flash_attention at a rank's shape, {dt} "
+              f"({FLASH_KERNEL[dt]}), rank 0 alone: kernel {m['ms']:.4f} "
+              f"ms, plain {m['plain_ms']:.4f} ms, scaled_dot_product_"
+              f"attention(is_causal=True) {m['library_ms']:.4f} ms (the "
+              f"same function), bound {bms:.5f} ms ({bby}) [{card()}]",
+              flush=True)
+    over = max(o["ssd_err"] / o["ssd_limit"] for o in outs)
+    err = max(o["ssd_err"] for o in outs)
+    bms, bby = t["ssd_bound"]
+    print(f"{tag}: ssd_scan at a rank's shape (B, nc, Q, H, P, N) = "
+          f"{t['ssd_shape']}: max |kernel - plain| over the ranks {err:.3e} "
+          f"({over:.3f} of its limit, SSD_RTOL); rank 0 alone: kernel "
+          f"{t['ssd_ms']:.4f} ms, plain {t['ssd_plain_ms']:.4f} ms, bound "
+          f"{bms:.5f} ms ({bby}, float32) [{card()}]", flush=True)
+    check(over <= 1, f"{tag}: ssd_scan at the rank's shape != plain")
+    rows["ssd_scan"]["max_abs_err"] = max(
+        rows["ssd_scan"]["max_abs_err"] or 0.0, err)
+
+
+def tm_conditioning_probe(dev):
+    """What moves the one-rank float32 run at the training world's two
+    states (``python3 chip_smoke.py --mesh-conditioning``): at the seeded
+    tree and after one step from it, a TM_COND_REL relative change of every
+    leaf, of the embeddings alone, and of each leaf alone (the five leaves
+    that move the loss most, and the five that move the grad norm most),
+    and the same step on the host's CPU in float32 (the kernels' plain
+    versions) against the card's."""
+    import torch
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import loss_and_grads, make_train_step
+    cfg = _tm_cfg()
+    batch = _tm_batch(cfg, dev)
+    hp = _tm_hparams(torch.float32)
+    p = _tp_params(cfg, None, dev, torch.float32)
+    state = {"params": p, "opt": init_opt_state(p)}
+    step = make_train_step(cfg, hp)
+    for s in range(2):
+        t0 = time.perf_counter()
+        if s:
+            step(state, batch)
+        p = state["params"]
+        base = loss_and_grads(cfg, hp, p, batch)
+        names = list(_flat(p))
+        each = {k: _tm_moves(cfg, hp, p, batch, base, [k]) for k in names}
+        top = lambda key: [(k, each[k][key]) for k in sorted(
+            each, key=lambda k: -each[k][key])[:5]]
+        cpu = {k: v.cpu() for k, v in batch.items()}
+        pc = _map_tree(p, lambda t: t.cpu())
+        on_cpu = _tm_gap(*base, *loss_and_grads(cfg, hp, pc, cpu))
+        del pc
+        print(f"{TM_ARCH} one-rank float32 at the {('first', 'second')[s]} "
+              f"step's state, {TM_BATCH} x {TM_SEQ}: " + json.dumps({
+                  "every_leaf": _tm_moves(cfg, hp, p, batch, base, names),
+                  "embeddings": each["embed"],
+                  "top_loss": top("loss"), "top_grad_norm": top("grad_norm"),
+                  "top_grad": [(k, each[k]["grad"], each[k]["grad_leaf"])
+                               for k, _ in top("grad")],
+                  "card_vs_cpu_float32": on_cpu,
+                  "loss": float(base[0]["loss"]), "seconds":
+                  time.perf_counter() - t0, "card": card()}), flush=True)
+
+
 KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
     "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                    "src/repro/kernels/hash_probe.py:53", "bytes"),
@@ -4972,6 +5649,9 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     build_kernels()
+    if sys.argv[1:] == ["--mesh-conditioning"]:
+        tm_conditioning_probe(dev)
+        return 0
     rows = kernel_rows()
 
     phase("kernels against their plain versions")
@@ -5078,6 +5758,12 @@ def main():
     checkpoint_on_card(dev)
     print(f"the training phases: {time.perf_counter() - t_train:.1f} s",
           flush=True)
+
+    phase("training on the mesh: zamba2-1.2b on (2, 4), eight ranks on the "
+          "card")
+    t0 = time.perf_counter()
+    train_on_the_mesh(dev, rows)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s in all", flush=True)
     print(card())                   # name, power limit as nvidia-smi gives them

@@ -11,10 +11,12 @@ as numpy arrays (nested dicts) and returns the port's tree on ``device``;
 ``params_to_numpy`` is the inverse; ``params_block`` cuts a rank's blocks
 of a whole tree for a mesh.  A train state (``{"params", "opt":
 {"master", "m", "v", "step"}}``) crosses in with ``train_state_from_numpy``
-and back with ``params_to_numpy``.  JAX's bf16 arrays come out of
-``np.asarray`` as ``ml_dtypes.bfloat16``, which torch cannot read, so they
-cross as 16-bit integer images.  Nothing changes but the type label, so
-round trips are bit-exact.
+and back with ``params_to_numpy``; on a mesh a rank takes its blocks of the
+reference's global state with ``train_state_block`` and gives its blocks
+back as global arrays with ``train_state_to_numpy``.  JAX's bf16 arrays
+come out of ``np.asarray`` as ``ml_dtypes.bfloat16``, which torch cannot
+read, so they cross as 16-bit integer images.  Nothing changes but the
+type label, so round trips are bit-exact.
 """
 from __future__ import annotations
 
@@ -96,3 +98,30 @@ def train_state_from_numpy(state, device="cuda"):
         raise ValueError("a train state is {'params', 'opt': {'master', 'm', "
                          "'v', 'step'}}")
     return params_from_numpy(state, device)
+
+
+def train_state_block(topo, spec_tree, state, device="cuda"):
+    """This rank's blocks of the reference's global train state (numpy
+    arrays, ``{"params", "opt": {"master", "m", "v", "step"}}``) under
+    ``topo`` and the state's ParamSpec tree (``make_train_state_specs``),
+    on ``device``: each leaf carried across whole on the CPU, cut, then
+    moved."""
+    dev = resolve_device(device)
+
+    def to(t):
+        return {k: to(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(dev)
+    return to(params_block(topo, spec_tree,
+                           train_state_from_numpy(state, "cpu")))
+
+
+def train_state_to_numpy(topo, spec_tree, state):
+    """A mesh state's global arrays from this rank's blocks: every leaf
+    gathered whole over the mesh (a collective a leaf, so every rank of the
+    mesh calls it) and returned as numpy, bf16 as ``ml_dtypes.bfloat16``."""
+    if isinstance(spec_tree, dict):
+        return {k: train_state_to_numpy(topo, spec_tree[k], state[k])
+                for k in spec_tree}
+    with torch.no_grad():
+        return tensor_to_numpy(topo.full(state, spec_tree.shape,
+                                         spec_tree.logical_axes))

@@ -14,7 +14,10 @@ tokens and has the reference's two sharded access modes:
     rows locally: data to compute.  Only wins for tiny tables (cost_model).
 
 One device, a vocab that the ``model`` axis does not divide, or rules that
-give the vocab no axis take the plain gather, as in the reference.
+give the vocab no axis take the plain gather, as in the reference.  Both
+modes' collectives go through the ``Topology``, so they are differentiable
+under autograd (the all-gather's backward a reduce-scatter, the
+all-reduce's an all-reduce).
 """
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import cost_model
 from repro_torch.models import layers as L
@@ -58,20 +60,16 @@ def embed_lookup(topo: Topology, table: torch.Tensor, tokens: torch.Tensor,
             tokens_per_shard=global_tokens // max(
                 topo.axis_sizes.get("data", 1), 1),
             d_model=d, vocab=V, shards=tp).mode
-    group = topo.group("model")
     ids = tokens.long()
     if mode == "onesided":
-        full = table.new_empty((V, d))
-        dist.all_gather_into_tensor(full, table.contiguous(), group=group)
-        return full[ids]
+        return topo.gather(table, 0, "model")[ids]
     vs = V // tp
     ids = ids - topo.axis_index("model") * vs
     ok = (ids >= 0) & (ids < vs)
     rows = table[ids.clamp(0, vs - 1)]
     rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                         device=rows.device))
-    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
-    return rows
+    return topo.all_reduce(rows, "model")
 
 
 def embed(cfg, table, tokens, topo: Topology = ONE_DEVICE):
@@ -122,18 +120,25 @@ def logits_of(cfg, params, h, topo: Topology = ONE_DEVICE):
 
 def greedy(cfg, logits, topo: Topology = ONE_DEVICE):
     """Greedy tokens (...,) int64 from logits (..., V_r), the rank's vocab
-    block: each rank's largest value and its first index, all-gathered over
-    the axes the vocab is split over, the largest of those with ties to the
-    lowest global index (``jnp.argmax``'s order)."""
+    block (:func:`vocab_argmax`)."""
     lo, n = vocab_block(cfg, topo)
     if n == cfg.vocab_padded:
         return logits.argmax(-1)
     e = topo.spec_for((cfg.vocab_padded, cfg.d_model), ("vocab", None))[0]
+    return vocab_argmax(topo, logits, e, lo)
+
+
+def vocab_argmax(topo: Topology, logits, entry, lo: int):
+    """The global argmax (...,) int64 of vocab-sharded logits (..., V_r),
+    the rank's columns from ``lo`` on under the vocab's ``spec_for`` entry:
+    each rank's largest value and its first index, all-gathered over the
+    entry's axes, the largest of those with ties to the lowest global index
+    (``jnp.argmax``'s order)."""
     idx = logits.argmax(-1, keepdim=True)
     # value and global index side by side in float64 (both exact), one
     # all-gather
     both = torch.cat([logits.gather(-1, idx).double(), (idx + lo).double()],
                      -1)[None]
-    both = topo.gather(both, 0, e)                # (tp, ..., 2) rank order
+    both = topo.gather(both, 0, entry)            # (tp, ..., 2) rank order
     best = both[..., 0].argmax(0, keepdim=True)
     return both[..., 1].gather(0, best)[0].long()

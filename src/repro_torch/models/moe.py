@@ -36,7 +36,10 @@ reference's sharded modes run on it, chosen per shape by the cost model:
 ``moe_dispatch`` says which mode a call runs; ``transformer.ffn_block``
 asks it first, to hand the experts' blocks or the whole stacks.
 
-No mode reads a device value on the host.
+No mode reads a device value on the host.  Every collective goes through
+the ``Topology`` (``gather``, ``all_reduce``), so each is differentiable
+under autograd; an assignment past capacity weighs nothing in the combine,
+so it carries no gradient.
 """
 from __future__ import annotations
 
@@ -44,7 +47,6 @@ import contextlib
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -196,18 +198,6 @@ def _routed_ffn(cfg, xt, router_w, wg, wu, wd, e_offset: int, cap: int):
                     xt.shape[1])
 
 
-def _gather(x, group, tp: int):
-    """all_gather of x's blocks along its first axis over ``group``."""
-    out = x.new_empty((tp * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    return out
-
-
-def _batch_axes(topo: Topology):
-    return tuple(a for a in topo.rules.get("batch", ())
-                 if topo.axis_sizes.get(a, 1) > 1)
-
-
 def moe_ffn(cfg: ModelConfig, topo: Topology, x, router_w, wg, wu, wd,
             mode: str = "auto"):
     """x (B_loc, S, d): this rank's block of a batch split over every batch
@@ -231,7 +221,7 @@ def moe_ffn(cfg: ModelConfig, topo: Topology, x, router_w, wg, wu, wd,
     if mode == "local":
         # the reference routes the whole batch at once (one capacity for
         # it): a batch split over the mesh is gathered, routed and cut back
-        axes = _batch_axes(topo)
+        axes = topo.batch_axes()
         xg = topo.gather(x, 0, axes) if axes else x
         _, buf, meta = route(cfg, xg, router_w)
         out = _combine(_expert_ffn(buf, wg, wu, wd), meta, xg.shape[0] * S,
@@ -245,15 +235,14 @@ def moe_ffn(cfg: ModelConfig, topo: Topology, x, router_w, wg, wu, wd,
         raise ValueError(f"expert blocks of {E} experts over {tp} ranks hold "
                          f"{E_l}, got {wg.shape[0]}")
     m = topo.axis_index("model")
-    group = topo.group("model")
+    gather = lambda t: topo.gather(t, 0, "model")
     if mode == "rpc":
         out = _routed_ffn(cfg, xt, router_w, wg, wu, wd, m * E_l,
                           capacity(cfg, T_loc))
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out.reshape(B, S, d)
+        return topo.all_reduce(out, "model").reshape(B, S, d)
     # one-sided: all-gather the expert stacks, route 1/tp of the tokens
     T_my = T_loc // tp
     out_my = _routed_ffn(cfg, xt[m * T_my:(m + 1) * T_my], router_w,
-                         _gather(wg, group, tp), _gather(wu, group, tp),
-                         _gather(wd, group, tp), 0, capacity(cfg, T_my))
-    return _gather(out_my, group, tp).reshape(B, S, d)
+                         gather(wg), gather(wu), gather(wd), 0,
+                         capacity(cfg, T_my))
+    return gather(out_my).reshape(B, S, d)

@@ -23,7 +23,9 @@ column-parallel then row-parallel on ``ff`` with one all-reduce over
 ``model``, the vocab-sharded embedding and LM head
 (``models/embedding.py``).  Each choice between a local block and a gather
 is made from global shapes, so every rank of a group enters the same
-collectives in the same order."""
+collectives in the same order.  Every collective is a ``Topology`` one,
+differentiable under autograd, so the same code trains on the mesh
+(``train/step.py``)."""
 from __future__ import annotations
 
 import dataclasses

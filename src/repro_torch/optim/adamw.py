@@ -3,14 +3,20 @@
 bias correction and weight decay inside the update, written term for term
 as the reference writes them; the bf16 parameters are re-derived from the
 master copy each step.  Plain functions on trees of tensors (nested dicts),
-not ``torch.optim.AdamW``."""
+not ``torch.optim.AdamW``.
+
+On a mesh (``topo``) every tree holds the rank's blocks, each leaf's
+``spec_for`` entries given by ``specs``: the update is elementwise on the
+blocks, and the clip's norm is the global one, each leaf's sum of squares
+all-reduced over the axes the leaf is split over (a leaf stored whole is
+counted once), one all-reduce for each set of axes."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from repro_torch.parallel.sharding import ParamSpec
+from repro_torch.parallel.sharding import ParamSpec, entry_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +75,35 @@ def _schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm
 
 
+def global_norm(grads, topo=None, specs=None):
+    """The gradient tree's global L2 norm in float32: on a mesh ``topo``
+    the blocks' sums of squares, summed by the set of axes each leaf is
+    split over (``specs``: its ``spec_for`` entries), all-reduced over
+    those axes, a set at a time."""
+    leaves = tree_leaves(grads)
+    sq = lambda g: torch.sum(torch.square(g.float()))
+    if topo is None or not topo.sharded():
+        return torch.sqrt(sum(sq(g) for g in leaves))
+    groups = {}
+    for g, spec in zip(leaves, tree_leaves(specs)):
+        axes = tuple(a for e in spec for a in entry_axes(e)
+                     if topo.axis_sizes[a] > 1)
+        groups[axes] = groups.get(axes, 0) + sq(g)
+    return torch.sqrt(sum(topo.all_reduce(v, axes)
+                          for axes, v in sorted(groups.items())))
+
+
 def apply_updates(cfg: AdamWConfig, grads, opt_state,
-                  param_dtype=torch.bfloat16, params=None):
+                  param_dtype=torch.bfloat16, params=None, *, topo=None,
+                  specs=None):
     """One AdamW step.  Returns (params, opt_state, metrics {"grad_norm",
     "lr"}).  ``opt_state``'s tensors are updated in place (the reference's
     donation); so is ``params`` when given (a tree of the parameters, each
     written with the new master in its own dtype), else new ``param_dtype``
-    tensors are returned."""
+    tensors are returned.  On a mesh ``topo`` the trees are the rank's
+    blocks and ``specs`` their ``spec_for`` entries (the global norm)."""
     step = opt_state["step"] + 1
-    leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    gnorm = global_norm(grads, topo, specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = _schedule(cfg, step)

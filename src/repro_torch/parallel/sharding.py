@@ -13,7 +13,11 @@ built over a ``torch.distributed.device_mesh.DeviceMesh``
 alone, so the rules can be checked at production sizes with no process
 group.  Where the reference's ``device_put`` gives each device its block of
 a global array by a ``NamedSharding``, a rank here cuts its block with
-:meth:`Topology.block`.
+:meth:`Topology.block`.  Its collectives (:meth:`Topology.gather_many`,
+:meth:`Topology.all_reduce`) are the models' only ones; under autograd
+they are ``torch.autograd.Function``s whose backward is the exact adjoint
+(a reduce-scatter, an all-reduce), so the reference's gradients through
+GSPMD's collectives come out of the same code (``train/step.py``).
 
 ``ParamSpec`` keeps the reference's shape, logical axes, init kind, dtype and
 scale.  Draws come from an explicit ``torch.Generator``: the same seed gives
@@ -143,6 +147,14 @@ class Topology:
             return {a: 0 for a in self.mesh.mesh_dim_names}
         return dict(zip(self.mesh.mesh_dim_names, self.mesh.get_coordinate()))
 
+    def coordinate_of(self, rank: int) -> Dict[str, int]:
+        """Global ``rank``'s index along every mesh axis (a DeviceMesh
+        only)."""
+        where = (self.mesh.mesh == rank).nonzero()
+        if where.shape[0] != 1:
+            raise ValueError(f"rank {rank} is not on the mesh")
+        return dict(zip(self.mesh.mesh_dim_names, where[0].tolist()))
+
     def axis_index(self, axis: str) -> int:
         """This rank's index along ``axis`` (0 where the mesh lacks it or
         the axis is 1 wide)."""
@@ -201,8 +213,17 @@ class Topology:
     def gather_many(self, xs, dims, entry):
         """:meth:`gather` of several blocks of one dtype (``xs[i]`` along
         ``dims[i]``) over the same entry, in one collective an axis: each
-        rank's blocks travel flattened side by side."""
+        rank's blocks travel flattened side by side.  Under autograd (grad
+        mode on, an input that requires grad) the gather is differentiable
+        and its backward is its adjoint, :meth:`reduce_scatter_many`."""
         xs = list(xs)
+        if not any(self.axis_sizes[a] > 1 for a in entry_axes(entry)):
+            return xs
+        if _under_grad(xs):
+            return list(_GatherMany.apply(self, tuple(dims), entry, *xs))
+        return self._gather_many(xs, dims, entry)
+
+    def _gather_many(self, xs, dims, entry):
         for a in reversed(entry_axes(entry)):
             n = self.axis_sizes[a]
             if n == 1:
@@ -220,13 +241,75 @@ class Topology:
                 at += p.numel()
         return xs
 
-    def all_reduce(self, x, entry):
+    def reduce_scatter_many(self, gs, dims, entry):
+        """The adjoint of :meth:`gather_many`: ``gs[i]``, whole along
+        ``dims[i]`` on every rank, summed over the mesh axes of ``entry``,
+        each rank keeping its block of the sum (the major axis first, the
+        reverse of the gather's order).  The sums go in float32, each
+        rounded once to its input's dtype; one collective an axis."""
+        gs = list(gs)
+        for a in entry_axes(entry):
+            n = self.axis_sizes[a]
+            if n == 1:
+                continue
+            parts = [g.movedim(d, 0) for g, d in zip(gs, dims)]
+            buf = torch.cat([p.reshape(n, -1).float() for p in parts], 1)
+            red = self._reduce_scatter(buf, a)
+            at = 0
+            for i, (p, d) in enumerate(zip(parts, dims)):
+                k = p.numel() // n
+                gs[i] = red[at:at + k].reshape(
+                    (p.shape[0] // n,) + tuple(p.shape[1:])).movedim(
+                        0, d).to(p.dtype)
+                at += k
+        return gs
+
+    def _reduce_scatter(self, buf, axis: str):
+        """Row ``axis_index(axis)`` of the sum of ``buf`` (n, k) over the
+        ranks of ``axis``: one reduce-scatter."""
+        out = buf.new_empty(buf.shape[1])
+        dist.reduce_scatter_tensor(out, buf.reshape(-1), op=dist.ReduceOp.SUM,
+                                   group=self.group(axis))
+        return out
+
+    def all_reduce(self, x, entry, op=dist.ReduceOp.SUM):
         """Sum ``x``, a partial result, over the mesh axes of a ``spec_for``
-        entry, in place; returns it."""
+        entry, in place; returns it (``op`` another reduction, e.g. MAX).
+        Under autograd (grad mode on, ``x`` requires grad) a SUM is
+        differentiable: the forward reduces a copy and the backward is
+        its adjoint, the same sum of the output's gradient (in float32,
+        rounded once)."""
+        if not any(self.axis_sizes[a] > 1 for a in entry_axes(entry)):
+            return x
+        if _under_grad([x]):
+            if op != dist.ReduceOp.SUM:
+                raise ValueError("only a SUM all-reduce is differentiable")
+            return _AllReduce.apply(self, entry, x)
+        return self._all_reduce(x, entry, op)
+
+    def _all_reduce(self, x, entry, op=dist.ReduceOp.SUM):
         for a in entry_axes(entry):
             if self.axis_sizes[a] > 1:
-                dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group(a))
+                dist.all_reduce(x, op=op, group=self.group(a))
         return x
+
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes more than 1 wide that the rules give the batch: a
+        rank's batch block is the batch split over all of them."""
+        return tuple(a for a in self.rules.get("batch", ())
+                     if self.axis_sizes.get(a, 1) > 1)
+
+    def world(self) -> int:
+        """The number of ranks of the mesh."""
+        return self._prod(self.axis_sizes)
+
+    def replicated_axes(self, spec) -> Tuple[str, ...]:
+        """The mesh axes more than 1 wide that no entry of ``spec`` (a
+        ``spec_for`` result) uses: those a leaf under it is stored whole
+        on."""
+        used = {a for e in spec for a in entry_axes(e)}
+        return tuple(a for a, n in self.axis_sizes.items()
+                     if n > 1 and a not in used)
 
     def full(self, x, shape: Sequence[int],
              logical_axes: Sequence[Optional[str]], keep: Sequence[int] = ()):
@@ -256,6 +339,44 @@ def entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _under_grad(xs) -> bool:
+    """Is a collective of ``xs`` part of an autograd graph?"""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _GatherMany(torch.autograd.Function):
+    """``Topology.gather_many`` under autograd: the forward is the gather,
+    run where autograd records nothing; the backward its adjoint."""
+
+    @staticmethod
+    def forward(ctx, topo, dims, entry, *xs):
+        ctx.topo, ctx.dims, ctx.entry = topo, dims, entry
+        return tuple(topo._gather_many(list(xs), dims, entry))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None) + tuple(
+            ctx.topo.reduce_scatter_many(gs, ctx.dims, ctx.entry))
+
+
+class _AllReduce(torch.autograd.Function):
+    """``Topology.all_reduce`` (a SUM) under autograd: the forward sums a
+    copy of its input, the backward sums the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, topo, entry, x):
+        ctx.topo, ctx.entry = topo, entry
+        return topo._all_reduce(x.clone(memory_format=torch.contiguous_format),
+                                entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.topo._all_reduce(g.to(torch.float32, copy=True,
+                                      memory_format=torch.contiguous_format),
+                                 ctx.entry)
+        return None, None, s.to(g.dtype)
 
 
 

@@ -106,3 +106,42 @@ def test_card_ssd_gradients_match_the_backward(cuda):
     for a, b in zip(through, want):
         assert torch.equal(a, b)
         assert float(a.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_card_train_launcher_on_an_nccl_mesh(cuda, tmp_path):
+    """``launch.train --mesh 2,2`` on four cards, one a rank (NCCL), for
+    zamba2-1.2b at smoke() size: 3 steps with a checkpoint at step 2 (each
+    leaf gathered from the cards to rank 0, which writes it whole), then
+    ``--resume`` for 1 step: every saved array has its leaf's global
+    shape, and the resumed step's loss equals the first run's third on
+    every rank."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (NCCL takes one card a rank)")
+    import numpy as np
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import train
+    from repro_torch.train.step import make_train_state_specs
+    argv = ["--arch", "zamba2-1.2b", "--smoke", "--batch", "2", "--seq",
+            "64", "--mesh", "2,2", "--ckpt-dir", str(tmp_path)]
+    first = train.main(argv + ["--steps", "3", "--ckpt-every", "2"])
+    resumed = train.main(argv + ["--steps", "1", "--resume"])
+    assert len(first) == len(resumed) == 4
+    for (_, a, lines), (_, b, rlines) in zip(first, resumed):
+        assert len(a) == 3 and b == a[2:]
+        assert "  checkpoint committed: step_00000002 (storm tx, latest=2)" \
+            in lines
+        assert rlines[0] == "resumed from step 2"
+
+    def shapes(tree, pre=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(shapes(v, f"{pre}{k}__"))
+            else:
+                out[pre + k] = tuple(v.shape)
+        return out
+    want = shapes(make_train_state_specs(get("zamba2-1.2b").smoke()))
+    got = {p.stem: tuple(np.load(p).shape)
+           for p in (tmp_path / "step_00000002").glob("*.npy")}
+    assert got == want

@@ -156,6 +156,53 @@ def serve(inp, cases, prompt, decode):
             out[f"{name}/cache/{k}"] = np.asarray(v)
 
 
+def _put(tree, prefix):
+    """``tree``'s leaves into ``out`` as ``<prefix>/<path>`` numpy arrays."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(v, f"{prefix}/{k}")
+    else:
+        out[prefix] = np.asarray(tree)
+
+
+def train(inp, cases):
+    from repro.optim import adamw as jA
+    from repro.train import step as jS
+    from repro.train.loss import lm_loss
+    for name, c in cases.items():
+        cfg, topo, opts, params = setup(inp, name, c)
+        hp = jS.TrainHparams(optimizer=jA.AdamWConfig(**c["adam"]),
+                             microbatches=c.get("micro", 1), opts=opts)
+        state = jax.device_put(
+            {"params": params, "opt": jA.init_opt_state(params)},
+            jS.state_shardings(topo, jS.make_train_state_specs(cfg)))
+        batch = {k: jnp.asarray(inp[f"{name}/{k}"])
+                 for k in ("tokens", "labels", "frames")
+                 if f"{name}/{k}" in inp.files}
+        batch = jax.device_put(batch, {k: NamedSharding(
+            topo.mesh, topo.spec_for(v.shape, ("batch",) + (None,) * (
+                v.ndim - 1))) for k, v in batch.items()})
+        with audio_scans(cfg):
+            if c.get("grads"):
+                def loss_fn(p, b):
+                    return lm_loss(api.forward(cfg, topo, p, b, opts=opts),
+                                   b["labels"])
+                (_, m), g = jit(cfg, jax.value_and_grad(
+                    loss_fn, has_aux=True))(state["params"], batch)
+                _put(m, f"{name}/vg/metrics")
+                _put(g, f"{name}/vg/grads")
+            step = jit(cfg, jS.make_train_step(cfg, topo, hp))
+            for i in range(c.get("steps", 1)):
+                state, m = step(state, batch)
+                state = {"params": state["opt"]["master"], "opt": state["opt"]}
+                _put(m, f"{name}/step{i}/metrics")
+                _put({k: state["opt"][k] for k in ("master", "m", "v")},
+                     f"{name}/step{i}")
+            if c.get("eval"):
+                _put(jit(cfg, jS.make_eval_step(cfg, topo, opts))(
+                    state["params"], batch), f"{name}/eval")
+
+
 def dryrun():
     from repro.configs import SHAPES
     from repro.data.pipeline import batch_specs
@@ -204,6 +251,8 @@ else:
     meta = json.loads(str(inp["cases"]))
     if KIND == "fwd":
         fwd(inp, meta["cases"])
+    elif KIND == "train":
+        train(inp, meta["cases"])
     else:
         serve(inp, meta["cases"], meta["prompt"], meta["decode"])
 np.savez(OUT, **out)
