@@ -144,6 +144,9 @@ Phases (any failure exits non-zero):
      prefill, prefill and decode ms per rank; the ``q_offset`` kernel at
      each rank's shape against its plain version, timed on the last rank
      beside ``scaled_dot_product_attention`` with the same boolean mask;
+     every rank's collectives of each float32 parity prefill, call by
+     call, equal to the dry run's meta record of the same cut
+     (``launch.dryrun.step_collectives``);
  12. the serving main path: zamba2-1.2b at full size (38 layers, seeded
      weights) through ``repro_torch.launch.serve``: 8 requests x 2048-token
      prompts, then 32 greedy tokens, with the launch counts of
@@ -245,7 +248,15 @@ Phases (any failure exits non-zero):
      ``ssd_scan`` launches a rank a step, and both kernels against their
      plain versions at the rank's shapes; one bf16 step against the
      one-rank bf16 step; the bf16 state saved on (2, 4) and restored onto
-     (1, 8), checksums equal, the committed step read back.
+     (1, 8), checksums equal, the committed step read back;
+ 28. the examples on the card (``examples_on_the_card``): quickstart and
+     kvstore_tx card against CPU bit for bit (printed lines, arena, every
+     result field), one ``hash_probe`` launch per read round; the Zipf
+     contention loop (``workloads.skew_contention``, 1 and 4 rounds) card
+     against CPU bit for bit; serve_decode's three archs with each
+     prefill's launches, ms and tok/s; train_moe in float32 for 3 steps
+     card against CPU from one state, then its 60 bf16 steps as it ships,
+     one ``flash_attention`` launch a layer a step.
 
 ``python3 chip_smoke.py --mesh-conditioning`` builds the kernels and runs
 only phase 27's probe of the one-rank float32 run (tm_conditioning_probe):
@@ -261,6 +272,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -4397,20 +4409,41 @@ TP_F32_REL = {"qwen1.5-4b": F32_REL_FAMILY, "glm4-9b": 2e-3,
 TP_PAD_REL = 5e-3
 
 
-def _tp_steps(cfg, topo, params, tokens, prompt, decode, extra=None):
+def _tp_steps(cfg, topo, params, tokens, prompt, decode, extra=None,
+              log=None):
     """Prefill logits, then ``decode`` teacher-forced steps' logits, each
     the rank's block, with the greedy tokens across the vocab blocks.
-    ``extra``: the audio family's frames, {"frames": tensor}."""
+    ``extra``: the audio family's frames, {"frames": tensor}; ``log``, a
+    list, gets the prefill's collectives (``ranks.collective_log``)."""
     from repro_torch.models.embedding import greedy
     from repro_torch.serving.decode import make_decode_step, make_prefill
-    logits, cache = make_prefill(cfg, prompt, decode, topo)(
-        params, dict(extra or {}, tokens=tokens[:, :prompt]))
+    from repro_torch.testing.ranks import collective_log
+    with collective_log() as seen:
+        logits, cache = make_prefill(cfg, prompt, decode, topo)(
+            params, dict(extra or {}, tokens=tokens[:, :prompt]))
+    if log is not None:
+        log.extend(seen)
     out = [logits]
     step = make_decode_step(cfg, topo)
     for t in range(prompt, prompt + decode):
         logits, cache = step(params, cache, tokens[:, t])
         out.append(logits)
     return out, [greedy(cfg, x, topo) for x in out]
+
+
+def _tp_dry_run(cfg, shape, B, P, Dn, extra):
+    """The dry run's meta record of a TP_CASES cut's parity prefill (rank
+    0's float32 blocks of the same config, mesh and batch under
+    SERVE_RULES): its collectives in call order."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import (SERVE_RULES, AbstractMesh,
+                                               Topology)
+    topo = Topology(AbstractMesh(("data", "model"), shape), dict(SERVE_RULES))
+    batch = {"tokens": ((B, P), torch.int64), **{
+        k: (tuple(v.shape), v.dtype) for k, v in extra.items()}}
+    return dryrun.step_collectives(cfg, topo, "prefill", B, P, room=Dn,
+                                   dtype=torch.float32, batch=batch)
 
 
 def _tp_depth(arch):
@@ -4620,8 +4653,10 @@ def tp_rank(rank, world, dev, cases):
         toks = blk(batch["tokens"], topo)
         extra = {k: blk(v, topo) for k, v in _stub_inputs(batch).items()}
         fa.launches = 0
+        res["collectives"] = []
         with kept_encoder({}) as box:
-            steps, greedy = _tp_steps(cfg, topo, p, toks, P, Dn, extra)
+            steps, greedy = _tp_steps(cfg, topo, p, toks, P, Dn, extra,
+                                      log=res["collectives"])
         res["parity_launches"] = fa.launches
         if "enc" in box:
             res["enc"] = box["enc"].cpu()
@@ -4760,9 +4795,12 @@ def tensor_parallel(dev, cases=TP_CASES):
     per application of the shared block; whisper: three per layer pair)
     and one ssd_scan launch per Mamba layer; the q_offset kernel, ssd_scan
     and whisper's three attentions at the rank's shapes against their
-    plain versions on every rank; prefill and decode ms per rank."""
+    plain versions on every rank; prefill and decode ms per rank; each
+    rank's collectives of the parity prefill equal to the dry run's meta
+    record of the cut (``_tp_dry_run``)."""
     import torch
     from repro_torch.configs.registry import get
+    from repro_torch.launch import dryrun, serve
     from repro_torch.testing.ranks import run_ranks
     refs = {}
     world = cases[0][1][0] * cases[0][1][1]
@@ -4800,6 +4838,20 @@ def tensor_parallel(dev, cases=TP_CASES):
                  f"{' + ' + str(depth) if 'enc' in ref else ''}"
                  f", {B} x {P} + {Dn}, float32, {world} ranks vs one, limit "
                  f"{rel}", got, ref["ref"], V, rel)
+        meta = _tp_dry_run(_tp_cfg(arch, depth), shape, B, P, Dn,
+                           _stub_inputs(serve.prompt_batch(
+                               _tp_cfg(arch, depth), B, P, Dn, "cpu")))
+        for r in ranks:
+            check(r[arch]["collectives"] == meta,
+                  f"{arch}: rank {r[arch]['coord']}'s collectives of the "
+                  f"parity prefill differ from the dry run's meta record")
+        mix = dryrun.collective_mix(meta)
+        print(f"tensor parallel {arch} {shape}: every rank's collectives of "
+              f"the float32 parity prefill equal the dry run's meta record "
+              f"of the cut, call by call: "
+              + ", ".join(f"{op} {c['count']} x {c['bytes']} B (by group "
+                          f"{c['by_group']})" for op, c in mix.items()),
+              flush=True)
         rows = B // shape[0]               # a rank's batch rows
         for i in range(Dn + 1):
             want = got[i][:, :V].argmax(-1)
@@ -5554,6 +5606,188 @@ def tm_conditioning_probe(dev):
                   time.perf_counter() - t0, "card": card()}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the four examples on the card (examples/torch_*.py)
+# ---------------------------------------------------------------------------
+# the train_moe example's step-1 and step-2 losses, card against CPU in
+# float32: over 4x what 1e-7 on the embeddings moves them on the CPU (2.8e-4
+# and 1.3e-3: its initial gradients are chaotic, tests/test_torch_examples.py)
+TRAIN_MOE_LOSS_REL = 6e-3
+TRAIN_MOE_CHECK_STEPS = 3
+
+
+def _example(name):
+    """The port's ``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def _read_rounds():
+    """Count the read rounds with live lanes (``hash_probe.probe_lines``
+    calls of more than zero lanes): yields a one-element list."""
+    from repro_torch.kernels import hash_probe as hp
+    inner, n = hp.probe_lines, [0]
+
+    def spy(*a, **k):
+        n[0] += a[1].shape[0] > 0            # dest (M,)
+        return inner(*a, **k)
+    hp.probe_lines = spy
+    try:
+        yield n
+    finally:
+        hp.probe_lines = inner
+
+
+def _same_fields(tag, a, b):
+    """Every tensor field of two result dataclasses (nested ones too)
+    equal, card against CPU."""
+    import dataclasses
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            _same_fields(tag, x, y)
+        else:
+            check(torch.equal(x.cpu(), y.cpu()), f"{tag}: {f.name} differs "
+                  "card against CPU")
+
+
+def _dataplane_example(name, dev, **kw):
+    """A dataplane example on the CPU, then on the card: lines, arena and
+    result bit for bit, one hash_probe launch per read round on the card.
+    Returns the card's launches and read rounds."""
+    import torch
+    from repro_torch.kernels import hash_probe as hp
+    mod = _example(name)
+    with _read_rounds() as rounds:
+        cpu = mod.main(device="cpu", **kw)
+    hp.launches = 0
+    got = mod.main(device=dev, **kw)
+    torch.cuda.synchronize()
+    check(got["lines"] == cpu["lines"], f"{name}: lines differ card against "
+          f"CPU: {got['lines']} / {cpu['lines']}")
+    check(torch.equal(got["state"]["arena"].cpu(), cpu["state"]["arena"]),
+          f"{name}: arena differs card against CPU")
+    _same_fields(name, got["result"], cpu["result"])
+    check(hp.launches == rounds[0], f"{name}: {hp.launches} hash_probe "
+          f"launches for {rounds[0]} read rounds")
+    return hp.launches, rounds[0]
+
+
+def examples_on_the_card(dev):
+    """The four examples (``examples/torch_*.py``) on the card: quickstart
+    and kvstore_tx card against CPU bit for bit (printed lines, arena, every
+    result field), one ``hash_probe`` launch per read round;
+    ``skew_contention.py``'s smoke configuration (``workloads.
+    skew_contention``: Zipf(1.2) writes onto 16 hot keys, 1 and 4 rounds)
+    card against CPU bit for bit, at most 2 exchanges per attempted round,
+    4 rounds committing at least what 1 does; serve_decode's three archs
+    with each prefill's kernel launches (``_family_launches``), finite
+    logits, ids in the vocabulary, its ms and tok/s; train_moe in float32
+    for TRAIN_MOE_CHECK_STEPS steps card against CPU from the same state
+    (the step-0 loss within LOSS_REL, the next within TRAIN_MOE_LOSS_REL),
+    then its 60 steps as it ships (bf16): every loss finite, one
+    ``flash_attention`` launch a layer a step, its closing line."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.testing import workloads as wl
+    from repro_torch.train.step import init_train_state
+
+    for name in ("quickstart", "kvstore_tx"):
+        t0 = time.perf_counter()
+        n, rounds = _dataplane_example(name, dev)
+        print(f"example {name}: card against CPU bit for bit (lines, arena, "
+              f"result); {n} hash_probe launches for {rounds} read rounds "
+              f"with live lanes; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    committed = {}
+    for rounds in (1, 4):
+        st, res = wl.skew_contention(rounds, device=dev)
+        cst, cres = wl.skew_contention(rounds, device="cpu")
+        check(torch.equal(st["arena"].cpu(), cst["arena"]),
+              f"skew contention r{rounds}: arena differs card against CPU")
+        _same_fields(f"skew contention r{rounds}", res, cres)
+        attempted = int((res.round_attempts > 0).sum())
+        rt_round = float(res.round_trips) / max(attempted, 1)
+        check(rt_round <= 2.0, f"skew contention: rt_round {rt_round}")
+        committed[rounds] = int(res.committed.sum())
+        print(f"skew contention (Zipf 1.2, 4 nodes x 16 lanes onto 16 hot "
+              f"keys) at {rounds} round(s): {committed[rounds]}/64 committed, "
+              f"lock aborts {res.round_abort_lock.tolist()}, rt_round "
+              f"{rt_round:.2f}, card against CPU bit for bit", flush=True)
+    check(committed[4] >= committed[1], "skew contention: retries committed "
+          "less than a single shot")
+
+    sd = _example("serve_decode")
+    for arch in sd.ARCHS:
+        cfg = get(arch).smoke()
+        fa.launches = ss.launches = 0
+        r = sd.serve(arch, dev)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.launches, "ssd_scan": ss.launches}
+        check(launches == _family_launches(cfg),
+              f"serve_decode {arch}: launches {launches}")
+        check(all(bool(torch.isfinite(x).all()) for x in r["logits"]),
+              f"serve_decode {arch}: non-finite logits")
+        check(bool(((r["ids"] >= 0) & (r["ids"] < cfg.vocab_size)).all()),
+              f"serve_decode {arch}: ids outside the vocabulary")
+        print(f"example serve_decode {arch}: launches {json.dumps(launches)} "
+              f"a prefill; prefill {r['prefill_ms']:.1f} ms, decode "
+              f"{r['tok_s']:.1f} tok/s (smoke size, B {sd.B}) [{card()}]",
+              flush=True)
+
+    tm = _example("train_moe")
+    cfg = tm.config()
+    f32 = lambda d: {k: f32(v) if isinstance(v, dict) else
+                     (v.float() if v.is_floating_point() else v)
+                     for k, v in d.items()}
+    state = f32(init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 "cpu"))
+    steps = ["--steps", str(TRAIN_MOE_CHECK_STEPS)]
+    cpu = tm.main(steps, device="cpu",
+                  state=_map_tree(state, lambda t: t.clone()))
+    fa.launches = 0
+    got = tm.main(steps, device=dev, state=_map_tree(state,
+                                                     lambda t: t.to(dev)))
+    check(fa.launches == TRAIN_MOE_CHECK_STEPS * cfg.n_layers,
+          f"train_moe float32: {fa.launches} flash_attention launches")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                cpu["losses"])]
+    print(f"example train_moe, float32, {TRAIN_MOE_CHECK_STEPS} steps card "
+          f"against CPU from one state: loss gaps {[f'{g:.3e}' for g in gaps]} "
+          f"(step 0 limit {LOSS_REL}, then {TRAIN_MOE_LOSS_REL}); grad norms "
+          f"card {[round(g, 2) for g in got['grad_norms']]}, CPU "
+          f"{[round(g, 2) for g in cpu['grad_norms']]} (chaotic at this "
+          f"state, not held)", flush=True)
+    check(gaps[0] <= LOSS_REL and all(g <= TRAIN_MOE_LOSS_REL
+                                      for g in gaps[1:]),
+          f"train_moe: losses card against CPU {gaps}")
+    fa.launches = 0
+    t0 = time.perf_counter()
+    run = tm.main([], device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = len(run["losses"])
+    check(n == 60 and all(map(math.isfinite, run["losses"] + run["grad_norms"])),
+          "train_moe: a non-finite loss or grad norm")
+    check(fa.launches == n * cfg.n_layers, f"train_moe: {fa.launches} "
+          f"flash_attention launches in {n} steps of {cfg.n_layers} layers")
+    check(run["lines"][-1].startswith(("\nloss", "WARNING")),
+          "train_moe: no closing line")
+    print(f"example train_moe, bf16 as it ships: {n} steps in {secs:.1f} s "
+          f"({secs / n * 1e3:.1f} ms a step with its host reads), "
+          f"{fa.launches} flash_attention launches; loss "
+          f"{run['losses'][0]:.4f} -> {min(run['losses'][-5:]):.4f} "
+          f"[{card()}]", flush=True)
+
+
 KERNELS = {   # name: (source, the TPU kernel it replaces, bound by)
     "hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                    "src/repro/kernels/hash_probe.py:53", "bytes"),
@@ -5763,6 +5997,11 @@ def main():
           "card")
     t0 = time.perf_counter()
     train_on_the_mesh(dev, rows)
+    print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("the examples on the card")
+    t0 = time.perf_counter()
+    examples_on_the_card(dev)
     print(f"phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s in all", flush=True)

@@ -168,6 +168,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True, window=None, softcap=None,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, group=group,
                                      q_offset=q_offset)
+    if q.device.type == "meta":          # a dry run: shapes only
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q.contiguous(), k.contiguous(), v.contiguous(),

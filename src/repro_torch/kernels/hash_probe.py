@@ -151,6 +151,10 @@ def probe_lines(arenas, dest, off, key_lo, key_hi, live, cache_hit, *,
     lanes_per_cta(width)                 # the kernel's widths, on every device
     if arenas.device.type == "cpu":
         return probe_lines_plain(*args, width=width, zero_miss=zero_miss)
+    if arenas.device.type == "meta":     # a dry run: shapes only
+        M = dest.shape[0]
+        return (dest.new_empty((M,), dtype=torch.bool), dest.new_empty((M,)),
+                dest.new_empty((M, sl.VALUE_WORDS)), dest.new_empty((M,)))
     if arenas.device.type != "cuda":
         raise ValueError(f"hash_probe: unsupported device {arenas.device}")
     return _launch(*(x.contiguous() for x in args), width=width,

@@ -68,6 +68,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from repro_torch.models.layers import block_attention_jnp
+        if g.device.type == "meta":      # a dry run: shapes only
+            return (*map(torch.empty_like, ctx.saved_tensors),
+                    None, None, None, None, None, None)
         leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad(), RANGE("flash_attention backward"):
             out = block_attention_jnp(*leaves, **ctx.kw)
@@ -99,6 +102,9 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gstate):
         saved = ctx.saved_tensors
+        if gy.device.type == "meta":     # a dry run: shapes only
+            return (*(None if t is None else torch.empty_like(t)
+                      for t in saved), None)
         leaves = [None if t is None else t.detach().requires_grad_()
                   for t in saved]
         live = [t for t in leaves if t is not None]

@@ -186,6 +186,10 @@ def ssd_scan(xdt, dA, Bc, Cc, *, h_tile: int = 4, init_state=None):
         raise ValueError(f"ssd_scan: h_tile {h_tile} must divide H = {H}")
     if xdt.device.type == "cpu":
         return ssd_scan_plain(xdt, dA, Bc, Cc, init_state=init_state)
+    if xdt.device.type == "meta":        # a dry run: shapes only
+        B, H, P, N = xdt.shape[0], xdt.shape[3], xdt.shape[4], Bc.shape[-1]
+        return (torch.empty_like(xdt, dtype=torch.float32),
+                torch.empty((B, H, N, P), dtype=torch.float32, device="meta"))
     if xdt.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {xdt.device}")
     return _launch(*map(_aligned, (xdt, dA, Bc, Cc, init_state)))

@@ -93,6 +93,10 @@ class Topology:
     # topology is made
     _memo: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False, compare=False)
+    # on an AbstractMesh, the collectives a run over meta tensors would
+    # have sent: (XLA's op name, per-device output bytes, group size)
+    log: list = dataclasses.field(default_factory=list, init=False,
+                                  repr=False, compare=False)
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
@@ -231,7 +235,8 @@ class Topology:
             parts = [x.movedim(d, 0) for x, d in zip(xs, dims)]
             flat = torch.cat([p.reshape(-1) for p in parts])
             out = flat.new_empty(n * flat.numel())
-            dist.all_gather_into_tensor(out, flat, group=self.group(a))
+            if self._runs("all-gather", out, a):
+                dist.all_gather_into_tensor(out, flat, group=self.group(a))
             out = out.view(n, -1)
             at = 0
             for i, (p, d) in enumerate(zip(parts, dims)):
@@ -268,8 +273,10 @@ class Topology:
         """Row ``axis_index(axis)`` of the sum of ``buf`` (n, k) over the
         ranks of ``axis``: one reduce-scatter."""
         out = buf.new_empty(buf.shape[1])
-        dist.reduce_scatter_tensor(out, buf.reshape(-1), op=dist.ReduceOp.SUM,
-                                   group=self.group(axis))
+        if self._runs("reduce-scatter", out, axis):
+            dist.reduce_scatter_tensor(out, buf.reshape(-1),
+                                       op=dist.ReduceOp.SUM,
+                                       group=self.group(axis))
         return out
 
     def all_reduce(self, x, entry, op=dist.ReduceOp.SUM):
@@ -289,9 +296,24 @@ class Topology:
 
     def _all_reduce(self, x, entry, op=dist.ReduceOp.SUM):
         for a in entry_axes(entry):
-            if self.axis_sizes[a] > 1:
+            if self.axis_sizes[a] > 1 and self._runs("all-reduce", x, a):
                 dist.all_reduce(x, op=op, group=self.group(a))
         return x
+
+    def _runs(self, op: str, out, axis: str) -> bool:
+        """Should the collective ``op`` (output ``out``) over ``axis`` run?
+        Yes on a DeviceMesh.  On an AbstractMesh there is no process group:
+        the call is appended to :attr:`log` (op, ``out``'s bytes, the
+        group's size) and ``out`` stays as it is, which only a dry run over
+        ``meta`` tensors may ask for."""
+        if not isinstance(self.mesh, AbstractMesh):
+            return True
+        if out.device.type != "meta":
+            raise ValueError(f"{op} over {axis!r} of an AbstractMesh: it has "
+                             f"no process group, so only meta tensors pass")
+        self.log.append((op, out.numel() * out.element_size(),
+                         self.axis_sizes[axis]))
+        return False
 
     def batch_axes(self) -> Tuple[str, ...]:
         """The mesh axes more than 1 wide that the rules give the batch: a

@@ -10,9 +10,14 @@ stopped.  ``fn`` must be importable by the child (a module-level function
 of a module that imports what the rank needs, and nothing of the JAX
 package: every rank asserts that ``jax`` and ``repro.`` stay unloaded).
 Results go back through ``torch.save``, so keep them small and on the CPU.
+
+``collective_log()`` records the collectives a rank calls through
+``torch.distributed`` in the dry run's terms (``launch/dryrun.py``), so a
+rank's real step can be held against its meta record.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import pathlib
@@ -31,6 +36,36 @@ def foreign_modules():
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib")
                   or m == "repro" or m.startswith("repro."))
+
+
+# the torch.distributed collectives the port's models call (through
+# parallel.sharding.Topology), by XLA's op name
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce"}
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Record every call of :data:`COLLECTIVES` on this rank while the block
+    runs: yields a list that gets (op, the output's bytes, the group's
+    size) a call, in call order (``Topology.log``'s entries)."""
+    import torch.distributed as dist
+    log, saved = [], {n: getattr(dist, n) for n in COLLECTIVES}
+
+    def spy(name):
+        def call(out, *a, **k):
+            log.append((COLLECTIVES[name], out.numel() * out.element_size(),
+                        dist.get_world_size(k.get("group"))))
+            return saved[name](out, *a, **k)
+        return call
+    for n in COLLECTIVES:
+        setattr(dist, n, spy(n))
+    try:
+        yield log
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
 
 
 def _rank_main(fn, rank, world_size, device, backend, init_method, args,

@@ -1,7 +1,8 @@
 """Workload builders of the port: counterparts of ``benchmarks/common.py``'s
 ``populate`` / ``make_tx_workload``, of the TATP transaction draw in
 ``benchmarks/fig6_tatp.py``, of ``benchmarks/range_scan.py``'s
-``build_tree`` / ``scan_workload``, and of the bench gate's replicated,
+``build_tree`` / ``scan_workload``, of ``repro/testing/workloads.py``'s
+``zipf_write_keys`` (the contention regime), and of the bench gate's replicated,
 ordered and membership workloads, making the SAME ``np.random.RandomState``
 draws in the same order, so a workload built here equals the reference's
 word for word.  Every builder takes ``device=`` (default ``"cuda"``)."""
@@ -38,6 +39,57 @@ def value_for(key_lo):
     """Deterministic per-key slot value (VALUE_WORDS words)."""
     i = torch.arange(sl.VALUE_WORDS, dtype=torch.int32, device=key_lo.device)
     return sl._mix32(key_lo[..., None] + i)
+
+
+def zipf_write_keys(n_nodes: int, lanes: int, *, n_hot: int = 4,
+                    theta: float = 1.5, seed: int = 0, stride: int = 7919,
+                    device="cuda"):
+    """One write key per lane, Zipf(theta)-distributed over n_hot hot keys
+    (Storm's contention regime: a few keys take most of the writes, so lock
+    races abound), the reference's draw.  Returns (hot (n_hot,), key_lo
+    (n_nodes, lanes, 1), key_hi same) int32 words on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    hot = (np.arange(n_hot, dtype=np.uint32) + 1) * np.uint32(stride)
+    rank = np.arange(1, n_hot + 1, dtype=np.float64)
+    p = 1.0 / rank ** theta
+    p /= p.sum()
+    pick = rng.choice(n_hot, size=(n_nodes, lanes, 1), p=p)
+    klo = words(hot[pick], dev)
+    return words(hot, dev), klo, torch.zeros_like(klo)
+
+
+def skew_contention(max_rounds: int, *, theta: float = 1.2, seed: int = 11,
+                    n_nodes: int = 4, lanes: int = 16, n_hot: int = 16,
+                    perms=None, device="cuda"):
+    """``benchmarks/skew_contention.py``'s ``run_config`` (its defaults are
+    the smoke configuration): n_hot hot keys pre-inserted, then one
+    Zipf(theta) write a lane (``zipf_write_keys``) through ``tx_loop`` at
+    ``max_rounds`` (``perms``: its backoff permutations, the port's
+    default draws when None).  Returns (state, TxLoopResult)."""
+    from repro_torch.core import txloop
+    from repro_torch.core.transport import SimTransport
+    dev = resolve_device(device)
+    cfg = ht.HashTableConfig(n_nodes=n_nodes, n_buckets=256, bucket_width=1,
+                             n_overflow=64, max_chain=8)
+    layout = ht.build_layout(cfg)
+    t = SimTransport(n_nodes)
+    hot, klo, khi = zipf_write_keys(n_nodes, lanes, n_hot=n_hot, theta=theta,
+                                    seed=seed, device=dev)
+    hk = hot[None].repeat(n_nodes, 1)
+    hz = torch.zeros_like(hk)
+    node, _, _ = ht.lookup_start(cfg, layout, hk, hz)
+    state, _, _, _ = R.rpc_call(
+        t, ht.init_cluster_state(cfg, device=dev), node,
+        ht.make_record(R.OP_INSERT, hk, hz, value=value_for(hk)),
+        ht.make_rpc_handler(cfg, layout))
+    state, _, res = txloop.tx_loop(
+        t, state, cfg, layout,
+        read_keys=torch.zeros((n_nodes, lanes, 0, 2), dtype=torch.int32,
+                              device=dev),
+        write_keys=torch.stack([klo, khi], -1), write_values=value_for(klo),
+        max_rounds=max_rounds, perms=perms, device=dev)
+    return state, res
 
 
 def _draw_keys(cfg, t, n_keys_per_node, seed, dev):

@@ -483,7 +483,11 @@ def test_plain_versions_count_no_launch():
 
 
 def test_wrappers_reject_bad_arguments():
+    """Bad arguments and devices refused; meta tensors shape-only."""
+    import types
+    from repro_torch.core import slots as sl
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import ssd_scan as ss
     arrs, _ = _ssd_case(SSD_CASES[0])
     with pytest.raises(ValueError, match="h_tile"):
@@ -491,8 +495,37 @@ def test_wrappers_reject_bad_arguments():
     _, (q, k, v), kw, group, _ = _flash_case(FLASH_CASES[0])
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention_bhsd(q, k, v, causal=True, window=0)
+    # a device that is neither cpu, cuda nor meta is refused by all three
+    # wrappers (a stand-in with the shape and device the wrapper reads)
+    other = lambda t: types.SimpleNamespace(shape=tuple(t.shape),
+                                            device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.flash_attention_bhsd(q.to("meta"), k.to("meta"), v.to("meta"))
+        fa.flash_attention_bhsd(other(q), other(k), other(v))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ss.ssd_scan(*(other(torch.from_numpy(a)) for a in arrs))
+    with pytest.raises(ValueError, match="unsupported device"):
+        hp.probe_lines(*(other(torch.zeros(2, 4)) for _ in range(7)),
+                       width=1)
+    # meta tensors (the dry run's) take a shape-only path: outputs of the
+    # kernels' shapes and dtypes, nothing computed
+    out = fa.flash_attention_bhsd(q.to("meta"), k.to("meta"), v.to("meta"),
+                                  group=group, **kw)
+    assert out.device.type == "meta" and out.shape == q.shape
+    y, st = ss.ssd_scan(*(torch.from_numpy(a).to("meta") for a in arrs))
+    B, nc, Q, H, P = arrs[0].shape
+    assert y.device.type == st.device.type == "meta"
+    assert y.shape == (B, nc, Q, H, P) and st.shape == (
+        B, H, arrs[2].shape[-1], P) and st.dtype == torch.float32
+    M = 5
+    lanes = [torch.zeros(M, dtype=torch.int32, device="meta")] * 4
+    flags = [torch.zeros(M, dtype=torch.bool, device="meta")] * 2
+    f, ver, val, loc = hp.probe_lines(
+        torch.zeros(2, 64, dtype=torch.int32, device="meta"), *lanes,
+        *flags, width=1)
+    assert (f.shape, ver.shape, val.shape, loc.shape) == (
+        (M,), (M,), (M, sl.VALUE_WORDS), (M,))
+    assert (f.dtype, ver.dtype, val.dtype, loc.dtype) == (
+        torch.bool, torch.int32, torch.int32, torch.int32)
 
 
 @pytest.mark.cuda

@@ -32,9 +32,12 @@ through mamba2-780m (the reference's
 ``test_wide_dp_rules_forward_matches_default``); (f) prefill 96 + 4 decode
 steps under ``SERVE_RULES`` on (1, 4), qwen1.5-4b in "heads" cache mode,
 gemma2-27b in "seq" mode, mamba2-780m and zamba2-1.2b with every cache
-entry's block (conv tails, SSM states, the shared block's K/V); (g) the
-dry run's shard shapes and bytes against ``NamedSharding(...).shard_shape``
-on the production meshes; (h) mamba2-780m on (1, 4) and (2, 2), and at
+entry's block (conv tails, SSM states, the shared block's K/V), and each
+rank's collectives of the prefill and a decode step against the dry run's
+meta record of the same cut; (g) the dry run's shard shapes and bytes
+against ``NamedSharding(...).shard_shape`` on the production meshes, its
+collective mix on every cell, extrapolated from one and two layer groups
+exactly; (h) mamba2-780m on (1, 4) and (2, 2), and at
 head dim 64 (2 heads over 4 ranks: ``heads`` dropped, ``ff`` kept),
 zamba2-1.2b on (1, 4) and (2, 2); (i) whisper-medium on (1, 4), on (2, 2)
 under DEFAULT_RULES (the batch over data, the fsdp gathers) and at 6 heads
@@ -464,6 +467,30 @@ def test_cache_blocks_match_reference(case, stage, world, oracles):
                                                                     err)
 
 
+@pytest.mark.parametrize("stage", ["prefill", "decode"])
+@pytest.mark.parametrize("case", list(TR.SERVE))
+def test_serving_collectives_match_dry_run(case, stage, world):
+    """Every rank's collectives of its prefill (96 positions with 4 of room)
+    and of its first decode step (op, output bytes, group size, in call
+    order) equal to the dry run's meta record of the same config, mesh,
+    rules and batch (``dryrun.step_collectives`` on an AbstractMesh, rank
+    0's blocks in float32), and so its collective mix."""
+    c = TR.SERVE[case]
+    cfg = TR.case_cfg(c)
+    inp = INPUTS[case]
+    batch = {"tokens": ((c["B"], TR.PROMPT), torch.int64), **{
+        k: (inp[k].shape, torch.float32) for k in TR.STUB if k in inp}}
+    S_ = TR.PROMPT if stage == "prefill" else TR.PROMPT + TR.DECODE
+    want = dryrun.step_collectives(cfg, topo_of(c), stage, c["B"], S_,
+                                   room=TR.DECODE, dtype=torch.float32,
+                                   batch=batch)
+    assert want
+    for coord, r in world[case]:
+        assert r["collectives"][stage] == want, coord
+    assert dryrun.collective_mix(world[case][0][1]["collectives"][stage]) \
+        == dryrun.collective_mix(want)
+
+
 def test_helpers_on_the_mesh(world):
     """Topology.gather over one axis and over (data, model) a1-major, an
     all-reduce over both, and greedy's ties across vocab blocks (to the
@@ -591,7 +618,10 @@ def test_dryrun_records_layouts():
     qwen2.5-32b (40 heads over 16) and qwen1.5-4b (20) sequence-parallel,
     padded under ``--opt tuned``; gemma2-27b's local and global layers by
     heads; glm4-9b heads with a "seq" cache; whisper-medium's three
-    attentions by heads with a "heads" cache; the MoE archs' dispatch."""
+    attentions by heads with a "heads" cache; the MoE archs' dispatch; and
+    every ok cell's collective mix on the 16 x 16 mesh (the reference's
+    op names, each op's bytes its groups' sum, every group one axis of
+    16, a train step's gradients reduce-scattered)."""
     br = lambda a, s, m="single", opt="baseline": dryrun.build_cell(
         a, s, m, opt)
     assert br("qwen2.5-32b", "prefill_32k")["attention_branch"] == {
@@ -613,6 +643,50 @@ def test_dryrun_records_layouts():
     wide = br("granite-moe-1b-a400m", "train_4k", opt="tuned")
     assert wide["rules"] == "WIDE_DP_RULES"
     assert wide["moe_dispatch_mode"] == "replicated"
+    # every ok cell on the 16 x 16 mesh carries its collective mix
+    for arch in ARCHS:
+        for sname in SHAPES:
+            rec = br(arch, sname)
+            if rec["status"] != "ok":
+                continue
+            mix = rec["collectives"]
+            assert mix and set(mix) <= {"all-gather", "all-reduce",
+                                        "reduce-scatter"}, (arch, sname)
+            for op in mix.values():
+                assert op["count"] > 0 and op["bytes"] > 0
+                assert set(op["by_group"]) == {"16"}
+                assert sum(op["by_group"].values()) == op["bytes"]
+            if rec["kind"] == "train":      # the gradients' adjoints
+                assert "reduce-scatter" in mix, arch
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "granite-moe-1b-a400m",
+                                  "mamba2-780m", "zamba2-1.2b",
+                                  "whisper-medium"])
+def test_dryrun_collectives_extrapolate_exactly(arch):
+    """The dry run's mix from one and two layer groups, extrapolated, equal
+    to the step run at the whole depth: each family's smoke() config at
+    three groups (gemma2's local/global pairs, zamba2's six Mamba layers
+    and the shared block with its tail layer, whisper's encoder and
+    decoder layers), the train step on (2, 2) under DEFAULT_RULES, the
+    prefill and a decode step on (1, 4) under SERVE_RULES."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import batch_specs
+    from repro_torch.models.transformer import RunOptions
+    from repro_torch.train.step import TrainHparams
+    cfg = dryrun.cut_depth(get(arch).smoke(), 3)
+    assert dryrun.depth_units(cfg) == 3
+    hp = TrainHparams(opts=RunOptions(q_block=16, kv_block=16))
+    for kind, mesh, rules in (("train", (2, 2), S.DEFAULT_RULES),
+                              ("prefill", (1, 4), S.SERVE_RULES),
+                              ("decode", (1, 4), S.SERVE_RULES)):
+        shape = ShapeConfig("cut", 64, 4, kind)
+        run = lambda c: dryrun.step_collectives(
+            c, S.Topology(S.AbstractMesh(("data", "model"), mesh),
+                          dict(rules)), kind, 4, 64, hp=hp,
+            batch=batch_specs(c, shape))
+        whole = dryrun.collective_mix(run(cfg))
+        assert whole and dryrun.extrapolated_mix(cfg, run) == whole, kind
 
 
 def test_dryrun_cli_writes_every_cell_on_meta(tmp_path, monkeypatch):

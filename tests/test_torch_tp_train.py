@@ -29,7 +29,8 @@ on (2, 2) byte-equal to a one-device save of the gathered state and
 restored onto (1, 4), ``launch.train --mesh 2,2`` (its rank function in
 the world, and ``main`` itself) with a checkpoint and ``--resume``, and
 the MoE cases' routing replayed on one device to show assignments are
-dropped.
+dropped, and every rank's collectives of its first step against the dry
+run's meta record of the same cut (``launch/dryrun.step_collectives``).
 
 Limits: those of ``tests/torch_train_common.py``.  Each rank's gradient
 of every leaf within ``GRAD_REL`` of the leaf's largest |grad| (the
@@ -258,6 +259,32 @@ def test_train_matches_reference(case, world, oracles):
                 assert err <= GRAD_REL * np.abs(want).max() + floor, (i, path)
                 assert torch.equal(leaf(st["state"]["params"], path),
                                    leaf(st["state"]["opt"]["master"], path))
+
+
+@pytest.mark.parametrize("case", list(TR.CASES))
+def test_train_step_collectives_match_dry_run(case, world):
+    """Every rank's collectives of its first train step (op, output bytes,
+    group size, in call order: the forward, remat's recompute and the
+    backward's adjoints, ``sync_grads``, the clip's norm) equal to the dry
+    run's meta record of the same config, mesh, rules, options and batch
+    (``dryrun.step_collectives`` on an AbstractMesh, rank 0's blocks in
+    float32), and so its collective mix."""
+    from repro_torch.launch import dryrun
+    c = TR.CASES[case]
+    cfg = TR.case_cfg(c)
+    batch = {k: (v.shape, torch.float32) for k, v in INPUTS[case].items()
+             if k != "params"}
+    want = dryrun.step_collectives(cfg, topo_of(c), "train", c["B"], c["S"],
+                                   hp=TR.case_hparams(c),
+                                   dtype=torch.float32, batch=batch)
+    ops = {op for op, _, _ in want}
+    assert "all-reduce" in ops, ops
+    if c["mesh"][0] > 1 and c["rules"] == "DEFAULT_RULES":
+        assert "reduce-scatter" in ops, ops  # the fsdp gathers' adjoints
+    for rank in world:
+        assert rank[case][1]["collectives"] == want
+    assert dryrun.collective_mix(world[0][case][1]["collectives"]) == \
+        dryrun.collective_mix(want)
 
 
 def test_lm_loss_tie_across_a_vocab_block_boundary(world):

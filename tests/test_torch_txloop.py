@@ -1,9 +1,11 @@
-"""PyTorch port, the whole slice: tx_loop on the bench gate's workload and on
-a small TATP mix, each built by both packages from the same numpy seeds and
+"""PyTorch port, the whole slice: tx_loop on the bench gate's workload, on
+a small TATP mix and on the contention regime (``skew_contention.py``'s
+smoke configuration: Zipf writes from ``workloads.zipf_write_keys`` onto a
+few hot keys), each built by both packages from the same numpy seeds and
 held bit for bit against the JAX package — populated arenas, final arenas,
-commit masks, abort causes, WireStats and round counts.  The TATP mix runs
-retry rounds, fed the reference's own backoff permutations through
-``perms`` (torch cannot reproduce ``jax.random``)."""
+commit masks, abort causes, WireStats and round counts.  The TATP and
+contention runs take retry rounds, fed the reference's own backoff
+permutations through ``perms`` (torch cannot reproduce ``jax.random``)."""
 import torch_threads  # noqa: F401  (first: pins torch's threads)
 import dataclasses
 import json
@@ -177,3 +179,90 @@ def test_tx_loop_default_generator_is_deterministic():
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     assert (outs[0][1] > 0).any()                        # retries committed
+
+
+@pytest.mark.parametrize("n_nodes,lanes,n_hot,theta,seed", [
+    (4, 16, 16, 1.2, 11), (4, 16, 16, 0.6, 11), (2, 6, 4, 1.5, 0),
+    (8, 32, 3, 0.0, 7), (3, 5, 1, 2.5, 123), (1, 64, 64, 0.99, 2**31 - 1)])
+def test_zipf_write_keys_match_reference(n_nodes, lanes, n_hot, theta, seed):
+    """``workloads.zipf_write_keys`` bit for bit against the reference's:
+    the hot keys and each lane's (key_lo, key_hi), int32 word images."""
+    from repro.testing import workloads as jwl
+    kw = dict(n_hot=n_hot, theta=theta, seed=seed)
+    want = jwl.zipf_write_keys(n_nodes, lanes, **kw)
+    got = pwl.zipf_write_keys(n_nodes, lanes, device=CPU, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(w))
+    assert got[1].shape == (n_nodes, lanes, 1)
+
+
+def _skew_run(max_rounds, theta=1.2, seed=11, n_nodes=4, lanes=16, n_hot=16):
+    """``benchmarks/skew_contention.py``'s ``run_config`` (its smoke
+    configuration) through both packages (the port's
+    ``workloads.skew_contention``, fed the reference's backoff
+    permutations): (the reference's state and result, the port's)."""
+    from repro.core import rpc as JR
+    from repro.testing import workloads as jwl
+    kw = dict(n_nodes=n_nodes, n_buckets=256, bucket_width=1, n_overflow=64,
+              max_chain=8)
+    jcfg = jht.HashTableConfig(**kw)
+    jl = jht.build_layout(jcfg)
+    hot, klo, khi = jwl.zipf_write_keys(n_nodes, lanes, n_hot=n_hot,
+                                        theta=theta, seed=seed)
+    hk = jnp.tile(hot[None], (n_nodes, 1))
+    hz = jnp.zeros_like(hk)
+    node, _, _ = jht.lookup_start(jcfg, jl, hk, hz)
+    js, _, _, _ = JR.rpc_call(
+        JSim(n_nodes), jht.init_cluster_state(jcfg), node,
+        jht.make_record(JR.OP_INSERT, hk, hz, value=jwl.value_for(hk)),
+        jht.make_rpc_handler(jcfg, jl))
+    rk = jnp.zeros((n_nodes, lanes, 0, 2), jnp.uint32)
+    wk = jnp.stack([klo, khi], -1)
+    js2, _, jres = jax.jit(lambda st: jtxl.tx_loop(
+        JSim(n_nodes), st, jcfg, jl, read_keys=rk, write_keys=wk,
+        write_values=jwl.value_for(klo), max_rounds=max_rounds))(js)
+
+    perms = jax_perms(jax.random.PRNGKey(0x5707), max_rounds, n_nodes, lanes)
+    ps, pres = pwl.skew_contention(
+        max_rounds, theta=theta, seed=seed, n_nodes=n_nodes, lanes=lanes,
+        n_hot=n_hot, perms=torch.from_numpy(perms), device=CPU)
+    return (js2, jres), (ps, pres)
+
+
+def same_signed(p, j, what=""):
+    """``same``, with the reference's int32 fields (``commit_round``'s -1:
+    never committed) compared as signed integers and its uint32 words as
+    the port's int32 bit images."""
+    if dataclasses.is_dataclass(j):
+        for f in dataclasses.fields(j):
+            same_signed(getattr(p, f.name), getattr(j, f.name),
+                        f"{what}.{f.name}")
+        return
+    want = np.asarray(j)
+    got = p.detach().cpu().numpy() if torch.is_tensor(p) else np.asarray(p)
+    if want.dtype == np.uint32:
+        got = got.view(np.uint32)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def test_skew_contention_smoke_matches_reference():
+    """skew_contention.py --smoke (4 nodes x 16 lanes of Zipf(1.2) writes
+    onto 16 pre-inserted hot keys, max_rounds 1 and 4) through the port's
+    ``tx_loop`` with the reference's permutations: arenas, commit masks,
+    per-round counts by cause, WireStats and round trips bit for bit; at
+    most 2 exchanges per attempted round (write-only: lock, commit); 4
+    rounds commit at least as much as 1, and the retries ran."""
+    committed = {}
+    for max_rounds in (1, 4):
+        (js, jres), (ps, pres) = _skew_run(max_rounds)
+        same_signed(pres, jres)
+        np.testing.assert_array_equal(to_numpy(ps["arena"]),
+                                      np.asarray(js["arena"]))
+        attempted = int((pres.round_attempts > 0).sum())
+        assert float(pres.round_trips) / max(attempted, 1) <= 2.0
+        committed[max_rounds] = int(pres.committed.sum())
+        if max_rounds > 1:
+            assert int(pres.round_retries.sum()) > 0
+    assert committed[4] >= committed[1]
+    assert int(pres.round_abort_lock.sum()) > 0       # the lock races ran

@@ -8,7 +8,9 @@ leaf is a constant), tokens and, for the VLM, patch embeddings, for the
 audio family frames (float32 values rounded to bf16).  A rank
 carries the whole tree across with ``params_from_numpy`` and keeps its
 blocks (``params_block``), takes its batch block, and returns its outputs'
-blocks on the CPU with its mesh coordinate.
+blocks on the CPU with its mesh coordinate.  A serving case's rank also
+returns the collectives its prefill and its first decode step called
+(``ranks.collective_log``).
 """
 import argparse
 import dataclasses
@@ -22,6 +24,7 @@ from repro_torch.models import api, mamba2, moe, transformer, whisper
 from repro_torch.models.embedding import greedy
 from repro_torch.parallel import sharding as S
 from repro_torch.serving import decode as D
+from repro_torch.testing.ranks import collective_log
 
 CPU = "cpu"
 MESHES = ((1, 4), (2, 2))
@@ -207,14 +210,17 @@ def _serve_rank(topo, c, inp):
     toks = topo.block(torch.from_numpy(inp["tokens"]).long(), "batch", None)
     stub = {k: topo.block(torch.from_numpy(inp[k]), "batch", None, None)
             for k in STUB if k in inp}
-    logits, cache = D.make_prefill(cfg, PROMPT, DECODE, topo)(
-        pb, dict(stub, tokens=toks[:, :PROMPT]))
+    with collective_log() as pre_log:
+        logits, cache = D.make_prefill(cfg, PROMPT, DECODE, topo)(
+            pb, dict(stub, tokens=toks[:, :PROMPT]))
     out = dict(logits=[logits], greedy=[greedy(cfg, logits, topo)],
                prefill_cache={k: v.clone() for k, v in cache.items()},
-               kv_mode=D.kv_mode(cfg, topo))
+               kv_mode=D.kv_mode(cfg, topo), collectives={"prefill": pre_log})
     step = D.make_decode_step(cfg, topo)
     for i in range(PROMPT, PROMPT + DECODE):
-        logits, cache = step(pb, cache, toks[:, i])
+        with collective_log() as log:
+            logits, cache = step(pb, cache, toks[:, i])
+        out["collectives"].setdefault("decode", log)
         out["logits"].append(logits)
         out["greedy"].append(greedy(cfg, logits, topo))
     out["cache"] = cache

@@ -10,7 +10,8 @@ reference's ``init_opt_state`` makes of the weights
 (``convert.train_state_block``), its block of the batch (rows over every
 batch axis), and
 returns its blocks of the gradients, the metrics and the state after each
-step on the CPU, with its mesh coordinate.  While it trains, every raw
+step on the CPU, with its mesh coordinate, and the collectives its first
+train step called (``ranks.collective_log``).  While it trains, every raw
 ``torch.distributed`` collective must run with grad mode off (inside a
 differentiable collective's forward or backward, or under ``no_grad``) and
 torch's "an autograd kernel was not registered" warning is an error.
@@ -32,6 +33,7 @@ from repro_torch.models import api
 from repro_torch.models.transformer import RunOptions
 from repro_torch.optim import adamw as A
 from repro_torch.parallel import sharding as S
+from repro_torch.testing.ranks import collective_log
 from repro_torch.train import step as T
 
 CPU = "cpu"
@@ -183,7 +185,9 @@ def train_case(topo, c, inp, remat=None):
         return out
     step = T.make_train_step(cfg, hp, topo)
     for _ in range(c.get("steps", 1)):
-        state, m = step(state, batch)
+        with collective_log() as log:
+            state, m = step(state, batch)
+        out.setdefault("collectives", log)
         out["steps"].append(dict(metrics={k: float(v) for k, v in m.items()},
                                  state=_cpu(state)))
     if c.get("steps", 1) > 1:
